@@ -1,1 +1,2 @@
-"""Relation models (STTran) and the JAX -> port weight converter."""
+"""Relation models (STTran), their training losses and the JAX -> port
+weight converter."""

@@ -1,4 +1,5 @@
-"""STTran relation model (port of nl_vsgg_tpu/models/sttran.py), eval mode.
+"""STTran relation model (port of nl_vsgg_tpu/models/sttran.py), eval and
+train mode.
 
 Object classifier + visual/semantic relation features + the shipped `wk`
 spatio-temporal transformer (reference lib/sttran.py, lib/transformer_wk.py)
@@ -14,6 +15,13 @@ validity, the `f_last > 0` fallback) is taken per video and broadcast back.
 Layouts: Entry feature maps are channel-last; the mask conv tower runs
 NCHW on a permuted view, and `vr_fc` reads its input in the reference's
 (C, 7, 7) flatten order, so the reference state_dict loads unchanged.
+
+Train mode (`forward(entry, train=True, generator=g)`): dropout at every
+place the JAX model applies it, drawn from `g`, and BatchNorm statistics per
+video (the JAX step vmaps the model per video, so each video normalizes with
+its own statistics; the mask tower's BatchNorms reduce over each video's
+(R, H, W), never over the pooled B*R rows). The running updates stay
+pending in each MaskedBatchNorm until the train step commits them.
 """
 
 from __future__ import annotations
@@ -28,8 +36,8 @@ from ..data.entry import MASK_P, Entry
 from ..device import resolve_device
 from ..ops.boxes import center_size
 from ..ops.union_masks import draw_union_boxes
-from .layers import (TRAIN_TODO, MaskedBatchNorm, MaskedDecoderLayer,
-                     MaskedEncoderLayer, MaskedMHA, _cast, linear)
+from .layers import (MaskedBatchNorm, MaskedDecoderLayer, MaskedEncoderLayer,
+                     MaskedMHA, _cast, dropout, linear)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -69,46 +77,53 @@ def spatial_mask_input(entry: Entry) -> torch.Tensor:
 class ObjectClassifierWK(nn.Module):
     """Weak-supervision object head (reference lib/sttran.py:20-51, 173-184):
     GloVe soft-embedding of the detector distribution, BatchNorm'd box
-    position embedding, (feat + 200 + 128) -> 1024 -> classes. float32."""
+    position embedding, (feat + 200 + 128) -> 1024 -> classes. float32.
+    BatchNorm momenta are the JAX module's: 0.001 for the position
+    embedding's, 0.1 for the decoder's. `generator` (train mode) drops the
+    position embedding out at `dropout` after its ReLU."""
 
-    def __init__(self, num_classes: int = 37, feat_dim: int = 2048):
+    def __init__(self, num_classes: int = 37, feat_dim: int = 2048, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.obj_embed = nn.Embedding(num_classes - 1, 200)
-        self.pos_embed = nn.Sequential(MaskedBatchNorm(4),
-                                       nn.Linear(4, 128), nn.ReLU(), nn.Dropout(0.1))
+        self.pos_embed = nn.Sequential(MaskedBatchNorm(4, momentum=0.001),
+                                       nn.Linear(4, 128), nn.ReLU(), nn.Dropout(dropout))
         self.decoder_lin = nn.Sequential(nn.Linear(feat_dim + 200 + 128, 1024),
-                                         MaskedBatchNorm(1024), nn.ReLU(),
+                                         MaskedBatchNorm(1024, momentum=0.1), nn.ReLU(),
                                          nn.Linear(1024, num_classes))
 
-    def forward(self, entry: Entry) -> torch.Tensor:
+    def forward(self, entry: Entry, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         obj_embed = entry.distribution @ self.obj_embed.weight
-        pos = self.pos_embed[0](center_size(entry.boxes), entry.box_mask)
-        pos = torch.relu(self.pos_embed[1](pos))
+        pos = self.pos_embed[0](center_size(entry.boxes), entry.box_mask, train)
+        pos = dropout(torch.relu(self.pos_embed[1](pos)), self.dropout,
+                      generator if train else None)
         h = self.decoder_lin[0](torch.cat([entry.features.float(), obj_embed, pos], dim=-1))
-        h = torch.relu(self.decoder_lin[1](h, entry.box_mask))
+        h = torch.relu(self.decoder_lin[1](h, entry.box_mask, train))
         logits = self.decoder_lin[3](h)
         return torch.where(entry.box_mask[..., None], logits, 0.0)
 
 
 class SpatialMaskConv(nn.Sequential):
     """2 -> 256 conv tower over 27x27 masks (reference lib/sttran.py:337-345),
-    NCHW, convolutions in the compute dtype, BatchNorm in float32."""
+    NCHW, convolutions in the compute dtype, BatchNorm in float32 (momentum
+    0.01, as the JAX module's). x is (B*R, 2, 27, 27), mask (B, R)."""
 
     def __init__(self, dtype=None):
         super().__init__(nn.Conv2d(2, 128, 7, 2, 3), nn.ReLU(),
-                         MaskedBatchNorm(128, channel_dim=1),
+                         MaskedBatchNorm(128, channel_dim=1, momentum=0.01),
                          nn.MaxPool2d(3, 2, 1), nn.Conv2d(128, 256, 3, 1, 1), nn.ReLU(),
-                         MaskedBatchNorm(256, channel_dim=1))
+                         MaskedBatchNorm(256, channel_dim=1, momentum=0.01))
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
         def conv(c: nn.Conv2d, x):
             return F.conv2d(_cast(x, self.dtype), _cast(c.weight, self.dtype),
                             _cast(c.bias, self.dtype), c.stride, c.padding)
 
-        x = self[2](torch.relu(conv(self[0], x)), mask)
+        x = self[2](torch.relu(conv(self[0], x)), mask, train)
         x = F.max_pool2d(x, 3, 2, 1)
-        return self[6](torch.relu(conv(self[4], x)), mask)
+        return self[6](torch.relu(conv(self[4], x)), mask, train)
 
 
 class _Stack(nn.Module):
@@ -126,21 +141,25 @@ class STTranTransformer(nn.Module):
 
     def __init__(self, embed_dim: int = 1936, num_heads: int = 8,
                  dim_feedforward: int = 2048, enc_layers: int = 1, dec_layers: int = 3,
-                 mode: str = "latter", variant: str = "wk", dtype=None, fused: bool = True):
+                 mode: str = "latter", variant: str = "wk", dtype=None, fused: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         if mode not in ("latter", "both") or variant not in ("wk", "org"):
             raise ValueError(f"mode {mode!r} / variant {variant!r}")
         self.mode, self.variant = mode, variant
         self.position_embedding = nn.Embedding(2, embed_dim)
         self.local_attention = _Stack(
-            MaskedEncoderLayer(embed_dim, num_heads, dim_feedforward, dtype, fused)
+            MaskedEncoderLayer(embed_dim, num_heads, dim_feedforward, dtype, fused, dropout)
             for _ in range(enc_layers))
         self.global_attention = _Stack(
-            MaskedDecoderLayer(embed_dim, num_heads, dim_feedforward, dtype, fused)
+            MaskedDecoderLayer(embed_dim, num_heads, dim_feedforward, dtype, fused, dropout)
             for _ in range(dec_layers))
 
     def forward(self, rel_features: torch.Tensor, im_idx: torch.Tensor,
-                rel_mask: torch.Tensor) -> torch.Tensor:
+                rel_mask: torch.Tensor, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        """`generator` switches dropout on (train mode)."""
+        g = generator
         R = rel_features.shape[-2]
         im_idx = im_idx.long()
         rm = rel_mask
@@ -152,7 +171,7 @@ class STTranTransformer(nn.Module):
         allow_s = (im_idx[:, :, None] == im_idx[:, None, :]) & pairs(rm, rm)
         local = rel_features
         for layer in self.local_attention.layers:
-            local = layer(local, allow_s)
+            local = layer(local, allow_s, generator=g)
         local = torch.where(rm[..., None], local, 0.0)
 
         # ---- temporal decoder over duplicated former/latter streams ----
@@ -172,8 +191,8 @@ class STTranTransformer(nn.Module):
         def run_square(layers):
             toks = torch.cat([local, local], dim=-2)
             for i, layer in enumerate(layers):
-                toks = (layer(local, pe, allow_t, dup2=True) if i == 0
-                        else layer(toks, pos, allow_t))
+                toks = (layer(local, pe, allow_t, dup2=True, generator=g) if i == 0
+                        else layer(toks, pos, allow_t, generator=g))
             return toks
 
         if self.mode == "both":
@@ -190,7 +209,7 @@ class STTranTransformer(nn.Module):
             q_valid = torch.where(is0, rm & (im_idx <= last_window), rm & (im_idx >= 1))
             allow_q = (q_window[:, :, None] == window[:, None, :]) & pairs(q_valid, valid)
             out = dec[-1](q_tokens, pe[is0.logical_not().long()], allow_q,
-                          kv=tokens, pos_kv=pos)
+                          kv=tokens, pos_kv=pos, generator=g)
         # no windows (all relations in frame 0): wk passes the spatial output
         # through, org returns its zeros-initialized buffer
         fallback = local if self.variant == "wk" else torch.zeros_like(local)
@@ -206,20 +225,23 @@ class STTran(nn.Module):
     `contacting_distribution` with their raw logits, and `global_output`.
     `dtype` is the compute dtype of projections, convolutions and attention
     (None = float32); the object classifier and the heads stay float32.
-    Weights are drawn from `generator` (default: a generator seeded 0)."""
+    Weights are drawn from `generator` (default: a generator seeded 0).
+    `dropout` is the rate of every dropout (the JAX model's 0.1; 0 turns
+    dropout off in train mode)."""
 
     def __init__(self, mode: str = "sgdet", attention_class_num: int = 3,
                  spatial_class_num: int = 6, contact_class_num: int = 17,
                  obj_classes=(), enc_layer_num: int = 1, dec_layer_num: int = 3,
                  feat_dim: int = 2048, transformer_fusion: str = "latter",
                  transformer_variant: str = "wk", dtype=None, fused: bool = True,
-                 device=None, generator: torch.Generator | None = None):
+                 dropout: float = 0.1, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
         self.mode, self.dtype = mode, dtype
         num_classes = max(len(obj_classes), 37)
         if mode != "predcls":
-            self.object_classifier = ObjectClassifierWK(num_classes, feat_dim)
+            self.object_classifier = ObjectClassifierWK(num_classes, feat_dim, dropout)
         self.union_func1 = nn.Conv2d(feat_dim, 256, 1, 1)
         self.conv = SpatialMaskConv(dtype)
         self.subj_fc = nn.Linear(feat_dim, 512)
@@ -230,7 +252,8 @@ class STTran(nn.Module):
         embed_dim = 3 * 512 + 2 * 200
         self.glocal_transformer = STTranTransformer(
             embed_dim=embed_dim, enc_layers=enc_layer_num, dec_layers=dec_layer_num,
-            mode=transformer_fusion, variant=transformer_variant, dtype=dtype, fused=fused)
+            mode=transformer_fusion, variant=transformer_variant, dtype=dtype, fused=fused,
+            dropout=dropout)
         self.a_rel_compress = nn.Linear(embed_dim, attention_class_num)
         self.s_rel_compress = nn.Linear(embed_dim, spatial_class_num)
         self.c_rel_compress = nn.Linear(embed_dim, contact_class_num)
@@ -238,14 +261,19 @@ class STTran(nn.Module):
         self.to(device)
         self.eval()
 
-    def forward(self, entry: Entry, train: bool = False) -> dict[str, torch.Tensor]:
-        if train:
-            raise NotImplementedError(TRAIN_TODO)
+    def forward(self, entry: Entry, train: bool = False,
+                generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """`train=True` needs `generator` (on the model's device): dropout
+        masks and attention seeds are drawn from it, and BatchNorm uses each
+        video's own statistics (their running updates stay pending)."""
+        if train and generator is None:
+            raise ValueError("train mode draws its dropout from a generator: pass one")
+        g = generator if train else None
         dt = self.dtype
         B, R = entry.pair_idx.shape[:2]
         out: dict[str, torch.Tensor] = {}
         if self.mode != "predcls":
-            out["distribution"] = self.object_classifier(entry)
+            out["distribution"] = self.object_classifier(entry, train, g)
         pred_labels = entry.labels
         out["pred_labels"] = pred_labels
         out["pred_scores"] = entry.scores
@@ -257,7 +285,7 @@ class STTran(nn.Module):
         masks = spatial_mask_input(entry)                   # (B, R, 27, 27, 2)
         masks = masks.reshape(B * R, *masks.shape[2:]).permute(0, 3, 1, 2)
         vr = (union_projection(entry.union_feat, self.union_func1, dt)
-              + self.conv(masks, entry.rel_mask))           # (B*R, 256, 7, 7)
+              + self.conv(masks, entry.rel_mask, train))    # (B*R, 256, 7, 7)
         vr = linear(vr.reshape(B, R, -1), self.vr_fc, dt)   # (C, 7, 7) order
         x_visual = torch.cat([subj_rep, obj_rep, vr], dim=-1)
 
@@ -267,11 +295,12 @@ class STTran(nn.Module):
                                dim=-1)
         rel_features = torch.cat([x_visual, x_semantic], dim=-1)  # (B, R, 1936)
 
-        g = self.glocal_transformer(rel_features, entry.im_idx, entry.rel_mask).float()
-        out["global_output"] = g
-        out["attention_distribution"] = self.a_rel_compress(g)
-        s_logits = self.s_rel_compress(g)
-        c_logits = self.c_rel_compress(g)
+        glob = self.glocal_transformer(rel_features, entry.im_idx, entry.rel_mask,
+                                       generator=g).float()
+        out["global_output"] = glob
+        out["attention_distribution"] = self.a_rel_compress(glob)
+        s_logits = self.s_rel_compress(glob)
+        c_logits = self.c_rel_compress(glob)
         out["spatial_logits"] = s_logits
         out["contacting_logits"] = c_logits
         out["spatial_distribution"] = torch.sigmoid(s_logits)

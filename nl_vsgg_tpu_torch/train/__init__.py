@@ -1,1 +1,2 @@
-"""Steps over batched Entries (eval only so far)."""
+"""Train state, optimizer, LR schedule, and the train and eval steps over
+batched Entries."""

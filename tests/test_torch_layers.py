@@ -129,8 +129,6 @@ def test_masked_batchnorm_eval(layout):
     else:
         ours = m(torch.from_numpy(x), torch.from_numpy(mask))
     np.testing.assert_allclose(ours.detach().numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        m(torch.from_numpy(x), torch.from_numpy(mask), train=True)
 
 
 def test_bf16_compute_dtype_keeps_fp32_params():
@@ -142,3 +140,39 @@ def test_bf16_compute_dtype_keeps_fp32_params():
     assert all(p.dtype == torch.float32 for p in m.parameters())
     ref = port(tl.MaskedEncoderLayer(E, H, FF))(x, allow)
     torch.testing.assert_close(out.float(), ref, rtol=0, atol=0.1)
+
+
+@pytest.mark.parametrize("layer", ["encoder", "decoder"])
+def test_dropout_draws_from_the_generator(layer):
+    """A generator switches dropout on: the same seed gives the same
+    output, another seed another; no generator (eval) or rate 0 gives the
+    eval output; torch's global generator is never drawn from."""
+    cls = tl.MaskedEncoderLayer if layer == "encoder" else tl.MaskedDecoderLayer
+    m = port(cls(E, H, FF))
+    x = torch.randn(B, L, E)
+    allow = torch.rand(B, L, L) < 0.5
+    args = (x, allow) if layer == "encoder" else (x, torch.randn(L, E), allow)
+
+    def run(seed=None, rate=0.1):
+        for mod in m.modules():  # the layer's and its attention's rate
+            if isinstance(getattr(mod, "dropout", None), float):
+                mod.dropout = rate
+        g = None if seed is None else torch.Generator().manual_seed(seed)
+        return m(*args, generator=g)
+
+    torch.manual_seed(0)
+    global_state = torch.get_rng_state()
+    eval_out = run()
+    a, b, c = run(1), run(1), run(2)
+    assert torch.equal(torch.get_rng_state(), global_state)
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, eval_out)
+    torch.testing.assert_close(run(1, rate=0.0), eval_out, rtol=0, atol=0)
+
+
+def test_dropout_keep_rate_and_scale():
+    x = torch.ones(200, 500)
+    out = tl.dropout(x, 0.1, torch.Generator().manual_seed(0))
+    kept = out != 0
+    assert abs(float(kept.float().mean()) - 0.9) < 5 * np.sqrt(0.09 / x.numel())
+    torch.testing.assert_close(out[kept], torch.full_like(out[kept], 1 / 0.9))
+    assert tl.dropout(x, 0.1, None) is x

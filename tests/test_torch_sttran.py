@@ -97,10 +97,58 @@ def test_union_and_mask_sentinels_match_jax():
                                    atol=ATOL, rtol=0, err_msg=k)
 
 
-def test_train_mode_not_ported():
-    model = STTran(feat_dim=FEAT, enc_layer_num=1, dec_layer_num=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        model(stack_entries(mixed_batch()[:1]), train=True)
+@pytest.fixture()
+def no_flax_dropout(monkeypatch):
+    """flax Dropout as the identity (tests/test_train_trajectory.py's patch):
+    the two packages draw different random streams."""
+    import flax.linen as nn
+    monkeypatch.setattr(nn.Dropout, "__call__",
+                        lambda self, inputs, deterministic=None, rng=None: inputs)
+
+
+def test_train_forward_matches_jax(no_flax_dropout):
+    """Train mode, dropout off on both sides: every head and every
+    BatchNorm's validity-weighted running update against the JAX model run
+    per video. The three videos have different statistics, so BatchNorm
+    pooled over the batch (or over the mask tower's B*R rows) would fail."""
+    entries = mixed_batch(seed=11)
+    model = STTran(mode="sgdet", feat_dim=FEAT, dec_layer_num=1, dropout=0.0, device="cpu",
+                   generator=torch.Generator().manual_seed(8))
+    params, stats, _ = convert_sttran(model.state_dict())
+    params, stats = jax.tree.map(jax.numpy.array, (params, stats))  # copies
+    batch = stack_entries(entries)
+    ours = model(batch, train=True, generator=torch.Generator().manual_seed(0))
+    vid_w = batch.box_mask.any(-1)
+    for m in model.modules():
+        if hasattr(m, "commit"):
+            m.commit(vid_w)
+    _, new_stats, _ = convert_sttran(model.state_dict())
+
+    jm = JSTTran(mode="sgdet", feat_dim=FEAT, dec_layer_num=1)
+
+    def per_video(entry):
+        pred, upd = jm.apply({"params": params, "batch_stats": stats}, entry, train=True,
+                             mutable=["batch_stats"], rngs={"dropout": jax.random.key(0)})
+        return pred, upd["batch_stats"]
+
+    jbatch = jax.tree.map(jax.numpy.asarray, j_stack([to_jax_entry(e) for e in entries]))
+    ref, ref_stats = jax.device_get(jax.jit(jax.vmap(per_video))(jbatch))
+    for k in HEADS:
+        np.testing.assert_allclose(ours[k].detach().numpy(), np.asarray(ref[k]),
+                                   atol=ATOL, rtol=0, err_msg=k)
+    w = np.asarray(vid_w, np.float32)
+
+    def check(path, leaf):
+        node = new_stats
+        for key in path:
+            node = node[key.key]
+        expect = np.where(w.reshape(-1, *[1] * (leaf.ndim - 1)) > 0,
+                          leaf * w.reshape(-1, *[1] * (leaf.ndim - 1)), 0).sum(0) / w.sum()
+        np.testing.assert_allclose(node, expect, rtol=1e-5, atol=1e-6,
+                                   err_msg=jax.tree_util.keystr(path))
+
+    for path, leaf in jax.tree_util.tree_leaves_with_path(ref_stats):
+        check(path, np.asarray(leaf))
 
 
 def test_scene_graph_json_matches_predict_tool():
