@@ -32,7 +32,29 @@ Phases, in order; any failure exits non-zero before the result line:
   6. the train forward and both backward kernels timed on the inputs one
      train step gave them, beside their plain versions, the library call
      and the bound; a torch.profiler table of the train step;
-  7. the `kernels` JSON line, then the device JSON line, last.
+  7. the detector kernels against their plain versions at the detector
+     path's shapes, float32 and bfloat16: RoIAlign on a (4, 38, 64, 1024) C4
+     map with 300 rois a frame (degenerate, clamped and fully outside rois
+     among them), the grouped 3x3 conv at its four geometry classes (c = 8
+     at 152x256, 16 at 76x128, 32 at 38x64, 64 at 7x7 over 1200 crops), with
+     and without the bias + ReLU epilogue;
+  8. the detector path: `AttrRCNNTorch` (VinVL X152-C4 at full width and
+     depth, random weights from a seeded generator) on 480x800 BGR frames
+     (600x1000 after the resize, bucket 608x1024): in float32 on 4 frames
+     the kernel path against the plain path on the same weights (C4 map,
+     RPN logits and deltas, box-head logits, deltas and features at the same
+     proposals, relative to each tensor's largest magnitude; the detections
+     matched by frame, label and corners), with the launch counts of the
+     trunk (45 grouped convs) and the box head (1 RoIAlign, 2 grouped
+     convs); then the bf16 `detect_video` as a server answering two
+     32-frame requests and `extract_box_features_frames` for 96 union boxes
+     a video, each with the counts set to 0 just before and read just after
+     (1 RoIAlign and 47 grouped convs a pass), ms per video, frames/s, peak
+     memory, and bf16 union features against fp32 by correlation;
+  9. both detector kernels timed on the inputs one bf16 `detect_video` gave
+     them, beside their plain versions, cuDNN's grouped conv and the bound;
+     a torch.profiler table of one bf16 `detect_video`;
+ 10. the `kernels` JSON line, then the device JSON line, last.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -77,6 +99,23 @@ MODEL_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 #   carried through bf16 layers both ways -> 5e-2
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 RATE = 0.1                                      # STTran's dropout
+# the detector path (VinVL X152-C4): 480x800 BGR frames resize to 600x1000
+# (bucket 608x1024, C4 map 38x64); the float32 kernel-vs-plain checks run on
+# DET_CHECK_FRAMES frames, the bf16 server on two videos of DET_FRAMES
+DET_FRAMES, DET_CHECK_FRAMES, DET_HW, UNION_BOXES = 32, 4, (480, 800), 96
+# a detector kernel against its plain version in float32: sums in another
+# order (16 products in RoIAlign, up to 9 * 64 in the conv) -> 1e-5 of the
+# output's largest magnitude (bfloat16 as KERNEL_TOL)
+DET_KERNEL_REL = 1e-5
+# the float32 detector, kernel path vs plain path on the same weights and
+# frames: the same math in another order through 50 residual blocks, the
+# RPN and the C5 head -> 1e-4 of each tensor's largest magnitude
+DET_PATH_TOL = 1e-4
+# final detections, plain path's valid ones found in the kernel path's list
+# (same frame and label, every corner within DET_MATCH_PX): random weights
+# give near-tied candidate scores, so float32 noise may flip a few top-k or
+# NMS decisions among them; at least 90% must match
+DET_MATCH, DET_MATCH_PX = 0.9, 0.5
 SLEEP_CYCLES = 50_000_000                       # about 25 ms at the H100's clocks
 TRAIN_STEPS = 5
 HEADS = ("attention_distribution", "spatial_distribution", "contacting_distribution",
@@ -181,6 +220,336 @@ def profile_table(fn, step_ms: float, label: str, n: int = 3) -> None:
                 f"{e.count // n:4d}/step  {e.key[:90]}")
     except Exception as ex:  # the profiler is a diagnostic: report, never fail
         log(f"profile {label}: unavailable ({ex!r})")
+
+
+# ---------------------------------------------------------------- detector
+def rel_err(out, ref) -> float:
+    """max |out - ref| over the largest |ref|."""
+    o, r = out.float(), ref.float()
+    return float((o - r).abs().max() / r.abs().max().clamp(min=1e-30))
+
+
+def det_kernel_err(out, ref) -> tuple[float, bool]:
+    """A detector kernel against its plain version: float32 within
+    DET_KERNEL_REL of the output's largest magnitude; bfloat16 as
+    KERNEL_TOL (one rounding of an fp32 sum on each side)."""
+    if str(ref.dtype) == "torch.float32":
+        err = float((out - ref).abs().max())
+        ok = err <= DET_KERNEL_REL * float(ref.abs().max()) and bool(out.isfinite().all())
+        return err, ok
+    return kernel_err(out, ref)
+
+
+def detector_weights(seed: int, dev) -> dict:
+    """Random full-width AttrRCNN weights from a seeded generator: convs at
+    fan-in scale (He), the residual branches' last FrozenBN scales (bn3,
+    downsample) 0.2 so that the C4 map stays O(1) through 50 blocks, other
+    FrozenBN scales 1, biases 0, predictor weights N(0, 0.01^2)."""
+    import torch
+    from nl_vsgg_tpu_torch.detector.attr_rcnn import AttrRCNNModule
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in AttrRCNNModule().state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sd = {}
+    for k, shp in shapes.items():
+        if k.endswith(".weight"):
+            std = (2.0 / float(np.prod(shp[1:]))) ** 0.5 if len(shp) == 4 else 0.01
+            sd[k] = torch.randn(shp, generator=g, device=dev) * std
+        elif k.endswith(".scale"):
+            small = k.endswith(("bn3.scale", "downsample_bn.scale"))
+            sd[k] = torch.full(shp, 0.2 if small else 1.0, device=dev)
+        else:
+            sd[k] = torch.zeros(shp, device=dev)
+    return sd
+
+
+def path_rois(g, n_frames: int, per_frame: int, H: int, W: int, dev):
+    """(rois (R, 4), frame_idx (R,)) in image coordinates of an (H, W) C4
+    map at stride 16: random boxes, and in each frame a degenerate, a
+    fully outside, a whole-map and a past-the-edge roi."""
+    import torch
+    rois = []
+    for _ in range(n_frames):
+        xy = torch.rand(per_frame, 2, generator=g, device=dev) * torch.tensor(
+            [W * 16.0, H * 16.0], device=dev)
+        wh = 8 + torch.rand(per_frame, 2, generator=g, device=dev) * 400
+        r = torch.cat([xy - 20, xy + wh], 1)
+        r[:4] = torch.tensor([[0, 0, 0, 0], [-500, -500, -400, -400],
+                              [0, 0, W * 16 - 1, H * 16 - 1],
+                              [W * 16 - 8, H * 16 - 8, W * 16 + 40, H * 16 + 40]], device=dev)
+        rois.append(r)
+    fidx = torch.arange(n_frames, device=dev, dtype=torch.int32).repeat_interleave(per_frame)
+    return torch.cat(rois), fidx
+
+
+def detector_phases(dev, card) -> list[dict]:
+    """Phases 7-9: the detector kernels against their plain versions, the
+    detector path (fp32 kernel vs plain, bf16 serving), the kernels timed on
+    the path's own inputs. Returns the two `kernels` rows."""
+    import torch
+    import torch.nn.functional as F
+
+    import nl_vsgg_tpu_torch.detector.resnet as dresnet
+    import nl_vsgg_tpu_torch.detector.roi_box as droi
+    from nl_vsgg_tpu_torch.detector.attr_rcnn import AttrRCNNTorch
+    from nl_vsgg_tpu_torch.detector.anchors import grid_anchors
+    from nl_vsgg_tpu_torch.detector.rpn import select_proposals
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, roi_align as ra
+
+    def reset():
+        ra.reset_launches()
+        gc.reset_launches()
+
+    def launches():
+        return {"roi_align": ra.LAUNCHES["roi_align"],
+                "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+
+    # ---- 7. detector kernels vs plain versions at the path's shapes ----
+    g = torch.Generator(device=dev).manual_seed(3)
+    fmap = torch.randn(DET_CHECK_FRAMES, 38, 64, 1024, generator=g, device=dev)
+    rois, fidx = path_rois(g, DET_CHECK_FRAMES, 300, 38, 64, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        fm = fmap.to(dtype)
+        out = ra.roi_align(fm, rois, fidx, (14, 14), 1 / 16)
+        torch.cuda.synchronize()
+        err, ok = det_kernel_err(out, ra.roi_align_reference(fm, rois, fidx, (14, 14), 1 / 16))
+        outside = float(out[1].float().abs().max())
+        log(f"roi_align {str(dtype)[6:]} ({DET_CHECK_FRAMES}, 38, 64, 1024) x "
+            f"{rois.shape[0]} rois 14x14: max_abs_err {err:.3e}, fully outside roi max |out| "
+            f"{outside}")
+        if not ok or outside != 0.0:
+            fail(f"roi_align disagrees with its plain version at {dtype}")
+    for N, Hc, Wc, C in ((DET_CHECK_FRAMES, 152, 256, 256), (DET_CHECK_FRAMES, 76, 128, 512),
+                         (DET_CHECK_FRAMES, 38, 64, 1024), (DET_CHECK_FRAMES * 300, 7, 7, 2048)):
+        c = C // 32
+        x32 = torch.randn(N, Hc, Wc, C, generator=g, device=dev)
+        w32 = torch.randn(3, 3, c, C, generator=g, device=dev) * (9 * c) ** -0.5
+        bias = torch.randn(C, generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dtype), w32.to(dtype)
+            for b, relu in ((None, False), (bias, True)):
+                out = gc.grouped_conv3x3(x, w, 32, b, relu)
+                torch.cuda.synchronize()
+                err, ok = det_kernel_err(out, gc.grouped_conv3x3_reference(x, w, 32, b, relu))
+                log(f"grouped_conv3x3 {str(dtype)[6:]} ({N}, {Hc}, {Wc}, {C}) c={c} "
+                    f"bias+relu={relu}: max_abs_err {err:.3e}")
+                if not ok:
+                    fail(f"grouped_conv3x3 disagrees with its plain version at {dtype} "
+                         f"({N}, {Hc}, {Wc}, {C}) relu={relu}")
+    del fmap, x32, w32, x, w, out
+
+    # ---- 8. the detector path at full width ----
+    t0 = time.perf_counter()
+    sd = detector_weights(5, dev)
+    rng = np.random.default_rng(2000)
+    videos = [[rng.integers(0, 256, (*DET_HW, 3), dtype=np.uint8) for _ in range(DET_FRAMES)]
+              for _ in range(2)]
+    det32 = AttrRCNNTorch(sd, device=dev)
+    plain32 = AttrRCNNTorch(sd, device=dev, fused=False)
+    log(f"detector: VinVL X152-C4, {sum(v.numel() for v in sd.values())} weights (seeded), "
+        f"2 synthetic videos of {DET_FRAMES} BGR frames {DET_HW[0]}x{DET_HW[1]} in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # float32: kernel path vs plain path on the same weights and frames
+    images, _, sizes = det32._prep(videos[0][:DET_CHECK_FRAMES])
+    im_hw = torch.as_tensor(sizes, device=dev)
+    with torch.inference_mode():
+        reset()
+        c4k = det32.module.features(images)
+        trunk = launches()
+        c4p = plain32.module.features(images)
+        lk, dk = det32.module.rpn(c4k)
+        lp, dp = plain32.module.rpn(c4p)
+        anchors = torch.as_tensor(grid_anchors(c4k.shape[1], c4k.shape[2]), device=dev)
+        props, _ = select_proposals(anchors, lk, dk, im_hw)
+        pidx = torch.arange(DET_CHECK_FRAMES, device=dev, dtype=torch.int32).repeat_interleave(
+            props.shape[1])
+        reset()
+        box_k = det32.module.box(c4k, props.reshape(-1, 4), pidx)
+        head = launches()
+        box_p = plain32.module.box(c4p, props.reshape(-1, 4), pidx)
+        if any(launches()[k] != head[k] for k in head):
+            fail("the plain detector path launched a kernel")
+        errs = {"c4": rel_err(c4k, c4p), "rpn logits": rel_err(lk, lp),
+                "rpn deltas": rel_err(dk, dp)}
+        errs.update({n: rel_err(a, b) for n, a, b in zip(("cls logits", "box deltas",
+                                                          "features"), box_k, box_p)})
+        pk = det32.detect_packed(images, im_hw)
+        pp = plain32.detect_packed(images, im_hw)
+    log(f"detector fp32 kernel vs plain ({DET_CHECK_FRAMES} frames {tuple(images.shape)}, C4 "
+        f"{tuple(c4k.shape)}, |C4| max {float(c4k.abs().max()):.3f}), error / max |ref|: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f"; launches: trunk {trunk}, box head {head}")
+    if trunk != {"roi_align": 0, "grouped_conv3x3": 45} or \
+            head != {"roi_align": 1, "grouped_conv3x3": 2}:
+        fail(f"detector launches: trunk {trunk} (want 45 grouped convs), box head {head} "
+             f"(want 1 roi_align + 2 grouped convs)")
+    worst = max(errs, key=errs.get)
+    if errs[worst] > DET_PATH_TOL or not bool(pk.isfinite().all()):
+        fail(f"detector fp32 kernel path differs from plain: {worst} {errs[worst]:.3e}")
+    matched = total = 0
+    for f in range(DET_CHECK_FRAMES):
+        a, b = pp[f][pp[f, :, 7] > 0.5], pk[f][pk[f, :, 7] > 0.5]
+        near = (a[:, None, :4] - b[None, :, :4]).abs().amax(-1) < DET_MATCH_PX
+        matched += int((near & (a[:, None, 5] == b[None, :, 5])).any(1).sum())
+        total += a.shape[0]
+    share = matched / max(total, 1)
+    log(f"detections fp32 kernel vs plain path: {matched}/{total} valid detections matched "
+        f"(same frame and label, corners within {DET_MATCH_PX} px) = {share:.4f}")
+    if total < 10 * DET_CHECK_FRAMES or share < DET_MATCH:
+        fail(f"detections: {matched}/{total} matched, need {DET_MATCH}")
+    del c4k, c4p, box_k, box_p, plain32
+
+    # bfloat16: a server answering two requests (one video each)
+    det16 = AttrRCNNTorch(sd, compute_dtype="bfloat16", device=dev)
+    det16.detect_video(videos[0][:2])                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    video_ms = []
+    outs = []
+    for v in videos:
+        t0 = time.perf_counter()
+        outs.append(det16.detect_video(v))
+        video_ms.append((time.perf_counter() - t0) * 1e3)
+    served = launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"detect_video bf16: {[round(t, 3) for t in video_ms]} ms per video of {DET_FRAMES} "
+        f"frames (host clock, frames in and detections out), "
+        f"{2 * DET_FRAMES / sum(video_ms) * 1e3:.1f} frames/s, launches {served}, "
+        f"peak device memory {peak:.2f} GiB")
+    if served != {"roi_align": 2, "grouped_conv3x3": 2 * 47}:
+        fail(f"two detect_video calls launched {served}, expected 2 roi_align and 94 "
+             f"grouped convs")
+    for out in outs:
+        if len(out) != DET_FRAMES or any(
+                d["features"].shape != (100, 2048) or not np.isfinite(d["features"]).all()
+                or not np.isfinite(d["boxes"]).all() or d["valid"].sum() < 10 for d in out):
+            fail("detect_video: a frame lacks 100 finite detections with >= 10 valid")
+
+    # union features: 96 boxes a video spread over its frames
+    ub = []
+    for _ in videos:
+        xy = rng.uniform(0, [DET_HW[1] - 60, DET_HW[0] - 60], (UNION_BOXES, 2))
+        wh = rng.uniform(20, 300, (UNION_BOXES, 2))
+        ub.append((np.concatenate([xy, xy + wh], 1).astype(np.float32),
+                   rng.integers(0, DET_FRAMES, UNION_BOXES)))
+    reset()
+    t0 = time.perf_counter()
+    feats = [det16.extract_box_features_frames(v, b, fi) for v, (b, fi) in zip(videos, ub)]
+    union_ms = (time.perf_counter() - t0) * 1e3 / 2
+    unioned = launches()
+    log(f"extract_box_features_frames bf16: {UNION_BOXES} boxes a video, {union_ms:.3f} ms "
+        f"per video, launches {unioned}")
+    if unioned != {"roi_align": 2, "grouped_conv3x3": 2 * 47} or any(
+            f.shape != (UNION_BOXES, 7, 7, 2048) or not np.isfinite(f).all() for f in feats):
+        fail(f"extract_box_features_frames: launches {unioned} or bad features")
+    sel = ub[0][1] < DET_CHECK_FRAMES
+    f32 = det32.extract_box_features_frames(videos[0][:DET_CHECK_FRAMES], ub[0][0][sel],
+                                            ub[0][1][sel]).ravel()
+    f16 = det16.extract_box_features_frames(videos[0][:DET_CHECK_FRAMES], ub[0][0][sel],
+                                            ub[0][1][sel]).ravel()
+    corr = float(np.corrcoef(f32, f16)[0, 1])
+    ratio = float(np.abs(f16).mean() / np.abs(f32).mean())
+    log(f"union features bf16 vs fp32 ({int(sel.sum())} boxes): correlation {corr:.5f}, "
+        f"mean |f| ratio {ratio:.4f}")
+    if corr < 0.99 or not 0.9 < ratio < 1.1:
+        fail("bf16 union features do not track fp32")
+    del det32
+
+    # ---- 9. detector kernels timed on one bf16 detect_video's own inputs ----
+    convs, aligns = [], []
+    orig_conv, orig_align = dresnet.grouped_conv3x3, droi.roi_align
+
+    def conv_rec(x, w, groups, bias=None, relu=False, out_dtype=None):
+        convs.append((x, w, groups, bias, relu))
+        return orig_conv(x, w, groups, bias, relu, out_dtype)
+
+    def align_rec(*args, **kw):
+        aligns.append((args, kw))
+        return orig_align(*args, **kw)
+
+    dresnet.grouped_conv3x3, droi.roi_align = conv_rec, align_rec
+    try:
+        det16.detect_video(videos[1])
+    finally:
+        dresnet.grouped_conv3x3, droi.roi_align = orig_conv, orig_align
+    if len(convs) != 47 or len(aligns) != 1:
+        fail(f"recorded {len(convs)} grouped convs and {len(aligns)} roi_aligns in one pass")
+
+    conv_row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+                    terms={"bytes": 0.0, "operations": 0.0})
+    classes = {}
+    for x, w, groups, b, relu in convs:
+        err, ok = det_kernel_err(gc.grouped_conv3x3(x, w, groups, b, relu),
+                                 gc.grouped_conv3x3_reference(x, w, groups, b, relu))
+        if not ok:
+            fail(f"grouped_conv3x3 disagrees with its plain version on path inputs "
+                 f"{tuple(x.shape)}")
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bl = b.to(x.dtype)
+        kms = cuda_ms(lambda: gc.grouped_conv3x3(x, w, groups, b, relu), iters=5, warmup=1)
+        pms = cuda_ms(lambda: gc.grouped_conv3x3_reference(x, w, groups, b, relu), iters=3,
+                      warmup=1)
+        lms = cuda_ms(lambda: F.conv2d(xl, wl, bl, padding=1, groups=groups), iters=5,
+                      warmup=1)
+        c = x.shape[3] // groups
+        el = x.element_size()
+        t_bytes = ((2 * x.numel() + w.numel()) * el + b.numel() * 4) / HBM_BYTES_PER_S
+        t_ops = 18.0 * c * x.numel() / PEAK_OPS[str(x.dtype)]
+        bms = max(t_bytes, t_ops) * 1e3
+        conv_row["terms"]["bytes" if t_bytes >= t_ops else "operations"] += bms
+        conv_row["max_abs_err"] = max(conv_row["max_abs_err"], err)
+        for key, val in (("ms", kms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms)):
+            conv_row[key] += val
+        cl = classes.setdefault(tuple(x.shape), [0, 0.0, 0.0, 0.0, 0.0])
+        for i, val in enumerate((1, kms, pms, lms, bms)):
+            cl[i] += val
+    for shape, (n, kms, pms, lms, bms) in classes.items():
+        log(f"grouped_conv3x3 bf16 {shape} x {n}: kernel {kms:.4f} ms, plain {pms:.4f}, cuDNN "
+            f"{lms:.4f}, bound {bms:.4f} ms (sums over the pass's {n} calls)")
+
+    args, kw = aligns[0]
+    out = ra.roi_align(*args, **kw)
+    ref = ra.roi_align_reference(*args, **kw)
+    align_err, ok = det_kernel_err(out, ref)
+    if not ok:
+        fail("roi_align disagrees with its plain version on path inputs")
+    fm, rois_p, fidx_p = args[:3]
+    ams = cuda_ms(lambda: ra.roi_align(*args, **kw), iters=10, warmup=2)
+    apl = cuda_ms(lambda: ra.roi_align_reference(*args, **kw), iters=2, warmup=1)
+    sr = kw.get("sampling_ratio", 2)
+    t_bytes = (fm.numel() * fm.element_size() + (rois_p.numel() + fidx_p.numel()) * 4
+               + out.numel() * out.element_size()) / HBM_BYTES_PER_S
+    t_ops = 8.0 * sr * sr * out.numel() / PEAK_OPS["torch.float32"]  # 4 taps x (mul, add)
+    abound = max(t_bytes, t_ops) * 1e3
+    log(f"roi_align path inputs: map {tuple(fm.shape)} {str(fm.dtype)[6:]}, "
+        f"{rois_p.shape[0]} rois -> {tuple(out.shape)} {str(out.dtype)[6:]}: kernel {ams:.4f} "
+        f"ms, plain {apl:.4f} ms, bound {abound:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'}), max_abs_err {align_err:.3e}")
+    per_video = sum(video_ms) / 2
+    log(f"per bf16 video: grouped convs {conv_row['ms']:.3f} ms "
+        f"({conv_row['ms'] / per_video * 100:.1f}% of {per_video:.3f} ms), roi_align "
+        f"{ams:.4f} ms; card {card}")
+    profile_table(lambda: det16.detect_video(videos[1]), per_video, "bf16 detect_video", n=1)
+
+    return [{
+        "name": "roi_align", "route": "cuda", "source": "nl_vsgg_tpu_torch/csrc/roi_align.cu",
+        "replaces": "nl_vsgg_tpu/ops/pallas_roi_align.py:163",
+        "launches": served["roi_align"], "max_abs_err": align_err, "ms": ams, "plain_ms": apl,
+        "bound_ms": abound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }, {
+        "name": "grouped_conv3x3", "route": "cuda",
+        "source": "nl_vsgg_tpu_torch/csrc/grouped_conv.cu",
+        "replaces": "nl_vsgg_tpu/ops/pallas_grouped_conv.py:148",
+        "launches": served["grouped_conv3x3"], "max_abs_err": conv_row["max_abs_err"],
+        "ms": conv_row["ms"], "plain_ms": conv_row["plain_ms"],
+        "bound_ms": conv_row["bound_ms"],
+        "bound_by": max(conv_row["terms"], key=conv_row["terms"].get),
+        "library_ms": conv_row["library_ms"],
+    }]
 
 
 def main() -> None:
@@ -575,7 +944,12 @@ def main() -> None:
             f"{r['bound_ms']:.4f} ms = {r['ms'] / train_ms[True] * 100:.2f}% of the step")
     profile_table(lambda: step(st, batch, gen)[0], train_ms[True], "bf16 train step")
 
-    # ---- 7. result lines ----
+    # ---- 7-9. the detector path ----
+    del models, batches, batch, steps, st, step, records, captured
+    torch.cuda.empty_cache()
+    det_rows = detector_phases(dev, card)
+
+    # ---- 10. result lines ----
     by = max(bound_terms, key=bound_terms.get)
     kernels = [{
         "name": "masked_mha", "route": "cuda",
@@ -595,6 +969,7 @@ def main() -> None:
             "launches": train_launches[True][n], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["terms"], key=r["terms"].get), "library_ms": r["library_ms"]})
+    kernels += det_rows
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,131 @@
+"""Weights into the port's AttrRCNNModule state_dict.
+
+  * `from_maskrcnn_state_dict(sd)`: a VinVL / maskrcnn_benchmark AttrRCNN
+    checkpoint (vinvl_vg_x152c4.pth's state dict), read as
+    nl_vsgg_tpu/detector/convert.py::convert_state_dict reads it. Convs and
+    linears keep torch's OIHW / (out, in) layouts and grouped conv2 kernels
+    their (C, C/32, 3, 3) shape; FrozenBatchNorm2d folds into
+    (scale, bias) with the reference's eps=0 form
+    scale = weight / sqrt(running_var). The attribute head
+    (roi_heads.attribute.*) is not used by any path and is skipped.
+  * `from_jax_variables(variables)`: the JAX package's {'params': ...}
+    tree (numpy leaves): HWIO -> OIHW, Dense (in, out) -> (out, in), and the
+    EFF_GROUPS block-diagonal conv2 kernels unpacked back to
+    (C, C/32, 3, 3).
+
+Name mapping (port <- checkpoint):
+
+  backbone.stem_conv1 / stem_bn1            <- backbone.body.stem.conv1 / bn1
+  backbone.layer{k}.block{i}.conv{j}, bn{j} <- backbone.body.layer{k}.{i}.conv{j}, bn{j}
+  ... .downsample_conv / downsample_bn      <- ... .downsample.0 / .downsample.1
+  rpn_head.{conv,cls_logits,bbox_pred}      <- rpn.head.*
+  box_head.head.layer4.block{i}.*           <- roi_heads.box.feature_extractor.head.layer4.{i}.*
+  box_head.predictor.{cls_score,bbox_pred}  <- roi_heads.box.predictor.*
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .resnet import R152_BLOCKS
+
+GROUPS = 32
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(_np(a))  # a copy: numpy / flax leaves may be read-only
+
+
+def _fold_bn(out: dict, dst: str, sd: Mapping, src: str) -> None:
+    w, b = _np(sd[src + ".weight"]), _np(sd[src + ".bias"])
+    mean, var = _np(sd[src + ".running_mean"]), _np(sd[src + ".running_var"])
+    scale = w / np.sqrt(var)
+    out[dst + ".scale"] = _t(scale)
+    out[dst + ".bias"] = _t(b - mean * scale)
+
+
+def _copy(out: dict, dst: str, sd: Mapping, src: str, bias: bool = False) -> None:
+    out[dst + ".weight"] = _t(sd[src + ".weight"])
+    if bias:
+        out[dst + ".bias"] = _t(sd[src + ".bias"])
+
+
+def _stage(out: dict, dst: str, sd: Mapping, src: str, n_blocks: int) -> None:
+    for i in range(n_blocks):
+        d, s = f"{dst}.block{i}", f"{src}.{i}"
+        for j in (1, 2, 3):
+            _copy(out, f"{d}.conv{j}", sd, f"{s}.conv{j}")
+            _fold_bn(out, f"{d}.bn{j}", sd, f"{s}.bn{j}")
+        if s + ".downsample.0.weight" in sd:
+            _copy(out, f"{d}.downsample_conv", sd, f"{s}.downsample.0")
+            _fold_bn(out, f"{d}.downsample_bn", sd, f"{s}.downsample.1")
+
+
+def from_maskrcnn_state_dict(sd: Mapping) -> dict[str, torch.Tensor]:
+    """VinVL checkpoint state dict (numpy or torch values) -> port state_dict."""
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    out: dict[str, torch.Tensor] = {}
+    _copy(out, "backbone.stem_conv1", sd, "backbone.body.stem.conv1")
+    _fold_bn(out, "backbone.stem_bn1", sd, "backbone.body.stem.bn1")
+    for k in (1, 2, 3):
+        _stage(out, f"backbone.layer{k}", sd, f"backbone.body.layer{k}", R152_BLOCKS[k - 1])
+    for name in ("conv", "cls_logits", "bbox_pred"):
+        _copy(out, f"rpn_head.{name}", sd, f"rpn.head.{name}", bias=True)
+    _stage(out, "box_head.head.layer4", sd, "roi_heads.box.feature_extractor.head.layer4",
+           R152_BLOCKS[3])
+    for name in ("cls_score", "bbox_pred"):
+        _copy(out, f"box_head.predictor.{name}", sd, f"roi_heads.box.predictor.{name}",
+              bias=True)
+    return out
+
+
+def unpack_grouped_kernel(w: np.ndarray, groups: int = GROUPS) -> np.ndarray:
+    """The inverse of nl_vsgg_tpu/detector/resnet.py::pack_grouped_kernel:
+    a block-diagonal HWIO kernel (3, 3, pack * C/groups, C) -> the grouped
+    (3, 3, C/groups, C). Output group g's input rows sit at block g % pack."""
+    kh, kw, cin, c = w.shape
+    cg = c // groups
+    if cin == cg:
+        return w
+    pack = cin // cg
+    out = np.empty((kh, kw, cg, c), w.dtype)
+    for g in range(groups):
+        sub = g % pack
+        out[..., g * cg:(g + 1) * cg] = w[:, :, sub * cg:(sub + 1) * cg, g * cg:(g + 1) * cg]
+    return out
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def from_jax_variables(variables: Mapping, groups: int = GROUPS) -> dict[str, torch.Tensor]:
+    """JAX AttrRCNNModule variables ({'params': ...}, numpy leaves; or those
+    of a Stage / Bottleneck of `groups` groups) -> port state_dict."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(variables["params"]):
+        a = _np(leaf)
+        module, name = path.rsplit(".", 1)
+        if name == "kernel":
+            if a.ndim == 4:
+                if module.endswith("conv2"):
+                    a = unpack_grouped_kernel(a, groups)
+                a = a.transpose(3, 2, 0, 1)
+            else:
+                a = a.T
+            name = "weight"
+        out[f"{module}.{name}"] = _t(np.ascontiguousarray(a))
+    return out
