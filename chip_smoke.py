@@ -54,7 +54,17 @@ Phases, in order; any failure exits non-zero before the result line:
   9. both detector kernels timed on the inputs one bf16 `detect_video` gave
      them, beside their plain versions, cuDNN's grouped conv and the bound;
      a torch.profiler table of one bf16 `detect_video`;
- 10. the `kernels` JSON line, then the device JSON line, last.
+ 10. the probe path (`nl_vsgg_tpu_torch.tools.probe_overhead` and
+     `probe_ablate`): its four kernels against their plain versions at the
+     probes' full shapes (the copy exact in float32 and bfloat16 at 1, 8 and
+     an SM-filling grid of blocks; the (20480, 128) @ (128, 128) mma kernel
+     and every conv variant at every tile size in bfloat16 to KERNEL_TOL on
+     the (8, 40, 64, 1024) stage-4 input; `full` and `bt-full` in float32
+     against cuDNN's groups-8 conv to 1e-5 of its largest magnitude), then
+     both probe entry points with small `--iters`, the launch counts set to
+     0 just before and read just after (each kernel's count equal to the
+     calls its rows made);
+ 11. the `kernels` JSON line, then the device JSON line, last.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -552,6 +562,159 @@ def detector_phases(dev, card) -> list[dict]:
     }]
 
 
+# ------------------------------------------------------------------ probes
+PROBE_ITERS = {"overhead": 20, "ablate": 5}
+
+
+def probe_phases(dev, card) -> list[dict]:
+    """Phase 10: the probe kernels against their plain versions at the
+    probes' full shapes, then both probe entry points with the launch counts
+    set to 0 just before and read just after. Returns the four `kernels`
+    rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc
+    from nl_vsgg_tpu_torch.ops import grouped_conv_ablate as ga
+    from nl_vsgg_tpu_torch.ops import probe_copy as pc
+    from nl_vsgg_tpu_torch.ops import probe_matmul as pm
+    from nl_vsgg_tpu_torch.tools import probe_ablate, probe_overhead
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    errs = {"probe_copy": 0.0, "probe_matmul": 0.0, "grouped_conv_ablate": 0.0,
+            "grouped_conv_ablate_bt": 0.0}
+    fill = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * probe_overhead.BLOCKS_PER_SM)
+    for shape in ((256, 128), (8, 40, 64, 128), (1001,)):   # (1001,): a tail past the vectors
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            for blocks in (1, 8, fill):
+                y = pc.probe_copy(x, blocks)
+                torch.cuda.synchronize()
+                if not torch.equal(y, pc.probe_copy_reference(x)):
+                    fail(f"probe_copy differs from x * 2 at {shape} {dtype} blocks={blocks}")
+    log(f"probe_copy: exact (x * 2) at (256, 128), (8, 40, 64, 128), (1001,) in float32 and "
+        f"bfloat16 with 1, 8 and {fill} blocks")
+
+    w = (torch.randn(128, 128, generator=g, device=dev) * 0.05).bfloat16()
+    for m in (20480, 1000):
+        x = torch.randn(m, 128, generator=g, device=dev).bfloat16()
+        out = pm.probe_matmul(x, w)
+        torch.cuda.synchronize()
+        err, ok = kernel_err(out, pm.probe_matmul_reference(x, w))
+        errs["probe_matmul"] = max(errs["probe_matmul"], err)
+        log(f"probe_matmul ({m}, 128) @ (128, 128) bf16: max_abs_err {err:.3e}")
+        if not ok:
+            fail(f"probe_matmul disagrees with its plain version at M={m}")
+
+    N, Hc, Wc, C = 8, 38, 64, 1024
+    x32 = torch.randn(N, Hc + 2, Wc, C, generator=g, device=dev)
+    w32 = torch.randn(3, 3, 128, C, generator=g, device=dev) * 0.05
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w = x32.to(dtype), w32.to(dtype)
+        xt, wt = ga.to_block_major(x, w)
+        if dtype == torch.float32:   # the real conv against cuDNN, TF32 off
+            ref = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=(0, 1),
+                           groups=C // 128).permute(0, 2, 3, 1)
+            tol = DET_KERNEL_REL * float(ref.abs().max())
+            for th in (1, 2):
+                for key, out in (
+                        ("grouped_conv_ablate", ga.grouped_conv_ablate(x, w, "full", th)),
+                        ("grouped_conv_ablate_bt", ga.from_block_major(
+                            ga.grouped_conv_ablate_bt(xt, wt, "bt-full", th)))):
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    log(f"{key} full fp32 rows{th} vs cuDNN groups-8: max_abs_err {err:.3e} "
+                        f"(tol {tol:.3e})")
+                    if not err <= tol:
+                        fail(f"{key} full fp32 rows{th} disagrees with cuDNN")
+            continue
+        refs = {v: ga.grouped_conv_ablate_reference(x, w, v) for v in ga.VARIANTS}
+        refs.update({v: ga.grouped_conv_ablate_bt_reference(xt, wt, v) for v in ga.BT_VARIANTS})
+        for th in probe_ablate.TILE_ROWS:
+            line = []
+            for v, ref in refs.items():
+                bt = v in ga.BT_VARIANTS
+                out = (ga.grouped_conv_ablate_bt(xt, wt, v, th) if bt
+                       else ga.grouped_conv_ablate(x, w, v, th))
+                torch.cuda.synchronize()
+                err, ok = kernel_err(out, ref)
+                key = "grouped_conv_ablate_bt" if bt else "grouped_conv_ablate"
+                errs[key] = max(errs[key], err)
+                line.append(f"{v} {err:.3e}")
+                if not ok:
+                    fail(f"{v} rows{th} bf16 disagrees with its plain version "
+                         f"(max_abs_err {err:.3e})")
+            log(f"grouped_conv_ablate bf16 ({N}, {Hc + 2}, {Wc}, {C}) rows{th}: max_abs_err "
+                + ", ".join(line))
+    del x32, w32, x, w, xt, wt, refs, ref, out
+
+    # the probe path: both entry points, launch counts from 0
+    pc.reset_launches()
+    pm.reset_launches()
+    ga.reset_launches()
+    gc.reset_launches()
+    t0 = time.perf_counter()
+    over = probe_overhead.run(iters=PROBE_ITERS["overhead"], device=dev, log=log)
+    abl = probe_ablate.run(iters=PROBE_ITERS["ablate"], device=dev, log=log)
+    probe_s = time.perf_counter() - t0
+    got = {**pc.LAUNCHES, **pm.LAUNCHES, **ga.LAUNCHES, **gc.LAUNCHES}
+    want = {k: sum(r["calls"] for r in over + abl if r["kernel"] == k) for k in got}
+    log(f"probe entry points: {probe_s:.3f} s; launches {got}")
+    if got != want or not all(got.values()):
+        fail(f"probe launches {got}, expected {want} (each kernel's count equal to the calls "
+             f"its rows made, none zero)")
+
+    # plain versions timed on the probes' main inputs
+    rows = {r["name"]: r for r in over + abl}
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.standard_normal((8, 40, 64, 128)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    xm = torch.from_numpy(rng.standard_normal((20480, 128)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    wm = torch.from_numpy((rng.standard_normal((128, 128)) * 0.05).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((N, Hc + 2, Wc, C)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 128, C)) * 0.05).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    xt, wt = ga.to_block_major(x, w)
+    copy_pl = cuda_ms(lambda: pc.probe_copy_reference(xs))
+    mm_pl = cuda_ms(lambda: pm.probe_matmul_reference(xm, wm))
+    full_pl = cuda_ms(lambda: ga.grouped_conv_ablate_reference(x, w, "full"), iters=5)
+    bt_pl = cuda_ms(lambda: ga.grouped_conv_ablate_bt_reference(xt, wt, "bt-full"), iters=5)
+
+    def best(prefix):
+        return min((r for r in abl if r["name"].startswith(prefix)), key=lambda r: r["device_ms"])
+
+    full, bt_full = best("full "), best("bt-full ")
+    cudnn8 = rows[f"cudnn(g{C // 128})"]["device_ms"]
+    log(f"probe kernels: slab-copy {rows['slab-copy']['device_us']:.3f} us (plain "
+        f"{copy_pl * 1e3:.3f}), mm {rows['mm-kernel']['device_us']:.3f} us (plain "
+        f"{mm_pl * 1e3:.3f}, torch.matmul {rows['mm-torch']['device_us']:.3f}), {full['name']} {full['device_ms']:.4f} ms, "
+        f"{bt_full['name']} {bt_full['device_ms']:.4f} ms (plain {full_pl:.4f} / {bt_pl:.4f}, "
+        f"cuDNN g8 {cudnn8:.4f}); card {card}")
+
+    def row(name, replaces, ms, plain_ms, bound_ms, bound_by, library_ms):
+        source = f"nl_vsgg_tpu_torch/csrc/{name.removesuffix('_bt')}.cu"
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": got[name], "max_abs_err": errs[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    slab, mm = rows["slab-copy"], rows["mm-kernel"]
+    return [
+        row("probe_copy", "tools/probe_pallas_overhead.py:75", slab["device_us"] / 1e3, copy_pl,
+            slab["bound_us"] / 1e3, slab["bound_by"], copy_pl),   # x * 2 is the library call
+        row("probe_matmul", "tools/probe_pallas_overhead.py:105", mm["device_us"] / 1e3, mm_pl,
+            mm["bound_us"] / 1e3, mm["bound_by"], rows["mm-torch"]["device_us"] / 1e3),
+        row("grouped_conv_ablate", "tools/probe_pallas_ablate.py:87", full["device_ms"], full_pl,
+            full["bound_ms"], full["bound_by"], cudnn8),
+        row("grouped_conv_ablate_bt", "tools/probe_pallas_ablate.py:135", bt_full["device_ms"],
+            bt_pl, bt_full["bound_ms"], bt_full["bound_by"], cudnn8),
+    ]
+
+
 def main() -> None:
     try:
         import torch
@@ -949,7 +1112,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     det_rows = detector_phases(dev, card)
 
-    # ---- 10. result lines ----
+    # ---- 10. the probe path ----
+    torch.cuda.empty_cache()
+    probe_rows = probe_phases(dev, card)
+
+    # ---- 11. result lines ----
     by = max(bound_terms, key=bound_terms.get)
     kernels = [{
         "name": "masked_mha", "route": "cuda",
@@ -969,7 +1136,7 @@ def main() -> None:
             "launches": train_launches[True][n], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["terms"], key=r["terms"].get), "library_ms": r["library_ms"]})
-    kernels += det_rows
+    kernels += det_rows + probe_rows
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,11 @@ Each `csrc/<name>.cu` exposes a plain C interface (pointers and the stream
 as `void*`, sizes as ints, the launch's cudaError_t as the return value),
 so it compiles in seconds with no PyTorch headers. The shared library goes
 to `build/torch_kernels/lib<name>-<hash>.so` beside the package, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is built once per checkout. `build_all` starts one nvcc per
-source, all at once. Nothing is built when a module is imported.
+hash of the source, of every header it includes from `csrc/` (`#include
+"..."`, followed through nested includes) and of the flags, so an edited
+source or shared header (`csrc/mma_bf16.cuh`) is rebuilt and an unchanged
+one is built once per checkout. `build_all` starts one nvcc per source, all
+at once. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,9 +24,12 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
-SOURCES = ("masked_attention", "roi_align", "grouped_conv")
+SOURCES = ("masked_attention", "roi_align", "grouped_conv", "probe_copy", "probe_matmul",
+           "grouped_conv_ablate")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -36,10 +42,26 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(name: str) -> list[str]:
+    """`csrc/<name>.cu` and the `csrc/` headers it includes, nested ones too."""
+    order, todo = [], [name + ".cu"]
+    while todo:
+        rel = todo.pop()
+        if rel in order:
+            continue
+        order.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo += [inc.decode() for inc in _INCLUDE.findall(f.read())
+                     if os.path.isfile(os.path.join(CSRC, inc.decode()))]
+    return order
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _sources(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all(names=SOURCES) -> dict[str, float]:

@@ -12,7 +12,10 @@ Tolerances: float32 sums in another order (1e-4 on outputs, 2e-4 + 1e-5
 (one bf16 ulp, 2^-7 relative, + 1e-3). The detector kernels (RoIAlign, the
 grouped conv) are held at 1e-5 relative to the output's largest magnitude
 in float32 (at most 9 * 64 products summed in another order; cuDNN's TF32
-is off for the plain conv), one bf16 ulp in bfloat16.
+is off for the plain conv), one bf16 ulp in bfloat16. The probe kernels: the
+copy exactly (doubling is exact); the mma matmul and the packed conv variants
+one bf16 ulp; the packed conv's float32 instantiation against cuDNN's
+groups-8 conv at 1e-5 of the output's largest magnitude (9 * 128 products).
 """
 
 import numpy as np
@@ -23,7 +26,10 @@ from nl_vsgg_tpu_torch.data.entry import stack_entries
 from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
 from nl_vsgg_tpu_torch.models.sttran import STTran
 from nl_vsgg_tpu_torch.ops import grouped_conv as gc
+from nl_vsgg_tpu_torch.ops import grouped_conv_ablate as ga
 from nl_vsgg_tpu_torch.ops import masked_attention as ma
+from nl_vsgg_tpu_torch.ops import probe_copy as pc
+from nl_vsgg_tpu_torch.ops import probe_matmul as pm
 from nl_vsgg_tpu_torch.ops import roi_align as ra
 from nl_vsgg_tpu_torch.train.state import create_train_state
 from nl_vsgg_tpu_torch.train.step import make_train_step
@@ -145,3 +151,76 @@ def test_grouped_conv_matches_plain_on_gpu(gpu, dtype, N, H, W, C):
             torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
         else:
             torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(256, 128), (8, 40, 64, 128), (1001,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_probe_copy_matches_plain_on_gpu(gpu, dtype, shape):
+    x = torch.randn(shape, device="cuda", generator=gpu).to(dtype)
+    fill = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    pc.reset_launches()
+    for blocks in (1, 8, fill):
+        y = pc.probe_copy(x, blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(y, pc.probe_copy_reference(x))
+    assert pc.LAUNCHES["probe_copy"] == 3
+
+
+@pytest.mark.parametrize("M", [20480, 1000, 5])
+def test_probe_matmul_matches_plain_on_gpu(gpu, M):
+    x = torch.randn(M, 128, device="cuda", generator=gpu).bfloat16()
+    w = (torch.randn(128, 128, device="cuda", generator=gpu) * 0.05).bfloat16()
+    pm.reset_launches()
+    y = pm.probe_matmul(x, w)
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES["probe_matmul"] == 1 and y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), pm.probe_matmul_reference(x, w).float(),
+                               rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("tile_rows,W", [(1, 64), (2, 64), (4, 64), (1, 32), (3, 32)])
+def test_grouped_conv_ablate_matches_plain_on_gpu(gpu, tile_rows, W):
+    x = torch.randn(2, 9, W, 512, device="cuda", generator=gpu).bfloat16()   # H = 7
+    w = (torch.randn(3, 3, 128, 512, device="cuda", generator=gpu) * 0.05).bfloat16()
+    xt, wt = ga.to_block_major(x, w)
+    ga.reset_launches()
+    for v in ga.VARIANTS + ga.BT_VARIANTS:
+        bt = v in ga.BT_VARIANTS
+        out = (ga.grouped_conv_ablate_bt(xt, wt, v, tile_rows) if bt
+               else ga.grouped_conv_ablate(x, w, v, tile_rows))
+        torch.cuda.synchronize()
+        ref = (ga.grouped_conv_ablate_bt_reference(xt, wt, v) if bt
+               else ga.grouped_conv_ablate_reference(x, w, v))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    assert ga.LAUNCHES == {"grouped_conv_ablate": 4, "grouped_conv_ablate_bt": 2}
+
+
+@pytest.mark.parametrize("tile_rows", [1, 2])
+def test_grouped_conv_ablate_fp32_matches_cudnn_on_gpu(gpu, tile_rows):
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.randn(2, 12, 64, 1024, device="cuda", generator=gpu)
+    w = torch.randn(3, 3, 128, 1024, device="cuda", generator=gpu) * 0.05
+    ref = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                                     padding=(0, 1), groups=8).permute(0, 2, 3, 1)
+    out = ga.grouped_conv_ablate(x, w, "full", tile_rows)
+    bt = ga.from_block_major(ga.grouped_conv_ablate_bt(*ga.to_block_major(x, w), "bt-full",
+                                                       tile_rows))
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(bt, ref, rtol=0, atol=tol)
+    with pytest.raises(ValueError, match="shared memory"):
+        ga.grouped_conv_ablate(x, w, "full", 4)
+
+
+def test_probe_kernels_refuse_misaligned_storage_on_gpu(gpu):
+    """The kernels load 16 bytes at a time; a view 2 bytes into its storage
+    is refused before launch."""
+    flat = torch.randn(1 + 2 * 12 * 32 * 128, device="cuda", generator=gpu).bfloat16()
+    w = torch.zeros(3, 3, 128, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ga.grouped_conv_ablate(flat[1:].view(2, 12, 32, 128), w, "full", 1)
+    with pytest.raises(ValueError, match="aligned"):
+        pm.probe_matmul(flat[1:1 + 64 * 128].view(64, 128), w[0, 0])
+    with pytest.raises(ValueError, match="aligned"):
+        pc.probe_copy(flat[1:])
