@@ -36,8 +36,10 @@ Phases, in order; any failure exits non-zero before the result line:
      path's shapes, float32 and bfloat16: RoIAlign on a (4, 38, 64, 1024) C4
      map with 300 rois a frame (degenerate, clamped and fully outside rois
      among them), the grouped 3x3 conv at its four geometry classes (c = 8
-     at 152x256, 16 at 76x128, 32 at 38x64, 64 at 7x7 over 1200 crops), with
-     and without the bias + ReLU epilogue;
+     at 152x256, 16 at 76x128, 32 at 38x64, 64 at 7x7 over 1200 crops) and
+     at the edges of the bf16 kernel's tiles (1201 crops, a 38x50 map), with
+     and without the bias + ReLU epilogue, float32, bfloat16, and bfloat16
+     in with a float32 output; bf16 storage off 16-byte alignment refused;
   8. the detector path: `AttrRCNNTorch` (VinVL X152-C4 at full width and
      depth, random weights from a seeded generator) on 480x800 BGR frames
      (600x1000 after the resize, bucket 608x1024): in float32 on 4 frames
@@ -57,10 +59,11 @@ Phases, in order; any failure exits non-zero before the result line:
  10. the probe path (`nl_vsgg_tpu_torch.tools.probe_overhead` and
      `probe_ablate`): its four kernels against their plain versions at the
      probes' full shapes (the copy exact in float32 and bfloat16 at 1, 8 and
-     an SM-filling grid of blocks; the (20480, 128) @ (128, 128) mma kernel
-     and every conv variant at every tile size in bfloat16 to KERNEL_TOL on
-     the (8, 40, 64, 1024) stage-4 input; `full` and `bt-full` in float32
-     against cuDNN's groups-8 conv to 1e-5 of its largest magnitude), then
+     an SM-filling grid of blocks; the (M, 128) @ (128, 128) mma kernel at
+     M = 20480, 1000, 4255, 5 and 1, and every conv variant at every tile
+     size in bfloat16 to KERNEL_TOL on the (8, 40, 64, 1024) stage-4 input;
+     `full` and `bt-full` in float32 against cuDNN's groups-8 conv to 1e-5
+     of its largest magnitude), then
      both probe entry points with small `--iters`, the launch counts set to
      0 just before and read just after (each kernel's count equal to the
      calls its rows made);
@@ -329,24 +332,36 @@ def detector_phases(dev, card) -> list[dict]:
             f"{outside}")
         if not ok or outside != 0.0:
             fail(f"roi_align disagrees with its plain version at {dtype}")
+    # the four classes, then the edges of the bf16 kernel's tiles: a crop
+    # count not a multiple of its 5 crops, a width not a multiple of its 64
+    # columns
     for N, Hc, Wc, C in ((DET_CHECK_FRAMES, 152, 256, 256), (DET_CHECK_FRAMES, 76, 128, 512),
-                         (DET_CHECK_FRAMES, 38, 64, 1024), (DET_CHECK_FRAMES * 300, 7, 7, 2048)):
+                         (DET_CHECK_FRAMES, 38, 64, 1024), (DET_CHECK_FRAMES * 300, 7, 7, 2048),
+                         (1201, 7, 7, 2048), (DET_CHECK_FRAMES, 38, 50, 1024)):
         c = C // 32
         x32 = torch.randn(N, Hc, Wc, C, generator=g, device=dev)
         w32 = torch.randn(3, 3, c, C, generator=g, device=dev) * (9 * c) ** -0.5
         bias = torch.randn(C, generator=g, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
+                                 (torch.bfloat16, torch.float32)):
             x, w = x32.to(dtype), w32.to(dtype)
             for b, relu in ((None, False), (bias, True)):
-                out = gc.grouped_conv3x3(x, w, 32, b, relu)
+                out = gc.grouped_conv3x3(x, w, 32, b, relu, out_dtype)
                 torch.cuda.synchronize()
-                err, ok = det_kernel_err(out, gc.grouped_conv3x3_reference(x, w, 32, b, relu))
-                log(f"grouped_conv3x3 {str(dtype)[6:]} ({N}, {Hc}, {Wc}, {C}) c={c} "
-                    f"bias+relu={relu}: max_abs_err {err:.3e}")
+                err, ok = det_kernel_err(out, gc.grouped_conv3x3_reference(x, w, 32, b, relu,
+                                                                           out_dtype))
+                log(f"grouped_conv3x3 {str(dtype)[6:]} -> {str(out.dtype)[6:]} ({N}, {Hc}, "
+                    f"{Wc}, {C}) c={c} bias+relu={relu}: max_abs_err {err:.3e}")
                 if not ok:
-                    fail(f"grouped_conv3x3 disagrees with its plain version at {dtype} "
-                         f"({N}, {Hc}, {Wc}, {C}) relu={relu}")
-    del fmap, x32, w32, x, w, out
+                    fail(f"grouped_conv3x3 disagrees with its plain version at {dtype} -> "
+                         f"{out.dtype} ({N}, {Hc}, {Wc}, {C}) relu={relu}")
+    flat = torch.zeros(1 + x.numel(), device=dev, dtype=torch.bfloat16)
+    try:
+        gc.grouped_conv3x3(flat[1:].view(x.shape), w, 32)
+        fail("grouped_conv3x3 took bf16 storage that is not 16-byte aligned")
+    except ValueError:
+        log("grouped_conv3x3 bf16: storage 2 bytes off 16-byte alignment refused")
+    del fmap, x32, w32, x, w, out, flat
 
     # ---- 8. the detector path at full width ----
     t0 = time.perf_counter()
@@ -597,7 +612,7 @@ def probe_phases(dev, card) -> list[dict]:
         f"bfloat16 with 1, 8 and {fill} blocks")
 
     w = (torch.randn(128, 128, generator=g, device=dev) * 0.05).bfloat16()
-    for m in (20480, 1000):
+    for m in (20480, 1000, 4255, 5, 1):   # 4255: a ragged last 32-row tile
         x = torch.randn(m, 128, generator=g, device=dev).bfloat16()
         out = pm.probe_matmul(x, w)
         torch.cuda.synchronize()

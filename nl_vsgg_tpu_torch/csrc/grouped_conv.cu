@@ -19,28 +19,298 @@
 // x and out in bf16: 36 (c = 8) to 288 (c = 64) operations per byte, at or
 // below the card's ~295 for the tensor cores, so the function is bound by
 // memory in principle: the trunk's c = 8 conv at 32 x 152 x 256 x 256 moves
-// 1.27 GB in bf16, 0.38 ms at 3.35 TB/s.
+// 1.27 GB in bf16, 0.38 ms at 3.35 TB/s. On mma.sync, which reaches well
+// under the 989 TFLOP/s of wgmma, the C5 head's c = 64 conv is bound by the
+// products as much as by its bytes.
 //
-// Design. The TPU kernel packs groups block-diagonally into 128-lane
-// super-groups so that each tap is one dense MXU matmul; that trick fills
-// only c/128 of the systolic array and has no reason to exist on Hopper.
-// Here a block takes one tile of output pixels (up to 128: an 8x16 patch,
-// or several whole small images, so the C5 head's 7x7 crops are tiled over
-// N too) for CB = 64 output channels, i.e. 64 / c whole groups (or part of
-// one group when c > 64). It stages that tile's input channels with the
-// 1-pixel halo, and the groups' 9 c x 64 weights, in shared memory as fp32,
-// in chunks of at most 16 input channels per group. Each thread owns 4
-// consecutive output channels of one group (they read the same input
-// values) over 8 pixels: per (tap, input channel) one float4 weight read
-// and 8 input reads feed 32 fp32 FMAs held in registers. The epilogue adds
-// the bias, clamps at 0 and stores in the output type. No tensor cores:
-// this simple version runs on the CUDA cores (wgmma is later work).
+// Design, bf16 inputs (the path detect_video serves). The TPU kernel packs
+// groups block-diagonally into 128-lane super-groups so that each tap is
+// one dense MXU matmul; on Hopper that would do 128/c times the needed
+// products. Here each group is its own implicit GEMM on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, fp32 sums): M is output pixels, N the
+// group's c output channels, K = 9 c ordered (tap, input channel), the row
+// order of the HWIO weights, so k-step s takes weight rows 16 s .. 16 s + 15.
+// A lane's A address for k-step s is its pixel's staged neighbourhood
+// shifted by the tap of row 16 s + 8 (lane / 16) and offset by that row's
+// input channel: no im2col. c = 16 is one tap a k-step, c = 32 two steps a
+// tap, c = 64 four; for c = 8 the two 8x8 halves of an A fragment come from
+// two taps, and K = 72 is padded to 80 with zero weight rows.
+//  - Slabs and resident weights. A block owns a slab of 64 output channels
+//    (64 / c whole groups: 8 groups at c = 8, 4 at 16, 2 at 32, one at 64),
+//    stages the slab's 9 c x 64 weights into shared memory once (9, 18, 36,
+//    72 KB) and walks many pixel tiles with them: a persistent grid of
+//    blocks_per_slab x C / 64 blocks, one block an SM (blocks_per_slab is
+//    the SM count over the slab count, from the caller's plan).
+//  - Tiles. Up to 256 output pixels: TH rows x TW (<= 64) columns of one
+//    image in the trunk (4 x 64 at 38x64 to 152x256), or NB whole images
+//    (5 of the C5 head's 7x7 crops) with their own zero border; each is
+//    staged with its 1-pixel halo as (NB, TH + 2, TW + 2) pixels of 64
+//    channels, a pixel 144 bytes apart so that the 8 rows one ldmatrix phase
+//    reads fall in 8 different 4-bank groups. Tiles are numbered with the
+//    column block fastest, so the blocks of a slab run neighbouring tiles at
+//    the same time and their halo re-reads hit L2.
+//  - Staging overlapped. Tiles come through a 2-stage ring of cp.async
+//    16-byte copies; a copy outside the image has src-size 0 and fills
+//    zeros, so the product loop has no branch. The loads of tile i + 1 are
+//    in flight while the warps run tile i.
+//  - Warps. 8 warps, each 32 pixels (two m16 tiles) x the slab's 64
+//    channels (eight n8 tiles, 64 fp32 accumulators a lane; 162-179
+//    registers, no spills). Per k-step and group: two ldmatrix.x4 for A,
+//    c / 16 ldmatrix.x4.trans for B (one per pair of groups at c = 8),
+//    2 c / 8 mma.sync. On the card a 3-stage ring was no faster
+//    (nl_vsgg_tpu_torch/tools/kernel_variants.py), and 16 warps of one m16
+//    tile or 4 warps of four were slower (PERF.md). c = 64 does 1.1 TFLOP
+//    a call at about 250 TFLOP/s; the products and their ldmatrix feeds
+//    are what is left, and wgmma, whose A and B come from shared memory in
+//    its own tile layouts, is the next step.
+//  - Epilogue in fp32 from the accumulators: bias, ReLU, conversion, then
+//    4-byte (bf16 pairs) or 8-byte (fp32 pairs) stores straight from the
+//    fragments, two of which fill a 32-byte sector. Staging the bf16 tile
+//    through shared memory for 16-byte stores was slower on the card at 3 of
+//    the 4 classes (one more barrier a tile; PERF.md), so it is not
+//    done.
+//
+// float32 inputs are the check path only (the chip check's fp32 detector
+// and its 1e-5 comparisons; TF32 would not hold 1e-5), so they run on the
+// CUDA cores with scalar FMAs: a block takes one tile of up to 128
+// output pixels for 64 output channels, stages it and the groups' weights
+// in fp32 in chunks of 16 input channels, and each thread sums 4 channels x
+// 8 pixels with scalar FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
 
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ------------------------------------------------- bf16: tensor cores
+constexpr int TC_WARPS = 8;
+constexpr int TC_THREADS = TC_WARPS * 32;
+constexpr int TC_PIXELS = TC_WARPS * 32;  // output pixels a tile
+constexpr int SLAB = 64;                  // output channels a block
+constexpr int SPS = SLAB + 8;             // staged pixel / weight row stride (bf16)
+constexpr int STAGES = 2;
+constexpr int SMEM_MAX = 232448;          // a block's shared memory on sm_90
+
+struct Plan {
+  int N, H, W, C;
+  int TH, TW, NB;          // a tile: NB images x TH rows x TW columns
+  int tiles_h, tiles_w, tiles;
+  int per_slab, relu;
+};
+
+__host__ __device__ constexpr int weight_rows(int c) { return (9 * c + 15) / 16 * 16; }
+
+__host__ __device__ inline int stage_elems(const Plan& p) {
+  return p.NB * (p.TH + 2) * (p.TW + 2) * SPS;
+}
+
+// tile t -> its first image, row and column
+__device__ __forceinline__ void tile_origin(const Plan& p, int t, int& n0, int& h0, int& w0) {
+  w0 = (t % p.tiles_w) * p.TW;
+  t /= p.tiles_w;
+  h0 = (t % p.tiles_h) * p.TH;
+  n0 = (t / p.tiles_h) * p.NB;
+}
+
+// start the cp.async copies of tile t's halo'd input (the slab's 64
+// channels, 8 x 16 bytes a pixel) into a ring slot
+__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ x, const Plan& p,
+                                           int t, int cs0, __nv_bfloat16* dst) {
+  int n0, h0, w0;
+  tile_origin(p, t, n0, h0, w0);
+  const int WT = p.TW + 2, HT = p.TH + 2;
+  const int n_vec = p.NB * HT * WT * 8;
+  for (int idx = threadIdx.x; idx < n_vec; idx += TC_THREADS) {
+    const int v = idx & 7, px = idx >> 3;
+    const int xx = px % WT, yy = (px / WT) % HT, n = n0 + px / (WT * HT);
+    const int h = h0 - 1 + yy, ww = w0 - 1 + xx;
+    const bool ok = n < p.N && h >= 0 && h < p.H && ww >= 0 && ww < p.W;
+    const __nv_bfloat16* src =
+        ok ? x + (((long long)n * p.H + h) * p.W + ww) * p.C + cs0 + v * 8 : x;
+    cp_async16(dst + px * SPS + v * 8, src, ok);
+  }
+}
+
+template <int CG, typename TO>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+conv_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+               const float* __restrict__ bias, TO* __restrict__ out, const Plan p) {
+  constexpr int KR = weight_rows(CG);   // 80, 144, 288, 576
+  constexpr int KS = KR / 16;           // k-steps: 5, 9, 18, 36
+  constexpr int G = SLAB / CG;          // groups a slab
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [KR][SPS]
+  __nv_bfloat16* in_s = w_s + KR * SPS;                          // [STAGES][stage]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cs0 = blockIdx.y * SLAB;
+  const int WT = p.TW + 2, HT = p.TH + 2;
+  const int tile_px = p.NB * p.TH * p.TW;
+  const int stage = stage_elems(p);
+
+  // the slab's weights, once: rows (tap, i) >= 9 c are the zero tap
+  for (int idx = threadIdx.x; idx < KR * 8; idx += TC_THREADS) {
+    const int r = idx >> 3, v = idx & 7;
+    const bool ok = r < 9 * CG;
+    cp_async16(w_s + r * SPS + v * 8, ok ? w + (long long)r * p.C + cs0 + v * 8 : w, ok);
+  }
+  if ((int)blockIdx.x < p.tiles) stage_tile(x, p, blockIdx.x, cs0, in_s);
+  cp_async_commit();
+
+  // this lane's two A rows (pixels) as staged offsets of their 3x3
+  // neighbourhood's corner; rows past the tile read pixel 0 and are not stored
+  int a_off[2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    int q = warp * 32 + mi * 16 + (lane & 15);
+    if (q >= tile_px) q = 0;
+    const int nb = q / (p.TH * p.TW), r = (q / p.TW) % p.TH, col = q % p.TW;
+    a_off[mi] = ((nb * HT + r) * WT + col) * SPS;
+  }
+  const int k_half = (lane >> 4) * 8;  // the lane's half of a k16 step
+  const __nv_bfloat16* b_lane =
+      w_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * SPS + (lane >> 4) * 8;
+  float bv[8][2];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      bv[ni][j] = bias != nullptr ? bias[cs0 + ni * 8 + (lane & 3) * 2 + j] : 0.0f;
+
+  for (int it = 0;; ++it) {
+    const int t = blockIdx.x + it * p.per_slab;
+    if (t >= p.tiles) break;
+    const int tn = t + p.per_slab;
+    if (tn < p.tiles) stage_tile(x, p, tn, cs0, in_s + ((it + 1) % STAGES) * stage);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile t (and, on the first pass, the weights) landed
+    __syncthreads();
+
+    const __nv_bfloat16* src = in_s + (it % STAGES) * stage;
+    float acc[2][8][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
+
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int kr = 16 * s + k_half;
+      const int tap = kr / CG < 9 ? kr / CG : 8;   // the zero tap reads tap 8
+      const int shift = ((tap / 3) * WT + tap % 3) * SPS + kr % CG;
+      const __nv_bfloat16* a0 = src + a_off[0] + shift;
+      const __nv_bfloat16* a1 = src + a_off[1] + shift;
+      const __nv_bfloat16* bs = b_lane + 16 * s * SPS;
+      if constexpr (CG == 8) {
+#pragma unroll
+        for (int gp = 0; gp < G / 2; ++gp) {   // one B load for two groups
+          uint32_t bf[4], a[2][4];
+          ldmatrix_x4_trans(bf, bs + gp * 16);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int g = 2 * gp + h;
+            ldmatrix_x4(a[0], a0 + g * 8);
+            ldmatrix_x4(a[1], a1 + g * 8);
+            mma_bf16_16816(acc[0][g], a[0], bf[2 * h], bf[2 * h + 1]);
+            mma_bf16_16816(acc[1][g], a[1], bf[2 * h], bf[2 * h + 1]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          uint32_t a[2][4];
+          ldmatrix_x4(a[0], a0 + g * CG);
+          ldmatrix_x4(a[1], a1 + g * CG);
+#pragma unroll
+          for (int np = 0; np < CG / 16; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, bs + g * CG + np * 16);
+            const int ni = g * (CG / 8) + 2 * np;
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_bf16_16816(acc[mi][ni], a[mi], bf[0], bf[1]);
+              mma_bf16_16816(acc[mi][ni + 1], a[mi], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+
+    int n0, h0, w0;
+    tile_origin(p, t, n0, h0, w0);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = warp * 32 + mi * 16 + (lane >> 2) + half * 8;
+        if (q >= tile_px) continue;
+        const int n = n0 + q / (p.TH * p.TW);
+        const int h = h0 + (q / p.TW) % p.TH, ww = w0 + q % p.TW;
+        if (n >= p.N || h >= p.H || ww >= p.W) continue;
+        TO* dst = out + (((long long)n * p.H + h) * p.W + ww) * p.C + cs0 + (lane & 3) * 2;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          float v0 = acc[mi][ni][2 * half] + bv[ni][0];
+          float v1 = acc[mi][ni][2 * half + 1] + bv[ni][1];
+          if (p.relu) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          store2(dst + ni * 8, v0, v1);
+        }
+      }
+    __syncthreads();   // every warp is done with this slot before it is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <int CG, typename TO>
+int launch_tc(const void* x, const void* w, const void* bias, void* out, const Plan& p,
+              cudaStream_t stream) {
+  const size_t smem =
+      sizeof(__nv_bfloat16) * ((size_t)weight_rows(CG) * SPS + (size_t)STAGES * stage_elems(p));
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(conv_tc_kernel<CG, TO>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(p.per_slab, p.C / SLAB);
+  conv_tc_kernel<CG, TO><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), static_cast<TO*>(out), p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int dispatch_tc(int c, const void* x, const void* w, const void* bias, void* out, const Plan& p,
+                cudaStream_t s) {
+  switch (c) {
+    case 8: return launch_tc<8, TO>(x, w, bias, out, p, s);
+    case 16: return launch_tc<16, TO>(x, w, bias, out, p, s);
+    case 32: return launch_tc<32, TO>(x, w, bias, out, p, s);
+    case 64: return launch_tc<64, TO>(x, w, bias, out, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------- fp32: the CUDA-core body
 constexpr int CB = 64;             // output channels per block
 constexpr int THREADS = 256;
 constexpr int QUADS = CB / 4;      // 4-channel groups of a block
@@ -48,14 +318,6 @@ constexpr int LANES = THREADS / QUADS;  // pixel lanes
 constexpr int PPT = 8;             // pixels per thread
 constexpr int PMAX = LANES * PPT;  // pixels per block
 constexpr int KCMAX = 16;          // input channels per group per chunk
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 struct Geo {
   int N, H, W, C, c;
@@ -65,10 +327,10 @@ struct Geo {
   int relu;
 };
 
-template <typename TI, typename TO>
+template <typename TO>
 __global__ void __launch_bounds__(THREADS)
-grouped_conv3x3_kernel(const TI* __restrict__ x, const TI* __restrict__ w,
-                       const float* __restrict__ bias, TO* __restrict__ out, const Geo g) {
+fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+           const float* __restrict__ bias, TO* __restrict__ out, const Geo g) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);   // [9][KC][CB]
   float* in_s = w_s + 9 * g.KC * CB;              // [NB][TH+2][TW+2][PS]
@@ -117,14 +379,14 @@ grouped_conv3x3_kernel(const TI* __restrict__ x, const TI* __restrict__ w,
       const int ch = cin0 + (q / g.KC) * g.c + kc0 + q % g.KC;
       float v = 0.0f;
       if (n < g.N && h >= 0 && h < g.H && ww >= 0 && ww < g.W)
-        v = to_f(x[(((long long)n * g.H + h) * g.W + ww) * g.C + ch]);
+        v = x[(((long long)n * g.H + h) * g.W + ww) * g.C + ch];
       in_s[(pix * WT + xx) * g.PS + q] = v;
     }
     for (int idx = tid; idx < n_w; idx += THREADS) {
       const int o = idx % CB;
       const int j = (idx / CB) % g.KC;
       const int tap = idx / (CB * g.KC);
-      w_s[idx] = to_f(w[((long long)tap * g.c + kc0 + j) * g.C + cb0 + o]);
+      w_s[idx] = w[((long long)tap * g.c + kc0 + j) * g.C + cb0 + o];
     }
     __syncthreads();
     for (int tap = 0; tap < 9; ++tap) {
@@ -160,34 +422,10 @@ grouped_conv3x3_kernel(const TI* __restrict__ x, const TI* __restrict__ w,
   }
 }
 
-template <typename TI, typename TO>
-int launch(const void* x, const void* w, const void* bias, void* out, const Geo& g,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (9 * (size_t)g.KC * CB
-                                       + (size_t)g.NB * (g.TH + 2) * (g.TW + 2) * g.PS);
-  cudaError_t e = cudaFuncSetAttribute(grouped_conv3x3_kernel<TI, TO>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long tiles = (long long)((g.N + g.NB - 1) / g.NB) * g.tiles_h * g.tiles_w;
-  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)tiles, g.C / CB);
-  grouped_conv3x3_kernel<TI, TO><<<grid, THREADS, smem, stream>>>(
-      static_cast<const TI*>(x), static_cast<const TI*>(w), static_cast<const float*>(bias),
-      static_cast<TO*>(out), g);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// in_dtype / out_dtype: 0 = float32, 1 = bfloat16; c = C / groups; bias may
-// be null. Takes C % 64 == 0, c dividing 64 or a multiple of it, c % 4 == 0.
-// Returns the launch's cudaError_t (0 = ok).
-extern "C" int grouped_conv3x3(int in_dtype, int out_dtype, const void* x, const void* w,
-                               const void* bias, void* out, int N, int H, int W, int C, int c,
-                               int relu, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || c <= 0 || C % CB || C % c || c % 4 ||
-      (CB % c && c % CB))
-    return (int)cudaErrorInvalidValue;
+template <typename TO>
+int launch_fma(const void* x, const void* w, const void* bias, void* out, int N, int H, int W,
+               int C, int c, int relu, cudaStream_t stream) {
+  if (C % CB || c % 4 || (CB % c && c % CB)) return (int)cudaErrorInvalidValue;
   Geo g;
   g.N = N; g.H = H; g.W = W; g.C = C; g.c = c; g.relu = relu;
   g.TW = W < 16 ? W : 16;
@@ -203,11 +441,54 @@ extern "C" int grouped_conv3x3(int in_dtype, int out_dtype, const void* x, const
   g.KC = c < KCMAX ? c : KCMAX;
   g.CHS = (c <= CB ? CB / c : 1) * g.KC;
   g.PS = g.CHS + 1;  // odd pixel stride: neighbouring pixels fall in other banks
+  const size_t smem = sizeof(float) * (9 * (size_t)g.KC * CB
+                                       + (size_t)g.NB * (g.TH + 2) * (g.TW + 2) * g.PS);
+  cudaError_t e = cudaFuncSetAttribute(fma_kernel<TO>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = (long long)((g.N + g.NB - 1) / g.NB) * g.tiles_h * g.tiles_w;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, g.C / CB);
+  fma_kernel<TO><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<TO*>(out), g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// in_dtype / out_dtype: 0 = float32, 1 = bfloat16; c = C / groups; bias may
+// be null. bfloat16 inputs (tensor cores): c in {8, 16, 32, 64}, C % 64 == 0,
+// x, w and out 16-byte aligned, and the caller's tile plan: TH x TW output
+// pixels of NB images a tile (TH TW NB <= 256), per_slab blocks for each 64
+// output channels. float32 inputs (CUDA cores): C % 64 == 0, c % 4 == 0, c
+// dividing 64 or a multiple of it; the plan arguments are not read.
+// Returns the launch's cudaError_t (0 = ok).
+extern "C" int grouped_conv3x3(int in_dtype, int out_dtype, const void* x, const void* w,
+                               const void* bias, void* out, int N, int H, int W, int C, int c,
+                               int relu, int TH, int TW, int NB, int per_slab, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || c <= 0 || C % c || out_dtype < 0 ||
+      out_dtype > 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0 && out_dtype == 0) return launch<float, float>(x, w, bias, out, g, s);
-  if (in_dtype == 0 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, w, bias, out, g, s);
-  if (in_dtype == 1 && out_dtype == 0) return launch<__nv_bfloat16, float>(x, w, bias, out, g, s);
-  if (in_dtype == 1 && out_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, bias, out, g, s);
-  return (int)cudaErrorInvalidValue;
+  if (in_dtype == 0) {
+    if (out_dtype == 0) return launch_fma<float>(x, w, bias, out, N, H, W, C, c, relu, s);
+    return launch_fma<__nv_bfloat16>(x, w, bias, out, N, H, W, C, c, relu, s);
+  }
+  if (in_dtype != 1 || C % SLAB || C / SLAB > 65535 || TH <= 0 || TW <= 0 || NB <= 0 ||
+      per_slab <= 0 || TH * TW * NB > TC_PIXELS ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(out)) & 15))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  p.N = N; p.H = H; p.W = W; p.C = C; p.TH = TH; p.TW = TW; p.NB = NB;
+  p.tiles_h = (H + TH - 1) / TH;
+  p.tiles_w = (W + TW - 1) / TW;
+  const long long tiles = (long long)((N + NB - 1) / NB) * p.tiles_h * p.tiles_w;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  p.per_slab = per_slab;
+  p.relu = relu;
+  if (out_dtype == 0) return dispatch_tc<float>(c, x, w, bias, out, p, s);
+  return dispatch_tc<__nv_bfloat16>(c, x, w, bias, out, p, s);
 }

@@ -14,6 +14,7 @@ at once. Nothing is built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -104,3 +105,10 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _loaded[name] = ctypes.CDLL(library_path(name))
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors: the persistent kernels' grid."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,7 +1,8 @@
 """A tall-skinny bf16 product, (M, 128) @ (128, 128) with fp32 sums and a
 bf16 result: the launch-overhead probe's matmul kernel
-(`csrc/probe_matmul.cu`, mma.sync on the tensor cores) and its plain
-version.
+(`csrc/probe_matmul.cu`: mma.sync on the tensor cores, w held resident, a
+persistent grid of one block an SM walking 32-row tiles of x through a
+cp.async ring) and its plain version.
 
 Port of tools/probe_pallas_overhead.py's mm-pallas kernel. `torch.matmul`
 is not a port of it; the probe times it beside the kernel as the library
@@ -21,6 +22,7 @@ import torch
 from . import _build
 
 K = 128  # the depth and width of w
+TILE_ROWS = 32  # rows of x a kernel tile (csrc/probe_matmul.cu BM)
 
 LAUNCHES = {"probe_matmul": 0}
 
@@ -56,8 +58,10 @@ def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return y
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("probe_matmul needs 16-byte aligned storage")
+    tiles = -(-x.shape[0] // TILE_ROWS)
+    blocks = min(tiles, _build.sm_count(x.device))
     with torch.cuda.device(x.device):
-        rc = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[0],
+        rc = _fn()(x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[0], blocks,
                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"probe_matmul kernel launch failed: cudaError {rc}")
@@ -68,7 +72,7 @@ def probe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _fn():
     fn = _build.load("probe_matmul").probe_matmul
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, p]
         fn.restype = ctypes.c_int
     return fn

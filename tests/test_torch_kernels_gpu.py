@@ -10,8 +10,8 @@ machine that has only PyTorch and the CUDA toolkit:
 Tolerances: float32 sums in another order (1e-4 on outputs, 2e-4 + 1e-5
 |ref| on gradients); bfloat16 one rounding of an fp32 result on each side
 (one bf16 ulp, 2^-7 relative, + 1e-3). The detector kernels (RoIAlign, the
-grouped conv) are held at 1e-5 relative to the output's largest magnitude
-in float32 (at most 9 * 64 products summed in another order; cuDNN's TF32
+grouped conv, and the grouped conv's bf16-in fp32-out epilogue) are held at
+1e-5 relative to the output's largest magnitude in float32 (at most 9 * 64 products summed in another order; cuDNN's TF32
 is off for the plain conv), one bf16 ulp in bfloat16. The probe kernels: the
 copy exactly (doubling is exact); the mma matmul and the packed conv variants
 one bf16 ulp; the packed conv's float32 instantiation against cuDNN's
@@ -133,7 +133,10 @@ def test_roi_align_matches_plain_on_gpu(gpu, dtype, out_size):
 
 
 @pytest.mark.parametrize("N,H,W,C", [(2, 152, 256, 256), (2, 76, 128, 512), (3, 38, 64, 1024),
-                                     (300, 7, 7, 2048), (5, 9, 13, 256)])
+                                     (300, 7, 7, 2048), (5, 9, 13, 256),
+                                     (1201, 7, 7, 2048),     # crops not a multiple of the tile's 5
+                                     (2, 38, 50, 1024),      # width not a multiple of 64 columns
+                                     (2, 1, 70, 512)])       # one row, a ragged column block
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_grouped_conv_matches_plain_on_gpu(gpu, dtype, N, H, W, C):
     torch.backends.cudnn.allow_tf32 = False
@@ -153,6 +156,41 @@ def test_grouped_conv_matches_plain_on_gpu(gpu, dtype, N, H, W, C):
             torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
 
 
+@pytest.mark.parametrize("C", [256, 512, 1024, 2048])
+def test_grouped_conv_bf16_in_fp32_out_on_gpu(gpu, C):
+    """bf16 inputs with a float32 output: the tensor-core kernel's fp32
+    epilogue, held to the plain version's float32 result (sums in another
+    order over at most 9 * 64 bf16 products)."""
+    torch.backends.cudnn.allow_tf32 = False
+    c = C // 32
+    x = torch.randn(2, 9, 70, C, device="cuda", generator=gpu).bfloat16()
+    w = (torch.randn(3, 3, c, C, device="cuda", generator=gpu) * c ** -0.5).bfloat16()
+    bias = torch.randn(C, device="cuda", generator=gpu)
+    out = gc.grouped_conv3x3(x, w, 32, bias, True, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    ref = gc.grouped_conv3x3_reference(x, w, 32, bias, True, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_grouped_conv_refuses_misaligned_storage_on_gpu(gpu):
+    """The bf16 kernel stages x and w by 16-byte cp.async copies: a view 2
+    bytes into its storage is refused before launch, the same data aligned
+    is not."""
+    flat = torch.randn(1 + 2 * 5 * 6 * 256, device="cuda", generator=gpu).bfloat16()
+    w = torch.zeros(3, 3, 8, 256, device="cuda", dtype=torch.bfloat16)
+    x = flat[1:].view(2, 5, 6, 256)
+    gc.reset_launches()
+    with pytest.raises(ValueError, match="aligned"):
+        gc.grouped_conv3x3(x, w, 32)
+    wflat = torch.zeros(1 + w.numel(), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        gc.grouped_conv3x3(x.clone(), wflat[1:].view(3, 3, 8, 256), 32)
+    assert gc.LAUNCHES["grouped_conv3x3"] == 0
+    gc.grouped_conv3x3(x.clone(), w, 32)
+    assert gc.LAUNCHES["grouped_conv3x3"] == 1
+
+
 @pytest.mark.parametrize("shape", [(256, 128), (8, 40, 64, 128), (1001,)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_probe_copy_matches_plain_on_gpu(gpu, dtype, shape):
@@ -166,7 +204,7 @@ def test_probe_copy_matches_plain_on_gpu(gpu, dtype, shape):
     assert pc.LAUNCHES["probe_copy"] == 3
 
 
-@pytest.mark.parametrize("M", [20480, 1000, 5])
+@pytest.mark.parametrize("M", [20480, 1000, 5, 1, 4255])   # 4255: not a multiple of 32 rows
 def test_probe_matmul_matches_plain_on_gpu(gpu, M):
     x = torch.randn(M, 128, device="cuda", generator=gpu).bfloat16()
     w = (torch.randn(128, 128, device="cuda", generator=gpu) * 0.05).bfloat16()
