@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero before the result line:
      float32 and bfloat16; with fully masked rows): the eval forward, and
      the train forward (dropout rate 0 and 0.1, with the log-sum-exp) with
      both backward kernels, rows and key columns with no allowed pair
-     exactly 0;
+     exactly 0; then the dQ kernel's edges on both of its routes (route
+     printed, dropout off and on): a 192x192 mask at 3% with fully
+     allowed and empty rows, a view 2 bytes off 16-byte alignment, odd
+     D = 241 at 8 and at 4 heads, 8 heads of 240, 3 heads of 242 and of 64;
   3. the serving path: STTran sgdet at full width (feat 2048, 1 encoder + 3
      decoder layers, 8 heads, random weights from a seeded torch.Generator)
      serving 64 synthetic videos at bench.py's shapes (32 frames, 128 box and
@@ -35,7 +38,11 @@ Phases, in order; any failure exits non-zero before the result line:
   7. the detector kernels against their plain versions at the detector
      path's shapes, float32 and bfloat16: RoIAlign on a (4, 38, 64, 1024) C4
      map with 300 rois a frame (degenerate, clamped and fully outside rois
-     among them), the grouped 3x3 conv at its four geometry classes (c = 8
+     among them), and at its edges (the whole map, wholly outside on each
+     side, degenerate, past the far edge, straddling each border, in random
+     frame order; S = 1, 2, 4; C = 1020 and a misaligned map on the scalar
+     route, C = 1000 on the vector route; a single roi), the grouped 3x3
+     conv at its four geometry classes (c = 8
      at 152x256, 16 at 76x128, 32 at 38x64, 64 at 7x7 over 1200 crops) and
      at the edges of the bf16 kernel's tiles (1201 crops, a 38x50 map), with
      and without the bias + ReLU epilogue, float32, bfloat16, and bfloat16
@@ -235,6 +242,54 @@ def profile_table(fn, step_ms: float, label: str, n: int = 3) -> None:
         log(f"profile {label}: unavailable ({ex!r})")
 
 
+def dq_edge_checks(ma, g, dev) -> None:
+    """Phase 2's dQ edge cases, each against the plain version (dq and r to
+    GRAD_TOL, rows with no allowed key exactly 0), dropout off and on, with
+    the route the wrapper took: a 192x192 mask at the path's 3% with some
+    rows fully allowed (more keys than one cp.async chunk) and some empty;
+    a view 2 bytes off 16-byte alignment; odd D = 241 at 8 and at 4 heads;
+    8 heads of 240; 3 heads of 242 and of 64."""
+    import torch
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
+    cases = (("192x192 full and empty rows", 192, H, HEAD_DIM, 0, "staged"),
+             ("misaligned view", 96, H, HEAD_DIM, 1, "per-element"),
+             ("odd D, 8 heads", 96, H, 241, 0, "per-element"),
+             ("8 heads of 240", 96, H, 240, 0, "staged"),
+             ("odd D, 4 heads", 96, 4, 241, 0, "per-element"),
+             ("3 heads of 242", 96, 3, HEAD_DIM, 0, "per-element"),
+             ("3 heads of 64", 96, 3, 64, 0, "staged"))
+    for what, L, Hh, D, pad, want in cases:
+        E = Hh * D
+        x = torch.randn(B, L, 3 * E + pad, device=dev, generator=g).bfloat16()[..., pad:]
+        q, k, v = (x[..., i * E:(i + 1) * E].unflatten(-1, (Hh, D)) for i in range(3))
+        gout = torch.randn(B, L, Hh, D, device=dev, generator=g).bfloat16()
+        allow = torch.rand(B, L, L, device=dev, generator=g) < 0.03
+        allow[:, ::9] = True                      # fully allowed rows
+        allow[:, 4::9] = False                    # rows with no allowed key
+        route = ma.dq_route(q, k, v, gout)
+        if route != want:
+            fail(f"dQ {what}: route {route}, expected {want}")
+        scale = D ** -0.5
+        errs = []
+        for rate in (0.0, RATE):
+            sd = seeds if rate else None
+            _, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, sd)
+            dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, sd)
+            torch.cuda.synchronize()
+            ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, scale, gout, rate, sd)
+            for name, got, ref in (("dq", dq, ref_dq), ("r", r, ref_r)):
+                err, ok = kernel_err(got, ref, GRAD_TOL)
+                errs.append(f"{name} rate {rate} {err:.3e}")
+                if not ok:
+                    fail(f"dQ {what} ({route}): {name} disagrees with its plain version at rate "
+                         f"{rate} (max_abs_err {err:.3e})")
+            if float(dq[:, 4::9].float().abs().max()) != 0.0:
+                fail(f"dQ {what}: rows with no allowed key are not 0")
+        log(f"bwd_dq {what} {(B, L, Hh, D)} x Lk={L}: route {route}; max_abs_err "
+            + ", ".join(errs) + "; empty rows exactly 0")
+
+
+
 # ---------------------------------------------------------------- detector
 def rel_err(out, ref) -> float:
     """max |out - ref| over the largest |ref|."""
@@ -295,6 +350,56 @@ def path_rois(g, n_frames: int, per_frame: int, H: int, W: int, dev):
     return torch.cat(rois), fidx
 
 
+def edge_rois(H: int, W: int, dev):
+    """Rois at the RoIAlign kernel's edges on an (H, W) map at stride 16:
+    the whole map and beyond it, wholly outside on each side (indices 2-5),
+    degenerate and inverted, past the far edge, one row tall, straddling
+    each border."""
+    import torch
+    w, h = W * 16.0, H * 16.0
+    return torch.tensor([[0, 0, w - 1, h - 1], [-16, -16, w + 15, h + 15],
+                         [-500, -500, -400, -400], [w + 40, 10, w + 90, 50],
+                         [10, h + 40, 50, h + 90], [10, -90, 50, -40],
+                         [0, 0, 0, 0], [30, 20, 29, 19], [w - 8, h - 8, w + 40, h + 40],
+                         [5, 33, w - 5, 34], [-30, 20, 40, 60], [w - 40, 20, w + 30, 60],
+                         [20, -30, 60, 40], [20, h - 40, 60, h + 30]], device=dev)
+
+
+def roi_align_edge_checks(ra, g, dev) -> None:
+    """Phase 7's RoIAlign edge cases on (4, 38, 64, C) maps, each against the
+    plain version (DET_KERNEL_REL in float32, one bf16 ulp in bfloat16),
+    wholly outside rois exactly 0: the edge rois beside 300 random ones in
+    random frame order, at S = 1, 2 and 4; C = 1020 (the scalar route) and
+    C = 1000 (a multiple of 8: the vector route); a map 2 bytes off 16-byte
+    alignment (scalar); a single roi over the whole map."""
+    import torch
+    Hm, Wm = 38, 64
+    edges = edge_rois(Hm, Wm, dev)
+    rand, _ = path_rois(g, 1, 300, Hm, Wm, dev)
+    rois = torch.cat([edges, rand])
+    fidx = torch.randint(0, DET_CHECK_FRAMES, (rois.shape[0],), generator=g, device=dev,
+                         dtype=torch.int32)
+    base = torch.randn(DET_CHECK_FRAMES * Hm * Wm * 1024 + 8, generator=g, device=dev)
+    cases = [(1024, torch.bfloat16, S, 0, rois, fidx) for S in (1, 2, 4)]
+    cases += [(1024, torch.float32, 2, 0, rois, fidx), (1020, torch.float32, 2, 0, rois, fidx),
+              (1020, torch.bfloat16, 2, 0, rois, fidx), (1000, torch.bfloat16, 2, 0, rois, fidx),
+              (1024, torch.bfloat16, 2, 1, rois, fidx),
+              (1024, torch.bfloat16, 2, 0, edges[:1], fidx[:1])]
+    for C, dtype, S, off, r, fi in cases:
+        fm = base.to(dtype)[off:off + DET_CHECK_FRAMES * Hm * Wm * C].view(
+            DET_CHECK_FRAMES, Hm, Wm, C)
+        route = ra.kernel_plan(C, (14, 14), S, aligned=fm.data_ptr() % 16 == 0)["route"]
+        out = ra.roi_align(fm, r, fi, (14, 14), 1 / 16, S)
+        torch.cuda.synchronize()
+        err, ok = det_kernel_err(out, ra.roi_align_reference(fm, r, fi, (14, 14), 1 / 16, S))
+        outside = float(out[2:6].float().abs().max()) if r.shape[0] > 6 else 0.0
+        log(f"roi_align edges {str(dtype)[6:]} C={C} S={S} {r.shape[0]} rois"
+            f"{' (map 2 bytes off)' if off else ''}, random frame order: route {route}, "
+            f"max_abs_err {err:.3e}, outside rois max |out| {outside}")
+        if not ok or outside != 0.0:
+            fail(f"roi_align edge case disagrees with its plain version: {dtype} C={C} S={S}")
+
+
 def detector_phases(dev, card) -> list[dict]:
     """Phases 7-9: the detector kernels against their plain versions, the
     detector path (fp32 kernel vs plain, bf16 serving), the kernels timed on
@@ -332,6 +437,7 @@ def detector_phases(dev, card) -> list[dict]:
             f"{outside}")
         if not ok or outside != 0.0:
             fail(f"roi_align disagrees with its plain version at {dtype}")
+    roi_align_edge_checks(ra, g, dev)
     # the four classes, then the edges of the bf16 kernel's tiles: a crop
     # count not a multiple of its 5 crops, a width not a multiple of its 64
     # columns
@@ -549,8 +655,10 @@ def detector_phases(dev, card) -> list[dict]:
                + out.numel() * out.element_size()) / HBM_BYTES_PER_S
     t_ops = 8.0 * sr * sr * out.numel() / PEAK_OPS["torch.float32"]  # 4 taps x (mul, add)
     abound = max(t_bytes, t_ops) * 1e3
+    route = ra.kernel_plan(fm.shape[3], out.shape[1:3], sr, fm.data_ptr() % 16 == 0)["route"]
     log(f"roi_align path inputs: map {tuple(fm.shape)} {str(fm.dtype)[6:]}, "
-        f"{rois_p.shape[0]} rois -> {tuple(out.shape)} {str(out.dtype)[6:]}: kernel {ams:.4f} "
+        f"{rois_p.shape[0]} rois -> {tuple(out.shape)} {str(out.dtype)[6:]}, route {route}: "
+        f"kernel {ams:.4f} "
         f"ms, plain {apl:.4f} ms, bound {abound:.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'}), max_abs_err {align_err:.3e}")
     per_video = sum(video_ms) / 2
@@ -845,6 +953,8 @@ def main() -> None:
                 log(f"train kernels {what}: max_abs_err " + ", ".join(
                     f"{n} {e:.3e}" for n, e in errs.items()) + "; empty rows/keys exactly 0")
 
+    dq_edge_checks(ma, g, dev)
+
     # ---- 3. the main path at full width ----
     t0 = time.perf_counter()
     rng = np.random.default_rng(1000)
@@ -1111,7 +1221,8 @@ def main() -> None:
             lib_bwd)
         add("bwd_dkv", errs["bwd_dkv"], kms, kpl, attention_bwd_bound_ms(q, k, allow, "dkv"),
             lib_bwd)
-        log(f"train path {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}: fwd {fms:.4f} "
+        log(f"train path {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}, dQ route "
+            f"{ma.dq_route(q, k, v, gout)}: fwd {fms:.4f} "
             f"(plain {fpl:.4f}, sdpa {lib_fwd:.4f}), bwd dQ {qms:.4f} (plain {qpl:.4f}), "
             f"bwd dK/dV {kms:.4f} (plain {kpl:.4f}), sdpa backward {lib_bwd:.4f} ms; "
             f"allowed pairs {float(allow.float().mean()):.4f}; max_abs_err "

@@ -23,9 +23,12 @@
 //
 // Head dim. STTran's head dim is 1936 / 8 = 242, not a multiple of 8: a
 // head's slice of a bf16 row starts 484 bytes in, so 16-byte vector loads
-// do not line up. The kernels load per element (lane i takes dims i, i+32,
-// ...) instead of having the wrapper zero-pad to 256, which would cost one
-// more read and write of q, k, v and g. Any D <= 256.
+// of one head do not line up. The forward, dK/dV and the per-element dQ
+// route load per element (lane i takes dims i, i+32, ...) instead of having
+// the wrapper zero-pad to 256, which would cost one more read and write of
+// q, k, v and g; the staged dQ route copies whole token rows (all heads),
+// which do line up, and each warp reads its head's slice from shared
+// memory. Any D <= 256.
 //
 // Dropout bits. A stateless counter hash of (video seed, head, query, key):
 // three rounds of murmur3's 32-bit finalizer over the key mixed in one
@@ -60,9 +63,31 @@
 // r = sum_k p dP, dS = p (dP - r) scale), in two launches with no atomics,
 // so the result is deterministic:
 //   (a) dQ, row-major like the forward: p = exp(s - lse) recomputed per
-//       allowed key; a first pass sums r in fp32 (not from g.out, which in
-//       bf16 would carry the output's rounding), a second sums
-//       dQ = sum_k dS k; r is written for (b).
+//       allowed key, r = sum_k p dP summed in fp32 (not from g.out, which
+//       in bf16 would carry the output's rounding) and written for (b),
+//       then dQ = sum_k dS k. Two routes, chosen by the wrapper from
+//       dtype, shapes and alignment before the launch:
+//       - staged (bf16, H <= 8, D even, 16-byte aligned rows and token
+//         strides, H * D * 2 a multiple of 16; the training path): one block a
+//         (video, query row), one warp a head. The block compacts the
+//         mask row into a list of allowed keys in shared memory (one
+//         ballot a warp), and brings the q and g rows and the listed keys'
+//         k and v rows (all heads: 3872 bytes a row at H * D = 1936) into
+//         shared memory by 16-byte cp.async, KC keys a chunk through a
+//         ring of STAGES chunks, the next chunk in flight while one is
+//         used. One walk over the list forms each (key, head)'s p and dP
+//         (two warp sums, a chunk's keys interleaved, lanes on bf16 dim
+//         pairs) and sums r = sum p dP, sum p dP k and sum p k
+//         beside them, so dQ = scale (sum p dP k - r sum p k) is ready at
+//         the walk's end: no key row is read twice and nothing is stored
+//         per key. The difference of the two sums is taken in fp32 and
+//         rounded once to bf16 (the route is bf16 only). On an H100 at the
+//         training shapes it takes about 0.62 ms a step against a 0.23 ms
+//         bound: the walk's arithmetic and shuffles about 0.25 ms, the key
+//         rows' copies from L2 about 0.16 (PERF.md, from kernel_variants);
+//       - per element (fp32, odd D, other views): one warp a (row, head),
+//         lane i loading dims i, i + 32, ... of each allowed key's rows,
+//         a first walk over the keys summing r, a second summing dQ.
 //   (b) dK and dV, one warp per key row walking the key's allowed queries
 //       in allowT: dV = sum_q p keep / (1 - rate) g_q, dK = sum_q dS q_q.
 // A row or column with no allowed pair writes exactly 0.
@@ -71,6 +96,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -82,9 +109,15 @@ constexpr float LSE_EMPTY = -1e30f;  // lse of a row with no allowed key
 // Resident blocks per SM asked of the compiler (it caps registers to fit).
 // On an H100 at the training shapes the train forward (dropout + lse) at 6
 // and dK/dV at 4 ran faster than at the compiler's own choice (56 and 80
-// registers; PERF.md); the eval forward and dQ ran no faster, and keep it.
+// registers; PERF.md); the eval forward and the per-element dQ ran no
+// faster, and keep it.
 constexpr int TRAIN_FWD_MIN_BLOCKS = 6;
 constexpr int DKV_MIN_BLOCKS = 4;
+constexpr int KC = 2;                // keys a cp.async chunk of the staged dQ route (warp_sum4)
+constexpr int STAGES = 2;            // chunks in its ring
+constexpr int DQ_MIN_BLOCKS = 3;     // its blocks an SM asked of the compiler (<= 85 registers)
+constexpr int PAIRS = DMAX / 64;     // bf16 dim pairs a lane in the staged dQ route
+constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use on sm_90
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -243,7 +276,8 @@ masked_mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         live &= live - 1;
         const T* kp = kb + key * a.k_sl;
         const T* vp = vb + key * a.v_sl;
-        float ps = 0.f, pg = 0.f, kv[SLOTS];
+        float ps = 0.f, pg = 0.f, kv[SLOTS];  // q and g read from shared memory, not
+                                              // held: registers for 4 blocks an SM
 #pragma unroll
         for (int j = 0; j < SLOTS; ++j) {
           const int d = lane + 32 * j;
@@ -273,6 +307,208 @@ masked_mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (d < D) o[d] = from_f<T>(acc[j]);
   }
   if (lane == 0) r_out[stat] = r;
+}
+
+// ----------------------------------------------- backward: dQ, staged route
+// Dims 2 i and 2 i + 1 of a bf16 row in shared memory (4-byte aligned).
+// (bf16 is the top half of an fp32: one shift or mask a dim)
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* row, int i) {
+  const uint32_t u = reinterpret_cast<const uint32_t*>(row)[i];
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// The warp sums of four values (two keys' q.k and g.v) in 10 shuffles, not
+// 20: the first two rounds send each lane half of the values it does not
+// keep, the last three sum one value a lane, four broadcasts return them.
+__device__ __forceinline__ void warp_sum4(float& a0, float& b0, float& a1, float& b1) {
+  const int lane = threadIdx.x & 31;
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  float x0 = hi16 ? b0 : a0, x1 = hi16 ? b1 : a1;
+  x0 += __shfl_xor_sync(0xffffffffu, hi16 ? a0 : b0, 16);
+  x1 += __shfl_xor_sync(0xffffffffu, hi16 ? a1 : b1, 16);
+  float z = hi8 ? x1 : x0;
+  z += __shfl_xor_sync(0xffffffffu, hi8 ? x0 : x1, 8);
+  z += __shfl_xor_sync(0xffffffffu, z, 4);
+  z += __shfl_xor_sync(0xffffffffu, z, 2);
+  z += __shfl_xor_sync(0xffffffffu, z, 1);
+  a0 = __shfl_sync(0xffffffffu, z, 0);  // lanes 0-7 hold a0, 8-15 a1, 16-23 b0, 24-31 b1
+  a1 = __shfl_sync(0xffffffffu, z, 8);
+  b0 = __shfl_sync(0xffffffffu, z, 16);
+  b1 = __shfl_sync(0xffffffffu, z, 24);
+}
+
+// Shared memory of one block: the q and g rows, a ring of STAGES chunks of
+// KC keys' k rows then their v rows, the key list. The wrapper's
+// dq_staged_smem_bytes is the same sum.
+size_t dq_staged_smem(int Lk, int H, int D) {
+  const size_t E = (size_t)H * D;
+  return (2 + 2 * STAGES * KC) * E * sizeof(__nv_bfloat16) + (size_t)Lk * sizeof(int);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(THREADS, DQ_MIN_BLOCKS)
+masked_mha_bwd_dq_staged_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const __nv_bfloat16* __restrict__ g,
+                                const unsigned char* __restrict__ allow,
+                                const float* __restrict__ lse, const int* __restrict__ seeds,
+                                __nv_bfloat16* __restrict__ dq, float* __restrict__ r_out,
+                                Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[WARPS];
+  const int E = a.H * a.D;   // elements a token row, all heads
+  const int PIECES = E / 8;  // 16-byte copies a row
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // q row, then dq row
+  __nv_bfloat16* gs = qs + E;
+  __nv_bfloat16* ring = gs + E;  // stage t: rows 2 KC t + j (k) and 2 KC t + KC + j (v)
+  int* keys = reinterpret_cast<int*>(ring + 2 * STAGES * KC * E);
+
+  const long long row = blockIdx.x;  // b * Lq + qi
+  const int b = (int)(row / a.Lq), qi = (int)(row % a.Lq);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = warp;  // H <= WARPS: warps past H only copy
+  const int D = a.D;
+  const __nv_bfloat16* kb = k + b * a.k_sb;
+  const __nv_bfloat16* vb = v + b * a.v_sb;
+
+  const __nv_bfloat16* qp = q + b * a.q_sb + qi * a.q_sl;
+  const __nv_bfloat16* gp = g + b * a.g_sb + qi * a.g_sl;
+  for (int i = threadIdx.x; i < PIECES; i += THREADS) {
+    cp_async16(qs + 8 * i, qp + 8 * i, true);
+    cp_async16(gs + 8 * i, gp + 8 * i, true);
+  }
+  cp_async_commit();
+  float L = 0.f;  // loaded beside the mask row, not after it
+  uint32_t rkey = 0u;
+  if (h < a.H) {
+    L = lse[((long long)b * a.H + h) * a.Lq + qi];
+    if (DROP) rkey = row_key(seeds[b], h, qi);
+  }
+
+  // the allowed keys of this query row, in order: THREADS mask bytes a
+  // round, one ballot a warp, the warps' counts summed in shared memory
+  const unsigned char* arow = allow + row * a.Lk;
+  int nk = 0;
+  for (int k0 = 0; k0 < a.Lk; k0 += THREADS) {
+    const int kj = k0 + threadIdx.x;
+    const bool on = kj < a.Lk && arow[kj];
+    const unsigned live = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) counts[warp] = __popc(live);
+    __syncthreads();
+    int before = nk;
+    for (int w = 0; w < warp; ++w) before += counts[w];
+    if (on) keys[before + __popc(live & ((1u << lane) - 1u))] = kj;
+    for (int w = 0; w < WARPS; ++w) nk += counts[w];
+    __syncthreads();
+  }
+  const int chunks = (nk + KC - 1) / KC;
+
+  // chunk c of the list into ring stage c % STAGES, one cp.async group
+  // (empty past the list, so that every chunk's group keeps its place)
+  auto stage = [&](int c) {
+    const int c0 = c * KC, n = min(KC, nk - c0);
+    __nv_bfloat16* st = ring + (c % STAGES) * 2 * KC * E;
+    for (int j = 0; j < n; ++j) {
+      const long long key = keys[c0 + j];
+      for (int piece = threadIdx.x; piece < PIECES; piece += THREADS) {
+        cp_async16(st + j * E + 8 * piece, kb + key * a.k_sl + 8 * piece, true);
+        cp_async16(st + (KC + j) * E + 8 * piece, vb + key * a.v_sl + 8 * piece, true);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) stage(c);
+
+  // lane i holds dim pairs i, i + 32, ... of its head (D even: a head's
+  // slice starts on 4 bytes in shared memory)
+  const int D2 = D / 2;
+  float2 qv[PAIRS], gv[PAIRS], pdk[PAIRS], pk[PAIRS];
+  float r = 0.f;
+#pragma unroll
+  for (int j = 0; j < PAIRS; ++j) pdk[j] = pk[j] = make_float2(0.f, 0.f);
+  // one walk over the list: p and dP of each (key, head) from two warp
+  // sums, and in the same pass r = sum p dP, sum p dP k and sum p k, so
+  // that dQ = scale (sum p dP k - r sum p k) needs no second walk. A
+  // chunk's keys are taken together: their 2 KC warp sums interleave.
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + STAGES - 1);
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    if (c == 0 && h < a.H) {
+#pragma unroll
+      for (int j = 0; j < PAIRS; ++j) {
+        const int i = lane + 32 * j;
+        qv[j] = i < D2 ? pair(qs + h * D, i) : make_float2(0.f, 0.f);
+        gv[j] = i < D2 ? pair(gs + h * D, i) : make_float2(0.f, 0.f);
+      }
+    }
+    if (h < a.H) {
+      const __nv_bfloat16* st = ring + (c % STAGES) * 2 * KC * E + h * D;
+      const int n = min(KC, nk - c * KC);
+      // no branch around a load: a key past the chunk's n reads key 0 and
+      // a dim pair past D / 2 reads the last one, both with weight 0 (the
+      // staged rows are finite), so the loads of a chunk issue together;
+      // the k values stay in registers for the sums of p dP k and p k
+      float ps[KC], pg[KC];
+      float2 kk[KC][PAIRS];
+#pragma unroll
+      for (int j = 0; j < KC; ++j) ps[j] = pg[j] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < PAIRS; ++jj) {
+        const int i = min(lane + 32 * jj, D2 - 1);
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          const int jr = j < n ? j : 0;
+          kk[j][jj] = pair(st + jr * E, i);
+          const float2 vv = pair(st + (KC + jr) * E, i);
+          ps[j] += qv[jj].x * kk[j][jj].x + qv[jj].y * kk[j][jj].y;
+          pg[j] += gv[jj].x * vv.x + gv[jj].y * vv.y;
+        }
+      }
+      static_assert(KC == 2, "warp_sum4 sums two keys' products");
+      warp_sum4(ps[0], pg[0], ps[1], pg[1]);
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+        const float p = j < n ? __expf(ps[j] * a.scale - L) : 0.f;
+        float dp = pg[j];
+        if (DROP && j < n)
+          dp = drop_bits(rkey, keys[c * KC + j]) >= a.threshold ? dp * a.keep_scale : 0.f;
+        ps[j] = p;       // the key's p
+        pg[j] = p * dp;  // and p dP (0 past n)
+        r += pg[j];
+      }
+#pragma unroll
+      for (int jj = 0; jj < PAIRS; ++jj) {
+#pragma unroll
+        for (int j = 0; j < KC; ++j) {
+          pdk[jj].x += pg[j] * kk[j][jj].x;
+          pdk[jj].y += pg[j] * kk[j][jj].y;
+          pk[jj].x += ps[j] * kk[j][jj].x;
+          pk[jj].y += ps[j] * kk[j][jj].y;
+        }
+      }
+    }
+    __syncthreads();  // stage c % STAGES is refilled next
+  }
+  cp_async_wait<0>();  // the q and g rows when the list is empty
+  __syncthreads();
+
+  // the dQ row through shared memory, out by 16-byte stores
+  if (h < a.H) {
+#pragma unroll
+    for (int j = 0; j < PAIRS; ++j) {
+      const int i = lane + 32 * j;
+      if (i < D2)
+        reinterpret_cast<__nv_bfloat162*>(qs + h * D)[i] = __floats2bfloat162_rn(
+            (pdk[j].x - r * pk[j].x) * a.scale, (pdk[j].y - r * pk[j].y) * a.scale);
+    }
+    if (lane == 0) r_out[((long long)b * a.H + h) * a.Lq + qi] = r;
+  }
+  __syncthreads();
+  uint4* o = reinterpret_cast<uint4*>(dq + row * E);
+  for (int i = threadIdx.x; i < PIECES; i += THREADS) o[i] = reinterpret_cast<const uint4*>(qs)[i];
 }
 
 // ------------------------------------------------------- backward: dK, dV
@@ -404,6 +640,23 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* g, const voi
   return (int)cudaGetLastError();
 }
 
+template <bool DROP>
+int bwd_dq_staged(const void* q, const void* k, const void* v, const void* g, const void* allow,
+                  const void* lse, const void* seeds, void* dq, void* r, const Args& a,
+                  cudaStream_t s) {
+  const size_t smem = dq_staged_smem(a.Lk, a.H, a.D);
+  cudaError_t e = cudaFuncSetAttribute(masked_mha_bwd_dq_staged_kernel<DROP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  masked_mha_bwd_dq_staged_kernel<DROP><<<(unsigned)((long long)a.B * a.Lq), THREADS, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const unsigned char*>(allow), static_cast<const float*>(lse),
+      static_cast<const int*>(seeds), static_cast<__nv_bfloat16*>(dq), static_cast<float*>(r),
+      a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool DROP>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const void* allow_t,
             const void* lse, const void* r, const void* seeds, void* dk, void* dv,
@@ -457,6 +710,32 @@ extern "C" int masked_mha_bwd_dq(int dtype, const void* q, const void* k, const 
     return drop ? bwd_dq<__nv_bfloat16, true>(q, k, v, g, allow, lse, seeds, dq, r, a, s)
                 : bwd_dq<__nv_bfloat16, false>(q, k, v, g, allow, lse, seeds, dq, r, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The staged dQ route (bf16 only): the same arguments and outputs as
+// masked_mha_bwd_dq. It refuses (cudaErrorInvalidValue) H > 8, odd D, rows that
+// are not whole 16-byte pieces, pointers or token strides off 16-byte
+// alignment, and shared memory past a block's limit; the wrapper checks
+// the same before choosing it.
+extern "C" int masked_mha_bwd_dq_staged(int dtype, const void* q, const void* k, const void* v,
+                                        const void* g, const void* allow, const void* lse,
+                                        const void* seeds, void* dq, void* r, int B, int Lq,
+                                        int Lk, int H, int D, long long q_sb, long long q_sl,
+                                        long long k_sb, long long k_sl, long long v_sb,
+                                        long long v_sl, long long g_sb, long long g_sl,
+                                        float scale, unsigned threshold, float keep_scale,
+                                        void* stream) {
+  const auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (dtype != 1 || bad_shape(B, Lq, Lk, H, D) || H > WARPS || D % 2 || (H * D) % 8 ||
+      off16(q) || off16(k) || off16(v) || off16(g) || off16(dq) ||
+      (q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) % 8 != 0 ||
+      dq_staged_smem(Lk, H, D) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return seeds != nullptr ? bwd_dq_staged<true>(q, k, v, g, allow, lse, seeds, dq, r, a, s)
+                          : bwd_dq_staged<false>(q, k, v, g, allow, lse, seeds, dq, r, a, s);
 }
 
 // dK and dV (B, Lk, H, D) contiguous, from allowT (B, Lk, Lq), lse and r.

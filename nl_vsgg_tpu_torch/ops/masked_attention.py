@@ -28,6 +28,15 @@ gradients and at rate 0 it is the eval forward: no lse, no hashing.
 
 `LAUNCHES` counts kernel launches by kernel ("fwd", "bwd_dq", "bwd_dkv");
 `reset_launches()` sets them to 0.
+
+The dQ kernel has two routes, one launch either way; `dq_route` picks one
+from dtype, shapes and alignment before the launch. "staged" (bf16, at
+most 8 heads, an even head dim, q/k/v/g rows and batch and token strides
+on 16-byte boundaries, H * D * 2 bytes a multiple of 16, shared memory for
+two blocks an SM; the training path's column blocks of the fused
+projection) brings whole token rows in by 16-byte copies and walks the
+allowed keys once, summing dQ as scale (sum p dP k - r sum p k);
+"per-element" (fp32, odd D, other views) loads a head's dims one by one.
 """
 
 from __future__ import annotations
@@ -44,6 +53,13 @@ LSE_EMPTY = -1e30  # lse of a query row with no allowed key (the JAX NEG_INF)
 _M32 = 0xFFFFFFFF
 
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+
+# the staged dQ route (csrc/masked_attention.cu KC, STAGES, WARPS, dq_staged_smem)
+STAGED_KEYS = 2                  # keys a cp.async chunk
+STAGED_CHUNKS = 2                # chunks in the ring
+STAGED_MAX_HEADS = 8             # one warp a head
+STAGED_SMEM_MAX = 113 * 1024     # two blocks of an SM's 228 KB (1 KB each reserved)
+_DQ_ENTRY = {"staged": "masked_mha_bwd_dq_staged", "per-element": "masked_mha_bwd_dq"}
 
 
 def reset_launches() -> None:
@@ -270,6 +286,27 @@ def _bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale):
             threshold, keep_scale)
 
 
+def dq_staged_smem_bytes(lk: int, num_heads: int, head_dim: int) -> int:
+    """Shared memory of one staged dQ block: the q and g rows, a ring of
+    STAGED_CHUNKS chunks of STAGED_KEYS keys' k and v rows (bf16), the key
+    list."""
+    e = num_heads * head_dim
+    return (2 + 2 * STAGED_CHUNKS * STAGED_KEYS) * e * 2 + lk * 4
+
+
+def dq_route(q, k, v, g) -> str:
+    """The dQ kernel's route for these inputs, "staged" or "per-element",
+    from dtype, shapes and 16-byte alignment alone."""
+    _, _, H, D = q.shape
+    tensors = (q, k, v, g)
+    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                  for t in tensors)
+    staged = (q.dtype == torch.bfloat16 and H <= STAGED_MAX_HEADS and D % 2 == 0
+              and (H * D) % 8 == 0 and aligned
+              and dq_staged_smem_bytes(k.shape[1], H, D) <= STAGED_SMEM_MAX)
+    return "staged" if staged else "per-element"
+
+
 def masked_mha_bwd_dq(q, k, v, allow, sm_scale: float, g, lse, dropout_rate: float = 0.0,
                       seeds=None):
     """The dQ kernel: (dq contiguous (B, Lq, H, D) in the input dtype,
@@ -284,7 +321,7 @@ def masked_mha_bwd_dq(q, k, v, allow, sm_scale: float, g, lse, dropout_rate: flo
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     r = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = _fn("masked_mha_bwd_dq")(
+        rc = _fn(_DQ_ENTRY[dq_route(q, k, v, g)])(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             allow.data_ptr(), lse.data_ptr(), _ptr(seeds), dq.data_ptr(), r.data_ptr(),
             *_bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale),
@@ -375,7 +412,8 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 _ARGTYPES = {  # after (dtype, pointers...): sizes, strides, scale, threshold, keep scale, stream
-    "masked_mha_fwd": 7, "masked_mha_bwd_dq": 9, "masked_mha_bwd_dkv": 10}
+    "masked_mha_fwd": 7, "masked_mha_bwd_dq": 9, "masked_mha_bwd_dq_staged": 9,
+    "masked_mha_bwd_dkv": 10}
 
 
 def _fn(name: str):

@@ -6,8 +6,10 @@ rounds of pick-the-best-live-box and suppress-its-overlaps. The JAX
 function runs those rounds as a `lax.scan` per image (vmapped over
 frames); here they are a loop of k steps over (F, N) live scores, one
 argmax per row per step (the first maximum among ties, as `jnp.argmax`).
-The legacy +1-pixel IoU is the default. `nms_mask` and `batched_nms_mask`
-are not ported yet (they serve the sgdet-inference path).
+The legacy +1-pixel IoU is the default. The JAX module's `nms_mask` and
+`batched_nms_mask` are public ops that no path of the JAX package calls
+(its RPN imports `nms_mask` but calls `nms_topk`; sgdet inference runs its
+own host NMS); they are not ported yet.
 """
 
 from __future__ import annotations

@@ -20,6 +20,12 @@ arithmetic is float32 whatever the map's type; the output is in
 `roi_align` takes the plain version only for tensors on the CPU; on CUDA it
 launches the kernel or raises. `LAUNCHES["roi_align"]` counts launches;
 `reset_launches()` sets it to 0.
+
+The kernel runs one block a roi: the block puts each output bin's merged
+axis taps (ph row bins, pw column bins) in shared memory, then its threads
+walk output columns, 8 channels a thread, forming each map row's x pass
+once (`kernel_plan` gives the route and the shared memory; the kernel makes
+the same choice).
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = 64  # rois per step of the plain version
+MAX_SAMPLING = 4        # csrc/roi_align.cu MAX_S
+BIN_BYTES = 4 + 16 * MAX_SAMPLING   # one output bin's merged taps (csrc BinTaps)
+TAP_SMEM_MAX = 48 * 1024
+THREADS = 256
 
 LAUNCHES = {"roi_align": 0}
 
@@ -88,6 +98,20 @@ def roi_align_reference(fmap: torch.Tensor, rois: torch.Tensor,
     return out
 
 
+def kernel_plan(C: int, output_size: tuple[int, int], sampling_ratio: int,
+                aligned: bool = True) -> dict:
+    """How csrc/roi_align.cu runs a call: `route` "vec8" (8 channels a
+    thread, 16-byte loads and stores: C % 8 == 0 and 16-byte aligned map
+    and output) or "scalar"; `smem`, the bytes of the ph + pw bins' merged
+    taps a block, the same for every roi whatever its window (the map is
+    not staged); `fits`, whether the kernel takes it."""
+    ph, pw = output_size
+    smem = BIN_BYTES * (ph + pw)
+    return {"route": "vec8" if C % 8 == 0 and aligned else "scalar", "smem": smem,
+            "threads": THREADS,
+            "fits": 1 <= sampling_ratio <= MAX_SAMPLING and smem <= TAP_SMEM_MAX}
+
+
 # ------------------------------------------------------------------ checks
 def _check(fmap, rois, frame_idx):
     """-> (fmap (F, H, W, C), rois (R, 4), frame_idx (R,) int32)."""
@@ -126,6 +150,10 @@ def roi_align(fmap: torch.Tensor, rois: torch.Tensor, frame_idx: torch.Tensor | 
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     F_, H, W, C = fmap.shape
     ph, pw = output_size
+    if not kernel_plan(C, output_size, sampling_ratio)["fits"]:
+        raise ValueError(f"the roi_align kernel takes sampling_ratio 1..{MAX_SAMPLING} and "
+                         f"a tap table of <= {TAP_SMEM_MAX} bytes; got {sampling_ratio}, "
+                         f"{output_size}")
     fmap = fmap.contiguous()
     rois = rois.float().contiguous()
     out = torch.empty((rois.shape[0], ph, pw, C), dtype=out_dtype, device=fmap.device)

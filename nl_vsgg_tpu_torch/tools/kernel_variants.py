@@ -17,6 +17,27 @@ that leaves out work computes a wrong result and is timed only:
   grouped_conv3x3 bf16 at the detector's four classes (the path's N):
     kernel        the committed kernel
     stages-3      a 3-stage input ring in place of 2 (c = 64 does not fit)
+  roi_align at the detector path's inputs: a (32, 38, 64, 1024) bf16 C4
+  map, 300 random rois a frame in frame order, 14x14, S = 2, bf16 out:
+    kernel        the committed kernel
+    no-load       the map's taps not read (a value made from the address)
+    no-store      the crops not stored
+    threads-128   128 threads a block in place of 256
+    taps-8        8 taps a column bin in registers at S = 2 (as at S = 4)
+    min-blocks-2  2 blocks an SM asked of the compiler in place of 3
+    min-blocks-4  4 (64 registers a thread)
+  masked_mha_bwd_dq at the train step's four shapes (B = 64, H = 8, D =
+  242, bf16, q/k/v column blocks of a fused projection, 3% of pairs
+  allowed at random, dropout 0.1), summed over the four, on the staged
+  route the wrapper picks (and the per-element route where named):
+    kernel          the committed kernel, both routes
+    no-kv-load      the staged route's k and v copies zero-filled, not read
+    stages-1        a ring of one chunk: no chunk in flight during a walk
+    min-blocks-2    2 blocks an SM asked of the compiler in place of 3
+    no-walk         the walk over the listed keys left out (copies kept)
+    no-mask         no key allowed (the mask read, no key copied)
+    no-second-walk  the per-element route without its second walk (the dQ
+                    sum; r only): what the two-walk design paid
 
 Each row prints device us (or ms) a call, two-point differenced with the
 card kept busy while the host queues the calls (`tools.timing`), beside
@@ -41,6 +62,7 @@ from ..device import resolve_device
 from ..ops import _build, grouped_conv as gc
 from . import timing
 
+P, I = ctypes.c_void_p, ctypes.c_int
 MM_ROWS = (1, 1000, 5000, 20480)
 CONV_SHAPES = ((32, 152, 256, 256), (32, 76, 128, 512), (32, 38, 64, 1024), (9600, 7, 7, 2048))
 
@@ -63,7 +85,40 @@ VARIANTS = {
         "kernel": lambda s: s,
         "stages-3": _stages(3),
     },
+    "roi_align": {
+        "kernel": lambda s: s,
+        "no-load": lambda s: s.replace(
+            "const uint4 u = *reinterpret_cast<const uint4*>(p);",
+            "const uint4 u = make_uint4((unsigned)(size_t)p, 0u, 0u, 0u);"),
+        "no-store": lambda s: s.replace(
+            "*reinterpret_cast<uint4*>(p) = u;",
+            "if (u.x == 0x7fc17fc1u) *reinterpret_cast<uint4*>(p) = u;"),
+        "threads-128": lambda s: s.replace("constexpr int THREADS = 256;",
+                                           "constexpr int THREADS = 128;"),
+        "taps-8": lambda s: s.replace("if (vec && S <= 2)", "if (vec && S <= 0)"),
+        "min-blocks-2": lambda s: s.replace("MIN_BLOCKS = 3;", "MIN_BLOCKS = 2;"),
+        "min-blocks-4": lambda s: s.replace("MIN_BLOCKS = 3;", "MIN_BLOCKS = 4;"),
+    },
+    "masked_attention": {
+        "kernel": lambda s: s,
+        "no-kv-load": lambda s: s.replace(
+            "kb + key * a.k_sl + 8 * piece, true);", "kb + key * a.k_sl + 8 * piece, false);"
+        ).replace("vb + key * a.v_sl + 8 * piece, true);", "vb + key * a.v_sl + 8 * piece, false);"),
+        "stages-1": _stages(1),
+        "min-blocks-2": lambda s: s.replace("DQ_MIN_BLOCKS = 3;", "DQ_MIN_BLOCKS = 2;"),
+        "no-walk": lambda s: s.replace("if (h < a.H) {\n      const __nv_bfloat16* st = ring",
+                                       "if (h < 0) {\n      const __nv_bfloat16* st = ring"),
+        "no-mask": lambda s: s.replace("const bool on = kj < a.Lk && arow[kj];",
+                                       "const bool on = kj < a.Lk && arow[kj] == 7;"),
+        "no-second-walk": lambda s: s.replace("for (int pass = 0; pass < 2; ++pass)",
+                                              "for (int pass = 0; pass < 1; ++pass)"),
+    },
 }
+# the dQ routes each masked_attention variant is timed on
+DQ_ROUTES = {"kernel": ("staged", "per-element"), "no-second-walk": ("per-element",)}
+ROI_MAP, ROIS_PER_FRAME, ROI_OUT = (32, 38, 64, 1024), 300, (14, 14)
+DQ_SHAPES = ((96, 96), (192, 192), (192, 192), (96, 192))   # (Lq, Lk), one train step
+DQ_B, DQ_H, DQ_D, DQ_DENSITY, DQ_RATE = 64, 8, 242, 0.03, 0.1
 
 
 def variant_sources(name: str) -> dict[str, str]:
@@ -104,9 +159,9 @@ def build(name: str) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def run(iters: int = 20, device=None, log=print) -> list[dict]:
-    """Build and time every variant; print one line a row and variant and
-    return them (device seconds a call)."""
+def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> list[dict]:
+    """Build and time every variant of the named sources; print one line a
+    row and variant and return them (device seconds a call)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("kernel_variants times kernels on the GPU")
@@ -115,7 +170,6 @@ def run(iters: int = 20, device=None, log=print) -> list[dict]:
     stream = torch.cuda.current_stream().cuda_stream
     sms = _build.sm_count(dev)
     rng = np.random.default_rng(0)
-    P, I = ctypes.c_void_p, ctypes.c_int
     rows = []
 
     def put(a, dtype=torch.bfloat16):
@@ -124,8 +178,20 @@ def run(iters: int = 20, device=None, log=print) -> list[dict]:
     def add(what, key, t, unit):
         rows.append({"row": what, "variant": key, "device_s": t})
         scale = 1e6 if unit == "us" else 1e3
-        log(f"  {what:34s} {key:10s} {t * scale:10.3f} {unit}")
+        log(f"  {what:34s} {key:26s} {t * scale:10.3f} {unit}")
 
+    if "probe_matmul" in kernels:
+        _run_mm(put, add, rng, iters, clock, stream, sms)
+    if "grouped_conv" in kernels:
+        _run_conv(add, dev, iters, clock, stream, sms)
+    if "roi_align" in kernels:
+        _run_roi_align(add, dev, iters, clock, stream)
+    if "masked_attention" in kernels:
+        _run_dq(add, dev, iters, clock, stream)
+    return rows
+
+
+def _run_mm(put, add, rng, iters, clock, stream, sms):
     mm = build("probe_matmul")
     w = put(rng.standard_normal((128, 128)) * 0.05)
     for M in MM_ROWS:
@@ -143,6 +209,9 @@ def run(iters: int = 20, device=None, log=print) -> list[dict]:
                     raise RuntimeError(f"probe_matmul variant {key} failed to launch")
             add(f"mm ({M}, 128)", key, timing.timed_delta(call, iters, clock).device_s, "us")
 
+
+
+def _run_conv(add, dev, iters, clock, stream, sms):
     conv = build("grouped_conv")
     for N, H, W, C in CONV_SHAPES:
         c = C // 32
@@ -171,17 +240,111 @@ def run(iters: int = 20, device=None, log=print) -> list[dict]:
                 if fn(*args):
                     raise RuntimeError(f"grouped_conv3x3 variant {key} failed to launch")
             add(what, key, timing.timed_delta(call, max(1, iters // 4), clock).device_s, "ms")
-    return rows
+
+
+def path_like_rois(n_frames, per_frame, H, W, dev, seed=0):
+    """(rois (R, 4), frame_idx (R,)) in frame order: random boxes 8-408 px
+    wide and tall on an (H, W) map at stride 16, as chip_smoke.py draws."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xy = torch.rand(n_frames * per_frame, 2, generator=g, device=dev) * torch.tensor(
+        [W * 16.0, H * 16.0], device=dev)
+    wh = 8 + torch.rand(n_frames * per_frame, 2, generator=g, device=dev) * 400
+    fidx = torch.arange(n_frames, device=dev, dtype=torch.int32).repeat_interleave(per_frame)
+    return torch.cat([xy - 20, xy + wh], 1), fidx
+
+
+def _run_roi_align(add, dev, iters, clock, stream):
+    libs = build("roi_align")
+    F_, H, W, C = ROI_MAP
+    fmap = torch.randn(F_, H, W, C, device=dev).bfloat16()
+    rois, fidx = path_like_rois(F_, ROIS_PER_FRAME, H, W, dev)
+    R, (ph, pw) = rois.shape[0], ROI_OUT
+    out = torch.empty(R, ph, pw, C, device=dev, dtype=torch.bfloat16)
+    nbytes = fmap.numel() * 2 + R * 5 * 4 + out.numel() * 2
+    bound, by = timing.bound_s(nbytes, 8.0 * 4 * out.numel(), torch.float32)
+    what = f"roi_align {ROI_MAP} x {R} rois"
+    add(what, f"bound ({by})", bound, "ms")
+    for key, lib in libs.items():
+        fn = lib.roi_align
+        fn.argtypes, fn.restype = [I, I, P, P, P, P] + [I] * 7 + [ctypes.c_float, I, P], I
+        args = (1, 1, fmap.data_ptr(), rois.data_ptr(), fidx.data_ptr(), out.data_ptr(), R, F_,
+                H, W, C, ph, pw, 1.0 / 16, 2, stream)
+
+        def call(fn=fn, args=args, key=key):
+            if fn(*args):
+                raise RuntimeError(f"roi_align variant {key} failed to launch")
+        add(what, key, timing.timed_delta(call, max(1, iters // 4), clock).device_s, "ms")
+
+
+def dq_inputs(lq, lk, dev, seed=0):
+    """One train-step attention call's backward inputs: q, k, v column blocks
+    of fused (B, L, 3 H D) projections, g, a random mask, seeds, the
+    forward's lse."""
+    from ..ops import masked_attention as ma
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = DQ_H * DQ_D
+    qp = torch.randn(DQ_B, lq, 3 * E, device=dev, generator=g).bfloat16()
+    kp = qp if lk == lq else torch.randn(DQ_B, lk, 3 * E, device=dev, generator=g).bfloat16()
+    q = qp[..., :E].unflatten(-1, (DQ_H, DQ_D))
+    k = kp[..., E:2 * E].unflatten(-1, (DQ_H, DQ_D))
+    v = kp[..., 2 * E:].unflatten(-1, (DQ_H, DQ_D))
+    gout = torch.randn(DQ_B, lq, DQ_H, DQ_D, device=dev, generator=g).bfloat16()
+    allow = torch.rand(DQ_B, lq, lk, device=dev, generator=g) < DQ_DENSITY
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (DQ_B,), generator=g, device=dev,
+                          dtype=torch.int32)
+    scale = DQ_D ** -0.5
+    _, lse = ma.masked_mha_forward(q, k, v, allow, scale, DQ_RATE, seeds)
+    return q, k, v, gout, allow, seeds, lse, scale
+
+
+def _run_dq(add, dev, iters, clock, stream):
+    from ..ops import masked_attention as ma
+    libs = build("masked_attention")
+    totals = {}
+    for lq, lk in DQ_SHAPES:
+        q, k, v, gout, allow, seeds, lse, scale = dq_inputs(lq, lk, dev)
+        B, _, H, D = q.shape
+        dq = torch.empty(B, lq, H, D, device=dev, dtype=q.dtype)
+        r = torch.empty(B, H, lq, device=dev)
+        rows_q, rows_k = B * lq * H * D, B * lk * H * D
+        nbytes = (3 * rows_q + 2 * rows_k) * 2 + allow.numel() + 2 * B * H * lq * 4
+        bound, _ = timing.bound_s(nbytes, 6.0 * H * D * float(allow.sum()), q.dtype)
+        totals["bound (bytes)"] = totals.get("bound (bytes)", 0.0) + bound
+        if ma.dq_route(q, k, v, gout) != "staged":
+            raise RuntimeError("the train shapes no longer take the staged dQ route")
+        runs = [(f"{key} {route}", getattr(lib, ma._DQ_ENTRY[route]))
+                for key, lib in libs.items() for route in DQ_ROUTES.get(key, ("staged",))]
+        for key, fn in runs:
+            fn.argtypes = ([I] + [P] * 9 + [I] * 5 + [ctypes.c_longlong] * 8
+                           + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, P])
+            fn.restype = I
+            args = (1, q.data_ptr(), k.data_ptr(), v.data_ptr(), gout.data_ptr(),
+                    allow.contiguous().data_ptr(), lse.data_ptr(), seeds.data_ptr(),
+                    dq.data_ptr(), r.data_ptr(), B, lq, lk, H, D, q.stride(0), q.stride(1),
+                    k.stride(0), k.stride(1), v.stride(0), v.stride(1), gout.stride(0),
+                    gout.stride(1), scale, ma.drop_threshold(DQ_RATE), 1.0 / (1.0 - DQ_RATE),
+                    stream)
+
+            def call(fn=fn, args=args, key=key):
+                if fn(*args):
+                    raise RuntimeError(f"masked_mha_bwd_dq variant {key} failed to launch")
+            t = timing.timed_delta(call, iters, clock).device_s
+            add(f"bwd dQ {lq}x{lk}", key, t, "ms")
+            totals[key] = totals.get(key, 0.0) + t
+    for key, t in totals.items():
+        add("bwd dQ, the 4 calls of a step", key, t, "ms")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), default=sorted(VARIANTS),
+                    help="the sources whose variants to time (default: all)")
     args = ap.parse_args(argv)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {card or 'not read'}")
-    run(args.iters)
+    run(args.iters, kernels=args.only)
 
 
 if __name__ == "__main__":

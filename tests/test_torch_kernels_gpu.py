@@ -132,6 +132,91 @@ def test_roi_align_matches_plain_on_gpu(gpu, dtype, out_size):
     assert out16.dtype == torch.bfloat16
 
 
+def _edge_rois(H, W):
+    w, h = W * 16.0, H * 16.0
+    return torch.tensor([[0, 0, w - 1, h - 1], [-16, -16, w + 15, h + 15],
+                         [-500, -500, -400, -400], [w + 40, 10, w + 90, 50],   # outside: 2-5
+                         [10, h + 40, 50, h + 90], [10, -90, 50, -40],
+                         [0, 0, 0, 0], [30, 20, 29, 19], [w - 8, h - 8, w + 40, h + 40],
+                         [5, 33, w - 5, 34], [-30, 20, 40, 60], [w - 40, 20, w + 30, 60],
+                         [20, -30, 60, 40], [20, h - 40, 60, h + 30]], device="cuda")
+
+
+@pytest.mark.parametrize("case", ["S1", "S2", "S4", "fp32", "C1020", "C1020-fp32", "C1000",
+                                  "misaligned", "R1"])
+def test_roi_align_edges_match_plain_on_gpu(gpu, case):
+    """The whole-map, outside, degenerate and border rois beside random ones
+    in random frame order: S = 1, 2, 4; the scalar route (C = 1020, or a
+    map 2 bytes off 16-byte alignment); C = 1000 (a multiple of 8, the
+    vector route); a single roi."""
+    C, dtype, S, off = 1024, torch.bfloat16, 2, 0
+    if case in ("S1", "S4"):
+        S = int(case[1])
+    elif case == "fp32":
+        dtype = torch.float32
+    elif case.startswith("C"):
+        C = int(case[1:5])
+        dtype = torch.float32 if case.endswith("fp32") else dtype
+    elif case == "misaligned":
+        off = 1
+    fmap, rois, fidx = _roi_case(gpu, 3, 38, 64, 8, 300)
+    rois = torch.cat([_edge_rois(38, 64), rois])
+    fidx = torch.randint(0, 3, (rois.shape[0],), device="cuda", generator=gpu, dtype=torch.int32)
+    if case == "R1":
+        rois, fidx = rois[:1], fidx[:1]
+    n = 3 * 38 * 64 * C
+    fmap = torch.randn(n + 8, device="cuda", generator=gpu).to(dtype)[off:off + n].view(
+        3, 38, 64, C)
+    want = "scalar" if C % 8 or off else "vec8"
+    assert ra.kernel_plan(C, (14, 14), S, fmap.data_ptr() % 16 == 0)["route"] == want
+    ra.reset_launches()
+    out = ra.roi_align(fmap, rois, fidx, (14, 14), 1 / 16, S)
+    torch.cuda.synchronize()
+    assert ra.LAUNCHES["roi_align"] == 1
+    ref = ra.roi_align_reference(fmap, rois, fidx, (14, 14), 1 / 16, S)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    if case != "R1":
+        assert (out[2:6] == 0).all()
+
+
+@pytest.mark.parametrize("case,L,H,D,pad,route", [
+    ("full-and-empty-rows", 192, 8, 242, 0, "staged"),
+    ("misaligned-view", 96, 8, 242, 1, "per-element"),
+    ("odd-D-8-heads", 96, 8, 241, 0, "per-element"),
+    ("8-heads-of-240", 96, 8, 240, 0, "staged"),
+    ("odd-D-4-heads", 96, 4, 241, 0, "per-element"),
+    ("3-heads-of-242", 96, 3, 242, 0, "per-element"),
+    ("3-heads-of-64", 96, 3, 64, 0, "staged")])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_dq_routes_match_plain_on_gpu(gpu, case, L, H, D, pad, route, rate):
+    """The dQ kernel on column blocks of a fused bf16 projection, 3% of
+    pairs allowed with some rows fully allowed (more keys than a cp.async
+    chunk) and some empty, on the route the wrapper picks; dq and r against
+    the plain version, empty rows exactly 0."""
+    E = H * D
+    x = torch.randn(4, L, 3 * E + pad, device="cuda", generator=gpu).bfloat16()[..., pad:]
+    q, k, v = (x[..., i * E:(i + 1) * E].unflatten(-1, (H, D)) for i in range(3))
+    gout = torch.randn(4, L, H, D, device="cuda", generator=gpu).bfloat16()
+    allow = torch.rand(4, L, L, device="cuda", generator=gpu) < 0.03
+    allow[:, ::9] = True
+    allow[:, 4::9] = False
+    seeds = torch.tensor([5, -6, 7, 8], dtype=torch.int32, device="cuda") if rate else None
+    assert ma.dq_route(q, k, v, gout) == route
+    scale = D ** -0.5
+    _, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, seeds)
+    ma.reset_launches()
+    dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, seeds)
+    torch.cuda.synchronize()
+    assert ma.LAUNCHES["bwd_dq"] == 1
+    ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, scale, gout, rate, seeds)
+    torch.testing.assert_close(dq.float(), ref_dq.float(), rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(r, ref_r, rtol=2 ** -7, atol=1e-3)
+    assert (dq[:, 4::9] == 0).all()
+
+
 @pytest.mark.parametrize("N,H,W,C", [(2, 152, 256, 256), (2, 76, 128, 512), (3, 38, 64, 1024),
                                      (300, 7, 7, 2048), (5, 9, 13, 256),
                                      (1201, 7, 7, 2048),     # crops not a multiple of the tile's 5

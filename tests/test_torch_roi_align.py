@@ -89,3 +89,35 @@ def test_rejects_bad_inputs():
         tra.roi_align(fm, rois, torch.tensor([0, 1, 2], dtype=torch.int32))
     with pytest.raises(ValueError, match="rois"):
         tra.roi_align(fm[0], torch.zeros(3, 5))
+
+
+def _edge_rois(H, W):
+    """The rois whose samples reach the kernel's edges: the whole map, wholly
+    outside on each side, degenerate and inverted, past the far edge, a
+    sliver one row tall, and rois straddling each border."""
+    w, h = W * 16.0, H * 16.0
+    return np.array([[0, 0, w - 1, h - 1], [-16, -16, w + 15, h + 15],   # whole map, beyond it
+                     [-500, -500, -400, -400], [w + 40, 10, w + 90, 50],  # outside, left / right
+                     [10, h + 40, 50, h + 90], [10, -90, 50, -40],        # outside, below / above
+                     [0, 0, 0, 0], [30, 20, 29, 19],                      # degenerate, inverted
+                     [w - 8, h - 8, w + 40, h + 40],                      # past the far edge
+                     [5, 33, w - 5, 34],                                  # one row tall
+                     [-30, 20, 40, 60], [w - 40, 20, w + 30, 60],         # straddling left / right
+                     [20, -30, 60, 40], [20, h - 40, 60, h + 30]], np.float32)
+
+
+@pytest.mark.parametrize("sampling_ratio", [1, 2, 4])
+def test_edge_rois_match_roi_align_mm(sampling_ratio):
+    """The whole-map, outside, degenerate and border rois at S = 1, 2, 4 and
+    an odd channel count (the kernel's scalar route), against the JAX
+    package; wholly outside rois give exact zeros."""
+    rng = np.random.default_rng(4)
+    H, W = 9, 11
+    fmap = rng.standard_normal((H, W, 5)).astype(np.float32)
+    rois = _edge_rois(H, W)
+    ref = np.asarray(roi_align_mm(jnp.asarray(fmap), jnp.asarray(rois), output_size=(14, 14),
+                                  sampling_ratio=sampling_ratio))
+    got = tra.roi_align(torch.from_numpy(fmap), torch.from_numpy(rois), output_size=(14, 14),
+                        sampling_ratio=sampling_ratio)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    assert (got[2:6] == 0).all()
