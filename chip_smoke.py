@@ -15,6 +15,11 @@ Phases, in order; any failure exits non-zero before the result line:
      printed, dropout off and on): a 192x192 mask at 3% with fully
      allowed and empty rows, a view 2 bytes off 16-byte alignment, odd
      D = 241 at 8 and at 4 heads, 8 heads of 240, 3 heads of 242 and of 64;
+     then the forward's and dK/dV's edges on both routes (`ROUTE_EDGES`,
+     route printed, one launch a call, dropout off and on, the forward with
+     and without lse): path-structured and random 3% masks with fully
+     allowed and empty rows and unseen keys, tiles that do not divide L,
+     96x192 and 192x96, 3 heads, odd D, a misaligned view;
   3. the serving path: STTran sgdet at full width (feat 2048, 1 encoder + 3
      decoder layers, 8 heads, random weights from a seeded torch.Generator)
      serving 64 synthetic videos at bench.py's shapes (32 frames, 128 box and
@@ -22,8 +27,9 @@ Phases, in order; any failure exits non-zero before the result line:
      counts set to 0 just before and read just after; then the kernel path
      against the plain-attention path on the same weights, float32 and
      bfloat16, and the bfloat16 eval step's frames/s;
-  4. the eval forward timed on the inputs the serving path gave it, beside
-     its plain version, one PyTorch library call and the card's bound; a
+  4. the eval forward timed on the inputs the serving path gave it (its
+     route printed: the staged one, or the run fails), beside its plain
+     version, one PyTorch library call and the card's bound; a
      torch.profiler table of the eval step's device time;
   5. the training path: one train-mode forward and backward at full width
      (dropout 0.1), kernel path against plain-attention path on the same
@@ -33,8 +39,9 @@ Phases, in order; any failure exits non-zero before the result line:
      just after (4 forward and 4 + 4 backward launches a step), finite
      losses and no skip, ms/step and frames/s, peak memory;
   6. the train forward and both backward kernels timed on the inputs one
-     train step gave them, beside their plain versions, the library call
-     and the bound; a torch.profiler table of the train step;
+     train step gave them (their routes printed: staged, or the run fails),
+     beside their plain versions, the library call and the bound; a
+     torch.profiler table of the train step;
   7. the detector kernels against their plain versions at the detector
      path's shapes, float32 and bfloat16: RoIAlign on a (4, 38, 64, 1024) C4
      map with 300 rois a frame (degenerate, clamped and fully outside rois
@@ -73,7 +80,8 @@ Phases, in order; any failure exits non-zero before the result line:
      of its largest magnitude), then
      both probe entry points with small `--iters`, the launch counts set to
      0 just before and read just after (each kernel's count equal to the
-     calls its rows made);
+     calls its rows made); the three copies' times beside their bounds and
+     `x * 2`;
  11. the `kernels` JSON line, then the device JSON line, last.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
@@ -288,6 +296,105 @@ def dq_edge_checks(ma, g, dev) -> None:
         log(f"bwd_dq {what} {(B, L, Hh, D)} x Lk={L}: route {route}; max_abs_err "
             + ", ".join(errs) + "; empty rows exactly 0")
 
+
+
+def path_mask(b, lq, lk, dev):
+    """The path's mask structure at (b, lq, lk): query i in frame i // 3, key
+    j in window (j // 3) mod ceil(lq / 3), allowed when they agree (the
+    spatial mask at lq = lk, two frames' keys a window at lk = 2 lq,
+    queries with no window at lq > lk)."""
+    import torch
+    fq = torch.arange(lq, device=dev) // 3
+    fk = (torch.arange(lk, device=dev) // 3) % -(-lq // 3)
+    return (fq[:, None] == fk[None, :]).expand(b, lq, lk).clone()
+
+
+# (what, Lq, Lk, heads, head dim, columns off 16 bytes, mask, route): the
+# edges of the forward and dK/dV routes, as tests/test_torch_kernels_gpu.py
+ROUTE_EDGES = (("frames 96x96", 96, 96, H, HEAD_DIM, 0, "frames", "staged"),
+               ("frames 192x192", 192, 192, H, HEAD_DIM, 0, "frames", "staged"),
+               ("frames 96x192", 96, 192, H, HEAD_DIM, 0, "frames", "staged"),
+               ("frames 192x96", 192, 96, H, HEAD_DIM, 0, "frames", "staged"),
+               ("random 192x192", 192, 192, H, HEAD_DIM, 0, "random", "staged"),
+               ("random 97x101", 97, 101, H, HEAD_DIM, 0, "random", "staged"),
+               ("random 1x5", 1, 5, H, HEAD_DIM, 0, "random", "staged"),
+               ("3 heads of 64", 96, 96, 3, 64, 0, "random", "staged"),
+               ("misaligned view", 96, 96, H, HEAD_DIM, 1, "random", "per-element"),
+               ("odd D", 97, 96, H, 241, 0, "random", "per-element"),
+               ("3 heads of 242", 96, 96, 3, HEAD_DIM, 0, "random", "per-element"))
+
+
+def route_edge_checks(ma, g, dev) -> None:
+    """Phase 2's edge cases of the forward and dK/dV routes, each against
+    its plain version with the route the wrapper took and one launch a
+    call: path-structured and random 3% masks (some query rows fully
+    allowed, some empty, some key columns empty), tiles that do not divide
+    Lq or Lk, 96x192 and 192x96, 3 heads, odd D, a view 2 bytes off 16-byte
+    alignment; dropout off and on, the forward with and without lse. out
+    to KERNEL_TOL, lse, dk and dv to GRAD_TOL; rows and key columns with no
+    allowed pair exactly 0 (lse LSE_EMPTY)."""
+    import torch
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
+    for what, lq, lk, Hh, D, pad, mask, want in ROUTE_EDGES:
+        E = Hh * D
+        xq = torch.randn(B, lq, 3 * E + pad, device=dev, generator=g).bfloat16()[..., pad:]
+        xk = torch.randn(B, lk, 3 * E + pad, device=dev, generator=g).bfloat16()[..., pad:]
+        q = xq[..., :E].unflatten(-1, (Hh, D))
+        k, v = (xk[..., i * E:(i + 1) * E].unflatten(-1, (Hh, D)) for i in (1, 2))
+        gout = torch.randn(B, lq, Hh, D, device=dev, generator=g).bfloat16()
+        if mask == "frames":
+            allow = path_mask(B, lq, lk, dev)
+        else:
+            allow = torch.rand(B, lq, lk, device=dev, generator=g) < 0.03
+            allow[:, ::9] = True
+            allow[:, 4::9] = False
+            allow[:, :, 5::11] = False
+        routes = (ma.fwd_route(q, k, v), ma.dkv_route(q, k, v, gout))
+        if routes != (want, want):
+            fail(f"{what}: forward and dK/dV routes {routes}, expected {want}")
+        empty, unseen = ~allow.any(-1), ~allow.any(1)
+        allow_t = allow.transpose(1, 2).contiguous()
+        scale = D ** -0.5
+        errs = {}
+        for rate in (0.0, RATE):
+            sd = seeds if rate else None
+            for with_lse in (False, True):
+                ma.reset_launches()
+                out, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, sd, with_lse)
+                torch.cuda.synchronize()
+                checks = [("out", out, ma.masked_mha_reference(q, k, v, allow, scale, rate, sd),
+                           KERNEL_TOL)]
+                if with_lse:
+                    checks.append(("lse", lse, ma.masked_mha_lse_reference(q, k, allow, scale),
+                                   GRAD_TOL))
+                    if not bool((lse.transpose(1, 2)[empty] == ma.LSE_EMPTY).all()):
+                        fail(f"forward {what}: rows with no allowed key lack the lse sentinel")
+                if ma.LAUNCHES["fwd"] != 1 or not bool((out[empty] == 0).all()):
+                    fail(f"forward {what}: launches {ma.LAUNCHES} or empty rows not 0")
+                for name, got, ref, tol in checks:
+                    err, ok = kernel_err(got, ref, tol)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    if not ok:
+                        fail(f"forward {what} ({want}): {name} disagrees with its plain version "
+                             f"at rate {rate} (max_abs_err {err:.3e})")
+            _, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, sd)
+            ma.reset_launches()
+            dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow_t, scale, gout, lse, r, rate, sd)
+            torch.cuda.synchronize()
+            ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, scale, gout, r,
+                                                             rate, sd)
+            if ma.LAUNCHES["bwd_dkv"] != 1 or not bool((dk[unseen] == 0).all()
+                                                       and (dv[unseen] == 0).all()):
+                fail(f"dK/dV {what}: launches {ma.LAUNCHES} or unseen key rows not 0")
+            for name, got, ref in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+                err, ok = kernel_err(got, ref, GRAD_TOL)
+                errs[name] = max(errs.get(name, 0.0), err)
+                if not ok:
+                    fail(f"dK/dV {what} ({want}): {name} disagrees with its plain version at "
+                         f"rate {rate} (max_abs_err {err:.3e})")
+        log(f"fwd / bwd_dkv {what} {(B, lq, Hh, D)} x Lk={lk}: routes {want}; max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + "; empty rows and unseen keys exactly 0, one launch a call")
 
 
 # ---------------------------------------------------------------- detector
@@ -801,7 +908,9 @@ def probe_phases(dev, card) -> list[dict]:
         dev, torch.bfloat16)
     w = torch.from_numpy((rng.standard_normal((3, 3, 128, C)) * 0.05).astype(np.float32)).to(
         dev, torch.bfloat16)
+    xtiny = torch.from_numpy(rng.standard_normal((256, 128)).astype(np.float32)).to(dev)
     xt, wt = ga.to_block_major(x, w)
+    tiny_pl = cuda_ms(lambda: pc.probe_copy_reference(xtiny))
     copy_pl = cuda_ms(lambda: pc.probe_copy_reference(xs))
     mm_pl = cuda_ms(lambda: pm.probe_matmul_reference(xm, wm))
     full_pl = cuda_ms(lambda: ga.grouped_conv_ablate_reference(x, w, "full"), iters=5)
@@ -812,11 +921,16 @@ def probe_phases(dev, card) -> list[dict]:
 
     full, bt_full = best("full "), best("bt-full ")
     cudnn8 = rows[f"cudnn(g{C // 128})"]["device_ms"]
-    log(f"probe kernels: slab-copy {rows['slab-copy']['device_us']:.3f} us (plain "
-        f"{copy_pl * 1e3:.3f}), mm {rows['mm-kernel']['device_us']:.3f} us (plain "
-        f"{mm_pl * 1e3:.3f}, torch.matmul {rows['mm-torch']['device_us']:.3f}), {full['name']} {full['device_ms']:.4f} ms, "
-        f"{bt_full['name']} {bt_full['device_ms']:.4f} ms (plain {full_pl:.4f} / {bt_pl:.4f}, "
-        f"cuDNN g8 {cudnn8:.4f}); card {card}")
+    for name, lib_ms in (("tiny-copy", tiny_pl), ("slab-copy", copy_pl),
+                         ("slab-copy-g8", copy_pl)):
+        r = rows[name]
+        log(f"probe {name}: kernel {r['device_us']:.3f} us, bound {r['bound_us']:.3f} us "
+            f"({r['bound_by']}), x * 2 (the plain version and the library call) "
+            f"{lib_ms * 1e3:.3f} us; card {card}")
+    log(f"probe kernels: mm {rows['mm-kernel']['device_us']:.3f} us (plain {mm_pl * 1e3:.3f}, "
+        f"torch.matmul {rows['mm-torch']['device_us']:.3f}), {full['name']} "
+        f"{full['device_ms']:.4f} ms, {bt_full['name']} {bt_full['device_ms']:.4f} ms (plain "
+        f"{full_pl:.4f} / {bt_pl:.4f}, cuDNN g8 {cudnn8:.4f}); card {card}")
 
     def row(name, replaces, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = f"nl_vsgg_tpu_torch/csrc/{name.removesuffix('_bt')}.cu"
@@ -954,6 +1068,7 @@ def main() -> None:
                     f"{n} {e:.3e}" for n, e in errs.items()) + "; empty rows/keys exactly 0")
 
     dq_edge_checks(ma, g, dev)
+    route_edge_checks(ma, g, dev)
 
     # ---- 3. the main path at full width ----
     t0 = time.perf_counter()
@@ -1046,9 +1161,12 @@ def main() -> None:
         bms, by = attention_bound_ms(q, k, v, allow)
         bound_terms[by] += bms
         density = float(allow.float().mean())
-        log(f"masked_mha main path {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]}: "
-            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound {bms:.4f} ms "
-            f"({by}), allowed pairs {density:.4f}, max_abs_err {err:.3e}")
+        route = ma.fwd_route(q, k, v)
+        if route != "staged":
+            fail(f"the serving path's forward {tuple(q.shape)} took the {route} route")
+        log(f"masked_mha main path {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]}, "
+            f"route {route}: kernel {kms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), allowed pairs {density:.4f}, max_abs_err {err:.3e}")
         for key, val in (("ms", kms), ("plain_ms", pms), ("bound_ms", bms), ("library_ms", lms)):
             totals[key] += val
     log(f"masked_mha per forward (4 launches): kernel {totals['ms']:.4f} ms = "
@@ -1221,8 +1339,12 @@ def main() -> None:
             lib_bwd)
         add("bwd_dkv", errs["bwd_dkv"], kms, kpl, attention_bwd_bound_ms(q, k, allow, "dkv"),
             lib_bwd)
-        log(f"train path {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}, dQ route "
-            f"{ma.dq_route(q, k, v, gout)}: fwd {fms:.4f} "
+        routes = {"fwd": ma.fwd_route(q, k, v), "dQ": ma.dq_route(q, k, v, gout),
+                  "dK/dV": ma.dkv_route(q, k, v, gout)}
+        if set(routes.values()) != {"staged"}:
+            fail(f"the train path's attention {tuple(q.shape)} took the routes {routes}")
+        log(f"train path {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}, routes "
+            + ", ".join(f"{n} {rt}" for n, rt in routes.items()) + f": fwd {fms:.4f} "
             f"(plain {fpl:.4f}, sdpa {lib_fwd:.4f}), bwd dQ {qms:.4f} (plain {qpl:.4f}), "
             f"bwd dK/dV {kms:.4f} (plain {kpl:.4f}), sdpa backward {lib_bwd:.4f} ms; "
             f"allowed pairs {float(allow.float().mean()):.4f}; max_abs_err "

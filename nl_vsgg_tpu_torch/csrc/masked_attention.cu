@@ -23,12 +23,12 @@
 //
 // Head dim. STTran's head dim is 1936 / 8 = 242, not a multiple of 8: a
 // head's slice of a bf16 row starts 484 bytes in, so 16-byte vector loads
-// of one head do not line up. The forward, dK/dV and the per-element dQ
-// route load per element (lane i takes dims i, i+32, ...) instead of having
-// the wrapper zero-pad to 256, which would cost one more read and write of
-// q, k, v and g; the staged dQ route copies whole token rows (all heads),
-// which do line up, and each warp reads its head's slice from shared
-// memory. Any D <= 256.
+// of one head do not line up. The per-element routes load per element (lane
+// i takes dims i, i+32, ...) instead of having the wrapper zero-pad to 256,
+// which would cost one more read and write of q, k, v and g; the staged
+// routes copy whole token rows, or the 16-byte window around a group of 2
+// heads' slice of them, which do line up, and read a head's bf16 pairs
+// from shared memory with 32-bit loads. Any D <= 256.
 //
 // Dropout bits. A stateless counter hash of (video seed, head, query, key):
 // three rounds of murmur3's 32-bit finalizer over the key mixed in one
@@ -48,16 +48,34 @@
 // few GFLOP against about 0.6 GB (forward) to 1 GB (backward) of q, k, v,
 // g and outputs to move once.
 //
-// Design. One warp per (video, query row, head) in the forward and in the
-// dQ kernel, one warp per (video, key row, head) in the dK/dV kernel, the
-// heads of a row in neighbouring warps of one block (they share the mask
-// row). A warp scans its mask row 32 entries at a time, takes the allowed
-// ones from a warp ballot and visits only those, so the work follows the
-// allowed pairs, not Lq x Lk. Lane i holds dims i, i+32, ... of its rows; a
-// dot product is a warp shuffle reduction. The forward's online softmax
-// starts its running max at -inf: the first allowed key rescales the empty
-// sum by exp(-inf) = 0, and a row that meets no allowed key keeps a zero
-// sum, writes 0 and stores the lse sentinel -1e30.
+// Routes. Each kernel has two, one launch either way, chosen by the wrapper
+// from dtype, shapes and alignment before the launch (ops/masked_attention
+// .py: fwd_route, dq_route, dkv_route, one rule, staged_layout):
+//   - staged (bf16, H <= 8, D even, 16-byte aligned rows and token strides,
+//     H * D * 2 a multiple of 16; the serving and training paths' column
+//     blocks of the fused projection);
+//   - per element (fp32, odd D, other views): one warp per (video, row,
+//     head), the heads of a row in neighbouring warps of one block (they
+//     share the mask row). A warp scans its mask row 32 entries at a time,
+//     takes the allowed ones from a warp ballot and visits only those, so
+//     the work follows the allowed pairs, not Lq x Lk; lane i holds dims i,
+//     i+32, ... of its rows, a dot product is a warp shuffle reduction.
+//
+// Forward, staged: one block a (video, tile of 16 consecutive query rows, 2
+// heads). All the rows of a frame (spatial) or a window (temporal) allow
+// the same keys and sit in consecutive slots, so the block compacts the
+// union of its rows' allowed keys into a list (a 16-bit word a key: which
+// rows allow it) and brings the listed keys' k and v slices in once a tile,
+// 8 keys a cp.async chunk through a 2-chunk ring. Per chunk the 4 warps of
+// a head form the 16 x 8 scores S = Q K^T on the tensor cores (mma.sync
+// m16n8k16, each a quarter of the head dim's k-steps with its q fragments
+// in registers, the partial sums added through shared memory); each warp
+// (a quarter of the output dims) masks them by the words, runs the
+// online softmax (running max from -inf: the first allowed key rescales the
+// empty sum by exp(-inf) = 0; a row with no allowed key keeps a zero sum,
+// writes 0 and stores the lse sentinel -1e30), drops out p (the row key
+// hashed once a (row, head)) and adds P~ V (m16n8k16). The per-element
+// forward keeps the same softmax, one key at a time.
 //
 // Backward, after _bwd_kernel's math (dP~ = g.v, dP = keep / (1 - rate) dP~,
 // r = sum_k p dP, dS = p (dP - r) scale), in two launches with no atomics,
@@ -65,37 +83,45 @@
 //   (a) dQ, row-major like the forward: p = exp(s - lse) recomputed per
 //       allowed key, r = sum_k p dP summed in fp32 (not from g.out, which
 //       in bf16 would carry the output's rounding) and written for (b),
-//       then dQ = sum_k dS k. Two routes, chosen by the wrapper from
-//       dtype, shapes and alignment before the launch:
-//       - staged (bf16, H <= 8, D even, 16-byte aligned rows and token
-//         strides, H * D * 2 a multiple of 16; the training path): one block a
-//         (video, query row), one warp a head. The block compacts the
-//         mask row into a list of allowed keys in shared memory (one
-//         ballot a warp), and brings the q and g rows and the listed keys'
-//         k and v rows (all heads: 3872 bytes a row at H * D = 1936) into
-//         shared memory by 16-byte cp.async, KC keys a chunk through a
-//         ring of STAGES chunks, the next chunk in flight while one is
-//         used. One walk over the list forms each (key, head)'s p and dP
-//         (two warp sums, a chunk's keys interleaved, lanes on bf16 dim
-//         pairs) and sums r = sum p dP, sum p dP k and sum p k
-//         beside them, so dQ = scale (sum p dP k - r sum p k) is ready at
-//         the walk's end: no key row is read twice and nothing is stored
-//         per key. The difference of the two sums is taken in fp32 and
-//         rounded once to bf16 (the route is bf16 only). On an H100 at the
-//         training shapes it takes about 0.62 ms a step against a 0.23 ms
-//         bound: the walk's arithmetic and shuffles about 0.25 ms, the key
-//         rows' copies from L2 about 0.16 (PERF.md, from kernel_variants);
-//       - per element (fp32, odd D, other views): one warp a (row, head),
-//         lane i loading dims i, i + 32, ... of each allowed key's rows,
-//         a first walk over the keys summing r, a second summing dQ.
-//   (b) dK and dV, one warp per key row walking the key's allowed queries
-//       in allowT: dV = sum_q p keep / (1 - rate) g_q, dK = sum_q dS q_q.
-// A row or column with no allowed pair writes exactly 0.
+//       then dQ = sum_k dS k.
+//       - staged: one block a (video, query row), one warp a head. The
+//         block compacts the mask row into a list of allowed keys in shared
+//         memory (one ballot a warp), and brings the q and g rows and the
+//         listed keys' k and v rows (all heads: 3872 bytes a row at H * D =
+//         1936) into shared memory by 16-byte cp.async, KC keys a chunk
+//         through a ring of STAGES chunks. One walk over the list forms
+//         each (key, head)'s p and dP (two warp sums, a chunk's keys
+//         interleaved, lanes on bf16 dim pairs) and sums r = sum p dP, sum
+//         p dP k and sum p k beside them, so dQ = scale (sum p dP k - r sum
+//         p k) is ready at the walk's end: no key row is read twice and
+//         nothing is stored per key. The difference is taken in fp32 and
+//         rounded once to bf16;
+//       - per element: a first walk over the keys summing r, a second
+//         summing dQ.
+//   (b) dK and dV from the transposed mask allowT: dV = sum_q p keep /
+//       (1 - rate) g_q, dK = sum_q dS q_q.
+//       - staged: one block a (video, tile of 16 key rows, 2 heads); the
+//         tile's k and v slices stay in shared memory, the union of its
+//         allowed queries is listed with 16-bit words, each listed query's
+//         lse, r and dropout row key are copied once a head, and its q and g
+//         slices come through the ring. Per chunk of 8 queries the 2 warps
+//         of a head form S^T = K Q^T and dP~^T = V g^T on m16n8k16 (half
+//         the k-steps each, the partial sums added through shared memory);
+//         each (half of the dims) then forms p~ and dS for the allowed
+//         pairs and adds p~^T g and dS^T q (m16n8k16) to its fp32 dV and
+//         dK sums;
+//       - per element: one warp per key row walking its allowed queries.
+// The staged routes' second products take p~ and dS split into two bf16
+// parts (hi + the rounding rest), so they keep about 16 bits and the
+// outputs match fp32 sums to one bf16 rounding. A row or column with no
+// allowed pair writes exactly 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "cp_async.cuh"
 
@@ -337,6 +363,34 @@ __device__ __forceinline__ void warp_sum4(float& a0, float& b0, float& a1, float
   b1 = __shfl_sync(0xffffffffu, z, 24);
 }
 
+// The indices j < n whose mask bits are not 0, in order, into list (and
+// their bits, up to 16, into lbits unless it is null); returns their count. NT mask
+// columns a round, one ballot a warp, the warps' counts summed in shared
+// memory. Every thread of the block calls it.
+template <int NT, typename Bits>
+__device__ int compact_list(int n, Bits bits_of, int* list, uint16_t* lbits, int* counts) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int total = 0;
+  for (int j0 = 0; j0 < n; j0 += NT) {
+    const int j = j0 + threadIdx.x;
+    const unsigned bits = j < n ? bits_of(j) : 0u;
+    const bool on = bits != 0u;
+    const unsigned live = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) counts[warp] = __popc(live);
+    __syncthreads();
+    int before = total;
+    for (int w = 0; w < warp; ++w) before += counts[w];
+    if (on) {
+      const int at = before + __popc(live & ((1u << lane) - 1u));
+      list[at] = j;
+      if (lbits != nullptr) lbits[at] = (uint16_t)bits;
+    }
+    for (int w = 0; w < NT / 32; ++w) total += counts[w];
+    __syncthreads();
+  }
+  return total;
+}
+
 // Shared memory of one block: the q and g rows, a ring of STAGES chunks of
 // KC keys' k rows then their v rows, the key list. The wrapper's
 // dq_staged_smem_bytes is the same sum.
@@ -386,22 +440,10 @@ masked_mha_bwd_dq_staged_kernel(const __nv_bfloat16* __restrict__ q,
     if (DROP) rkey = row_key(seeds[b], h, qi);
   }
 
-  // the allowed keys of this query row, in order: THREADS mask bytes a
-  // round, one ballot a warp, the warps' counts summed in shared memory
+  // the allowed keys of this query row, in order
   const unsigned char* arow = allow + row * a.Lk;
-  int nk = 0;
-  for (int k0 = 0; k0 < a.Lk; k0 += THREADS) {
-    const int kj = k0 + threadIdx.x;
-    const bool on = kj < a.Lk && arow[kj];
-    const unsigned live = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) counts[warp] = __popc(live);
-    __syncthreads();
-    int before = nk;
-    for (int w = 0; w < warp; ++w) before += counts[w];
-    if (on) keys[before + __popc(live & ((1u << lane) - 1u))] = kj;
-    for (int w = 0; w < WARPS; ++w) nk += counts[w];
-    __syncthreads();
-  }
+  const int nk = compact_list<THREADS>(
+      a.Lk, [&](int kj) { return (unsigned)arow[kj]; }, keys, nullptr, counts);
   const int chunks = (nk + KC - 1) / KC;
 
   // chunk c of the list into ring stage c % STAGES, one cp.async group
@@ -509,6 +551,556 @@ masked_mha_bwd_dq_staged_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   uint4* o = reinterpret_cast<uint4*>(dq + row * E);
   for (int i = threadIdx.x; i < PIECES; i += THREADS) o[i] = reinterpret_cast<const uint4*>(qs)[i];
+}
+
+// ------------------------------------ staged routes over 16-row mma tiles
+// The forward and dK/dV staged routes run on the tensor cores. One block
+// takes (video, a tile of TILE consecutive rows, a group of HG heads) and
+// brings the 16-byte window around its heads' slice of each token row in by
+// 16-byte cp.async (2 heads a block, 3 blocks an SM; a 2-head slice starts
+// only on 8 bytes, and 8-byte copies cost twice the instructions). The
+// warps of a head split S's k-steps (their partial sums meet in shared
+// memory) and the output dims. A head's slice starts 4 bytes off 16 (484 bytes at D =
+// 242), which ldmatrix cannot read; the mma fragments are bf16 pairs, read
+// by 32-bit shared loads, and outputs leave through shared memory by
+// coalesced 8-byte stores.
+// Probabilities and dS enter the second product split into two bf16 parts
+// (hi + lo, the rounding rest), so the products keep about 16 bits and the
+// outputs agree with fp32 sums to one bf16 rounding.
+constexpr int TILE = 16;     // rows a block: the mma's m
+constexpr int HG = 2;        // heads a block
+constexpr int CK = 8;        // keys (forward) or queries (dK/dV) a cp.async chunk: the mma's n / k
+// Warps a head (its "parts"): a part forms k-steps part, part + PARTS, ...
+// of S's 16 and sums output tiles part * 32 / PARTS, ... of the head's 32
+// 8-dim tiles. dK/dV holds two outputs' sums a warp and forms two products
+// a k-step, so it takes fewer, larger parts.
+constexpr int FWD_PARTS = 4;
+constexpr int DKV_PARTS = 2;
+
+// A staged kernel's own shared memory: each lane's `sums` partial 16 x 8
+// tiles (a float4 each) and a count a warp. The wrapper's _plan is the same.
+constexpr size_t static_smem(int parts, int sums) {
+  return (size_t)parts * HG * 32 * 16 * sums + (size_t)parts * HG * 4;
+}
+
+// dims d, d + 1 of a bf16 row in shared memory (d even), 0 past D
+__device__ __forceinline__ uint32_t pair_bits(const __nv_bfloat16* row, int d, int D) {
+  return d < D ? *reinterpret_cast<const uint32_t*>(row + d) : 0u;
+}
+
+// dim d of two rows, packed as the low and high half of a b32
+__device__ __forceinline__ uint32_t column_pair(const __nv_bfloat16* r0, const __nv_bfloat16* r1,
+                                                int d, int D) {
+  if (d >= D) return 0u;
+  const unsigned short* a = reinterpret_cast<const unsigned short*>(r0);
+  const unsigned short* b = reinterpret_cast<const unsigned short*>(r1);
+  return (uint32_t)a[d] | ((uint32_t)b[d] << 16);
+}
+
+// x and y as bf16 pairs hi + lo, lo the rounding rest of hi
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// acc (16 x 8 output tile) += (A_hi + A_lo) @ B for a 16 x 8 A given as
+// its hi and lo fragments and an 8 x 8 B fragment b, in one m16n8k16: A_hi
+// and A_lo side by side along k, B stacked on itself.
+__device__ __forceinline__ void mma_split(float (&acc)[4], const uint32_t (&hi)[2],
+                                          const uint32_t (&lo)[2], uint32_t b) {
+  const uint32_t af[4] = {hi[0], hi[1], lo[0], lo[1]};
+  mma_bf16_16816(acc, af, b, b);
+}
+
+// One k-step of 16 dims of an S tile: s (16 rows x 8) += A rows (a row
+// g / g + 8 of `a`, stride lda) . B rows (row g of `b`, stride ldb), dims
+// 16 kk .. 16 kk + 15, 0 past D.
+__device__ __forceinline__ void mma_rows(float (&s)[4], const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb, int kk, int D) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const int d0 = 16 * kk + 2 * t, d1 = d0 + 8;
+  const uint32_t af[4] = {pair_bits(a + g * lda, d0, D), pair_bits(a + (g + 8) * lda, d0, D),
+                          pair_bits(a + g * lda, d1, D), pair_bits(a + (g + 8) * lda, d1, D)};
+  mma_bf16_16816(s, af, pair_bits(b + g * ldb, d0, D), pair_bits(b + g * ldb, d1, D));
+}
+
+// A group's window of a token row: its heads' slice [h0 D, (h0 + nh) D)
+// widened to 16-byte bounds, which stay inside the row (rows are whole
+// 16-byte pieces), so it is copied by 16-byte cp.async; the slice starts
+// `shift` elements into it (0 or 4: h0 D is a multiple of 4 for even D).
+struct Window {
+  int start, len, shift;
+};
+
+__device__ __forceinline__ Window group_window(int h0, int nh, int D) {
+  const int start = (h0 * D) & ~7, end = ((h0 + nh) * D + 7) & ~7;
+  return Window{start, end - start, h0 * D - start};
+}
+
+// Shared row stride of a window: at least the widest window (HG heads and
+// 8 elements), and 8 mod 16 elements, so that the fragments' 32-bit loads
+// of 8 rows at 4 columns fall in 32 different banks. The wrapper's
+// _shared_row is the same.
+__host__ __device__ __forceinline__ int shared_row(int H, int D) {
+  const int w = min(H, HG) * D + 8;
+  return w + (24 - w % 16) % 16;
+}
+
+// `rows` rows of `len` elements (a multiple of 8) from src (token stride sl)
+// to dst (row stride ld) by 16-byte cp.async, a warp a row; rows n .. rows
+// - 1 zero-filled.
+template <int NT>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+                                          long long sl, int n, int rows, int len) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += NT / 32) {
+    const bool in = r < n;
+    const __nv_bfloat16* s = src + (in ? r * sl : 0);
+    for (int e = 8 * lane; e < len; e += 256) cp_async16(dst + r * ld + e, s + e, in);
+  }
+}
+
+// `rows` rows of `len` elements (a multiple of 4) from shared memory (row
+// stride ld) to dst (token stride sl) by 8-byte stores, a warp a row.
+template <int NT>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long sl,
+                                           const __nv_bfloat16* src, int ld, int rows, int len) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += NT / 32)
+    for (int e = 4 * lane; e < len; e += 128)
+      *reinterpret_cast<uint2*>(dst + r * sl + e) =
+          *reinterpret_cast<const uint2*>(src + r * ld + e);
+}
+
+// An output tile's fragment (rows g and g + 8, dims d and d + 1) into
+// shared memory as bf16 pairs, scaled by f0 (row g) and f1 (row g + 8).
+__device__ __forceinline__ void put_tile(__nv_bfloat16* rows, int ld, int g, int d,
+                                         const float (&c)[4], float f0, float f1) {
+  *reinterpret_cast<__nv_bfloat162*>(rows + g * ld + d) =
+      __floats2bfloat162_rn(c[0] * f0, c[1] * f0);
+  *reinterpret_cast<__nv_bfloat162*>(rows + (g + 8) * ld + d) =
+      __floats2bfloat162_rn(c[2] * f1, c[3] * f1);
+}
+
+// The listed rows c0 .. c0 + CK - 1 of two token-row tensors (list[] token
+// indices, n of them left; `len` elements, a multiple of 8) into two CK-row
+// blocks of dst by 16-byte cp.async, zero-filled past n.
+template <int NT>
+__device__ __forceinline__ void gather_chunk(__nv_bfloat16* dst, int ld, const int* list, int n,
+                                             const __nv_bfloat16* x, long long x_sl,
+                                             const __nv_bfloat16* y, long long y_sl, int len) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < CK; j += NT / 32) {
+    const bool in = j < n;
+    const long long tok = in ? list[j] : 0;
+    const __nv_bfloat16* xs = x + tok * x_sl;
+    const __nv_bfloat16* ys = y + tok * y_sl;
+    for (int e = 8 * lane; e < len; e += 256) {
+      cp_async16(dst + j * ld + e, xs + e, in);
+      cp_async16(dst + (CK + j) * ld + e, ys + e, in);
+    }
+  }
+}
+
+// ---------------------------------------------- forward, staged route
+// One block a (video, tile of TILE query rows, HG heads), PARTS HG warps:
+// warp w takes head w % HG of the group and part w / HG of its k-steps (its
+// q fragments held in registers) and of its output dims. The
+// block compacts the union of its rows' allowed keys (a TILE-bit word a
+// key, bit t for tile row t) and brings the listed keys' k and v slices
+// through a ring of FWD_STAGES chunks of CK keys, so a key's rows cross
+// from L2 once a tile. For each chunk the PARTS warps of a head form the 16
+// x 8 scores S = Q K^T together (each its k-steps on m16n8k16, the partial
+// sums exchanged through shared memory), and each masks them by the bits,
+// runs the online softmax of its rows (row max over a lane quad),
+// applies dropout (the row key hashed once a (row, head)) and adds P~ V
+// for its PART_NT output tiles (P~ in hi and lo parts, one m16n8k16).
+constexpr int FWD_STAGES = 2;      // chunks in the ring
+constexpr int FWD_MIN_BLOCKS = 3;  // its blocks an SM asked of the compiler
+
+// Shared memory of one block: the tile's q slices, the ring of k and v
+// slices, the key list and its row bits. The wrapper's
+// fwd_staged_smem_bytes is the same sum.
+size_t fwd_staged_smem(int Lk, int H, int D) {
+  const size_t EG = shared_row(H, D);
+  return (TILE + 2 * FWD_STAGES * CK) * EG * sizeof(__nv_bfloat16) +
+         (size_t)Lk * (sizeof(int) + sizeof(uint16_t));
+}
+
+template <bool DROP, bool LSE>
+__global__ void __launch_bounds__(FWD_PARTS * HG * 32, FWD_MIN_BLOCKS)
+masked_mha_fwd_staged_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const unsigned char* __restrict__ allow,
+                             const int* __restrict__ seeds, __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, Args a) {
+  constexpr int PARTS = FWD_PARTS, PART_NT = 32 / PARTS, PART_KS = 16 / PARTS;
+  constexpr int NT = PARTS * HG * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[NT / 32];
+  __shared__ float4 partial[NT];  // each lane's partial S of its warp's k-steps
+  const int D = a.D, EG = shared_row(a.H, D);  // shared row stride
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // TILE q slices
+  __nv_bfloat16* ring = qs + TILE * EG;  // stage: CK k slices, then CK v slices
+  int* keys = reinterpret_cast<int*>(ring + 2 * FWD_STAGES * CK * EG);
+  uint16_t* kbits = reinterpret_cast<uint16_t*>(keys + a.Lk);
+
+  const int groups = (a.H + HG - 1) / HG, tiles = (a.Lq + TILE - 1) / TILE;
+  const int grp = blockIdx.x % groups, tile = (blockIdx.x / groups) % tiles;
+  const int b = blockIdx.x / (groups * tiles);
+  const int q0 = tile * TILE, nrows = min(TILE, a.Lq - q0);
+  const int h0 = grp * HG, nh = min(HG, a.H - h0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int hl = warp % HG, part = warp / HG, h = h0 + hl;
+  const bool live = hl < nh;  // warp-uniform
+  const Window win = group_window(h0, nh, D);
+  const __nv_bfloat16* kb = k + b * a.k_sb + win.start;
+  const __nv_bfloat16* vb = v + b * a.v_sb + win.start;
+
+  copy_rows<NT>(qs, EG, q + b * a.q_sb + q0 * a.q_sl + win.start, a.q_sl, nrows, TILE, win.len);
+  cp_async_commit();
+  // the dropout row keys of this lane's rows g and g + 8, once
+  const uint32_t rkey0 = DROP && live ? row_key(seeds[b], h, q0 + g) : 0u;
+  const uint32_t rkey1 = DROP && live ? row_key(seeds[b], h, q0 + g + 8) : 0u;
+
+  const unsigned char* arow = allow + ((long long)b * a.Lq + q0) * a.Lk;
+  const int nk = compact_list<NT>(
+      a.Lk,
+      [&](int kj) {
+        unsigned bits = 0u;  // the tile's mask bytes of this column, loaded together
+#pragma unroll
+        for (int r = 0; r < TILE; ++r)
+          if (r < nrows) bits |= (arow[(long long)r * a.Lk + kj] ? 1u : 0u) << r;
+        return bits;
+      },
+      keys, kbits, counts);
+  const int chunks = (nk + CK - 1) / CK;
+  auto stage = [&](int c) {
+    if (c * CK < nk)
+      gather_chunk<NT>(ring + (c % FWD_STAGES) * 2 * CK * EG, EG, keys + c * CK,
+                       nk - c * CK, kb, a.k_sl, vb, a.v_sl, win.len);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < FWD_STAGES - 1; ++c) stage(c);
+
+  // rows g (r = 0) and g + 8 (r = 1): running max and sum (this lane's
+  // columns; the quad's sum at the end); acc[i]: output tile part * PART_NT + i
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[PART_NT][4];
+#pragma unroll
+  for (int i = 0; i < PART_NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int ntiles = (D + 7) / 8;
+  const __nv_bfloat16* qh = qs + win.shift + hl * D;
+  uint32_t qf[PART_KS][4];  // A fragments of this warp's k-steps, once the q rows land
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + FWD_STAGES - 1);
+    cp_async_wait<FWD_STAGES - 1>();
+    __syncthreads();
+    const __nv_bfloat16* kr = ring + (c % FWD_STAGES) * 2 * CK * EG + win.shift + hl * D;
+    const __nv_bfloat16* vr = kr + CK * EG;
+    if (live) {
+      // this warp's k-steps of S: s[0], s[1] row g, key slots 2t, 2t + 1;
+      // s[2], s[3] row g + 8
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < PART_KS; ++j) {
+        const int d0 = 16 * (part + PARTS * j) + 2 * t, d1 = d0 + 8;
+        if (d0 - 2 * t >= D) break;
+        if (c == 0) {
+          qf[j][0] = pair_bits(qh + g * EG, d0, D);
+          qf[j][1] = pair_bits(qh + (g + 8) * EG, d0, D);
+          qf[j][2] = pair_bits(qh + g * EG, d1, D);
+          qf[j][3] = pair_bits(qh + (g + 8) * EG, d1, D);
+        }
+        mma_bf16_16816(s, qf[j], pair_bits(kr + g * EG, d0, D), pair_bits(kr + g * EG, d1, D));
+      }
+      partial[threadIdx.x] = make_float4(s[0], s[1], s[2], s[3]);
+    }
+    __syncthreads();
+    if (live) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};  // the head's S: its PARTS warps' sums
+#pragma unroll
+      for (int pp = 0; pp < PARTS; ++pp) {
+        const float4 x = partial[(pp * HG + hl) * 32 + lane];
+        s[0] += x.x;
+        s[1] += x.y;
+        s[2] += x.z;
+        s[3] += x.w;
+      }
+      const int j0 = c * CK + 2 * t, j1 = j0 + 1;
+      const unsigned w0 = j0 < nk ? kbits[j0] : 0u, w1 = j1 < nk ? kbits[j1] : 0u;
+      const int key0 = j0 < nk ? keys[j0] : 0, key1 = j1 < nk ? keys[j1] : 0;
+      float p[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool on0 = (w0 >> (g + 8 * r)) & 1u, on1 = (w1 >> (g + 8 * r)) & 1u;
+        const float x0 = on0 ? s[2 * r] * a.scale : -INFINITY;
+        const float x1 = on1 ? s[2 * r + 1] * a.scale : -INFINITY;
+        float mx = fmaxf(x0, x1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = m_new == -INFINITY ? 1.f : __expf(m[r] - m_new);
+        p[2 * r] = on0 ? __expf(x0 - m_new) : 0.f;
+        p[2 * r + 1] = on1 ? __expf(x1 - m_new) : 0.f;
+        l[r] = l[r] * alpha + p[2 * r] + p[2 * r + 1];
+        m[r] = m_new;
+#pragma unroll
+        for (int i = 0; i < PART_NT; ++i) {
+          acc[i][2 * r] *= alpha;
+          acc[i][2 * r + 1] *= alpha;
+        }
+        // dropout acts on the normalized p: the sum l stays undropped
+        if (DROP) {
+          const uint32_t rk = r ? rkey1 : rkey0;
+          p[2 * r] = drop_bits(rk, key0) >= a.threshold ? p[2 * r] * a.keep_scale : 0.f;
+          p[2 * r + 1] = drop_bits(rk, key1) >= a.threshold ? p[2 * r + 1] * a.keep_scale : 0.f;
+        }
+      }
+      uint32_t hi[2], lo[2];
+      split_pair(p[0], p[1], hi[0], lo[0]);
+      split_pair(p[2], p[3], hi[1], lo[1]);
+#pragma unroll
+      for (int i = 0; i < PART_NT; ++i) {
+        const int nt = part * PART_NT + i;
+        if (nt >= ntiles) break;
+        mma_split(acc[i], hi, lo,
+                  column_pair(vr + 2 * t * EG, vr + (2 * t + 1) * EG, nt * 8 + g, D));
+      }
+    }
+    __syncthreads();  // stage c % FWD_STAGES is refilled next
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the q rows are free: the out rows go there
+
+  if (live) {
+    float inv[2], L[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = sum > 0.f ? 1.f / sum : 0.f;  // no allowed key -> 0
+      L[r] = sum > 0.f ? m[r] + logf(sum) : LSE_EMPTY;
+    }
+#pragma unroll
+    for (int i = 0; i < PART_NT; ++i) {
+      const int d = (part * PART_NT + i) * 8 + 2 * t;
+      if (d - 2 * t >= D) break;
+      if (d < D) put_tile(qs + win.shift + hl * D, EG, g, d, acc[i], inv[0], inv[1]);
+    }
+    if (LSE && part == 0 && t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (g + 8 * r < nrows) lse[((long long)b * a.H + h) * a.Lq + q0 + g + 8 * r] = L[r];
+    }
+  }
+  __syncthreads();
+  store_rows<NT>(out + (((long long)b * a.Lq + q0) * a.H + h0) * D, (long long)a.H * D,
+                 qs + win.shift, EG, nrows, nh * D);
+}
+
+// -------------------------------------------- dK, dV, staged route
+// One block a (video, tile of TILE key rows, HG heads), PARTS HG warps:
+// warp w takes head w % HG of the group and part w / HG of its k-steps and
+// of its output dims, for dK and dV both. The tile's k and v slices stay in
+// shared memory; the block compacts the union of the tile's allowed
+// queries (from allowT, a TILE-bit word a query), copies each listed
+// query's lse, r and dropout row key for every head of the group into
+// shared memory once, and brings the listed queries' q and g slices through
+// a ring of DKV_STAGES chunks of CK queries. For each chunk the PARTS warps
+// of a head form its 16 x 8 S^T = K Q^T and dP~^T = V g^T together on the
+// tensor cores (partial sums exchanged through shared memory), then each
+// forms p~ and dS = p (dP - r) scale for the allowed pairs and adds p~^T g
+// and dS^T q to its PART_NT dV and dK output tiles (hi and lo parts, one
+// m16n8k16): fp32 sums in registers, stored once.
+constexpr int DKV_STAGES = 2;
+constexpr int DKV_STAGED_MIN_BLOCKS = 3;  // its blocks an SM asked of the compiler
+
+// Shared memory of one block: the tile's k and v slices, the ring of q and
+// g slices, lse, r and the row key of each (listed query, head of the
+// group), the query list and its row bits. The wrapper's
+// dkv_staged_smem_bytes is the same sum.
+size_t dkv_staged_smem(int Lq, int H, int D) {
+  const size_t EG = shared_row(H, D);
+  return (2 * TILE + 2 * DKV_STAGES * CK) * EG * sizeof(__nv_bfloat16) +
+         (size_t)Lq * HG * 3 * sizeof(float) + (size_t)Lq * (sizeof(int) + sizeof(uint16_t));
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(DKV_PARTS * HG * 32, DKV_STAGED_MIN_BLOCKS)
+masked_mha_bwd_dkv_staged_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 const __nv_bfloat16* __restrict__ g,
+                                 const unsigned char* __restrict__ allow_t,
+                                 const float* __restrict__ lse, const float* __restrict__ r_in,
+                                 const int* __restrict__ seeds, __nv_bfloat16* __restrict__ dk,
+                                 __nv_bfloat16* __restrict__ dv, Args a) {
+  constexpr int PARTS = DKV_PARTS, PART_NT = 32 / PARTS, PART_KS = 16 / PARTS;
+  constexpr int NT = PARTS * HG * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[NT / 32];
+  __shared__ float4 partial[2 * NT];  // each lane's partial S^T and dP~^T of its k-steps
+  const int D = a.D, EG = shared_row(a.H, D);  // shared row stride
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // TILE k slices
+  __nv_bfloat16* vs = ks + TILE * EG;                           // TILE v slices
+  __nv_bfloat16* ring = vs + TILE * EG;  // stage: CK q slices, then CK g slices
+  float* lses = reinterpret_cast<float*>(ring + 2 * DKV_STAGES * CK * EG);
+  float* rs = lses + a.Lq * HG;
+  uint32_t* rks = reinterpret_cast<uint32_t*>(rs + a.Lq * HG);
+  int* qlist = reinterpret_cast<int*>(rks + a.Lq * HG);
+  uint16_t* qbits = reinterpret_cast<uint16_t*>(qlist + a.Lq);
+
+  const int groups = (a.H + HG - 1) / HG, tiles = (a.Lk + TILE - 1) / TILE;
+  const int grp = blockIdx.x % groups, tile = (blockIdx.x / groups) % tiles;
+  const int b = blockIdx.x / (groups * tiles);
+  const int k0 = tile * TILE, nrows = min(TILE, a.Lk - k0);
+  const int h0 = grp * HG, nh = min(HG, a.H - h0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, t = lane & 3;
+  const int hl = warp % HG, part = warp / HG, h = h0 + hl;
+  const bool live = hl < nh;  // warp-uniform
+
+  const Window win = group_window(h0, nh, D);
+  copy_rows<NT>(ks, EG, k + b * a.k_sb + k0 * a.k_sl + win.start, a.k_sl, nrows, TILE, win.len);
+  copy_rows<NT>(vs, EG, v + b * a.v_sb + k0 * a.v_sl + win.start, a.v_sl, nrows, TILE, win.len);
+  cp_async_commit();
+
+  const unsigned char* acol = allow_t + ((long long)b * a.Lk + k0) * a.Lq;
+  const int nq = compact_list<NT>(
+      a.Lq,
+      [&](int qj) {
+        unsigned bits = 0u;  // the tile's mask bytes of this column, loaded together
+#pragma unroll
+        for (int r = 0; r < TILE; ++r)
+          if (r < nrows) bits |= (acol[(long long)r * a.Lq + qj] ? 1u : 0u) << r;
+        return bits;
+      },
+      qlist, qbits, counts);
+  // each listed query's lse, r and dropout row key for every head of the
+  // group, once (an allowed pair means the query row has a key: its lse is
+  // real)
+  for (int i = threadIdx.x; i < nq * nh; i += NT) {
+    const int slot = i / nh, hh = i - slot * nh, qi = qlist[slot];
+    const long long at = ((long long)b * a.H + h0 + hh) * a.Lq + qi;
+    lses[slot * HG + hh] = lse[at];
+    rs[slot * HG + hh] = r_in[at];
+    if (DROP) rks[slot * HG + hh] = row_key(seeds[b], h0 + hh, qi);
+  }
+  const int chunks = (nq + CK - 1) / CK;
+  const __nv_bfloat16* qb = q + b * a.q_sb + win.start;
+  const __nv_bfloat16* gb = g + b * a.g_sb + win.start;
+  auto stage = [&](int c) {
+    if (c * CK < nq)
+      gather_chunk<NT>(ring + (c % DKV_STAGES) * 2 * CK * EG, EG, qlist + c * CK,
+                       nq - c * CK, qb, a.q_sl, gb, a.g_sl, win.len);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < DKV_STAGES - 1; ++c) stage(c);
+
+  float acck[PART_NT][4], accv[PART_NT][4];
+#pragma unroll
+  for (int i = 0; i < PART_NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[i][e] = accv[i][e] = 0.f;
+  const int ntiles = (D + 7) / 8;
+  const __nv_bfloat16* kh = ks + win.shift + hl * D;
+  const __nv_bfloat16* vh = vs + win.shift + hl * D;
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + DKV_STAGES - 1);
+    cp_async_wait<DKV_STAGES - 1>();
+    __syncthreads();
+    const __nv_bfloat16* qr = ring + (c % DKV_STAGES) * 2 * CK * EG + win.shift + hl * D;
+    const __nv_bfloat16* gr = qr + CK * EG;
+    if (live) {
+      // this warp's k-steps of S^T and dP~^T: [0], [1] key row gq, query
+      // slots 2t, 2t + 1; [2], [3] key row gq + 8
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < PART_KS; ++j) {
+        const int kk = part + PARTS * j;
+        if (16 * kk >= D) break;
+        mma_rows(s, kh, EG, qr, EG, kk, D);
+        mma_rows(dp, vh, EG, gr, EG, kk, D);
+      }
+      partial[2 * threadIdx.x] = make_float4(s[0], s[1], s[2], s[3]);
+      partial[2 * threadIdx.x + 1] = make_float4(dp[0], dp[1], dp[2], dp[3]);
+    }
+    __syncthreads();
+    if (live) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};  // the head's sums
+#pragma unroll
+      for (int pp = 0; pp < PARTS; ++pp) {
+        const int at = 2 * ((pp * HG + hl) * 32 + lane);
+        const float4 x = partial[at], y = partial[at + 1];
+        s[0] += x.x;
+        s[1] += x.y;
+        s[2] += x.z;
+        s[3] += x.w;
+        dp[0] += y.x;
+        dp[1] += y.y;
+        dp[2] += y.z;
+        dp[3] += y.w;
+      }
+      float pv[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // query slot 2t + e
+        const int j = c * CK + 2 * t + e;
+        const bool in = j < nq;
+        const unsigned w = in ? qbits[j] : 0u;
+        const float L = in ? lses[j * HG + hl] : 0.f, R = in ? rs[j * HG + hl] : 0.f;
+        const uint32_t rk = DROP && in ? rks[j * HG + hl] : 0u;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // key row gq + 8 r
+          const int row = gq + 8 * r;
+          const bool on = (w >> row) & 1u;
+          const float p = __expf(s[2 * r + e] * a.scale - L);
+          const bool keep = !DROP || drop_bits(rk, k0 + row) >= a.threshold;
+          const float kscale = DROP ? a.keep_scale : 1.f;
+          const float dpk = keep ? dp[2 * r + e] * kscale : 0.f;
+          pv[2 * r + e] = on && keep ? p * kscale : 0.f;
+          ds[2 * r + e] = on ? p * (dpk - R) * a.scale : 0.f;
+        }
+      }
+      uint32_t vhi[2], vlo[2], khi[2], klo[2];
+      split_pair(pv[0], pv[1], vhi[0], vlo[0]);
+      split_pair(pv[2], pv[3], vhi[1], vlo[1]);
+      split_pair(ds[0], ds[1], khi[0], klo[0]);
+      split_pair(ds[2], ds[3], khi[1], klo[1]);
+#pragma unroll
+      for (int i = 0; i < PART_NT; ++i) {
+        const int nt = part * PART_NT + i;
+        if (nt >= ntiles) break;
+        const int d = nt * 8 + gq;
+        mma_split(accv[i], vhi, vlo, column_pair(gr + 2 * t * EG, gr + (2 * t + 1) * EG, d, D));
+        mma_split(acck[i], khi, klo, column_pair(qr + 2 * t * EG, qr + (2 * t + 1) * EG, d, D));
+      }
+    }
+    __syncthreads();  // stage c % DKV_STAGES is refilled next
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the k and v rows are free: the dk and dv rows go there
+
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < PART_NT; ++i) {
+      const int d = (part * PART_NT + i) * 8 + 2 * t;
+      if (d - 2 * t >= D) break;
+      if (d < D) {
+        put_tile(ks + win.shift + hl * D, EG, gq, d, acck[i], 1.f, 1.f);
+        put_tile(vs + win.shift + hl * D, EG, gq, d, accv[i], 1.f, 1.f);
+      }
+    }
+  }
+  __syncthreads();
+  const long long o = (((long long)b * a.Lk + k0) * a.H + h0) * D;
+  store_rows<NT>(dk + o, (long long)a.H * D, ks + win.shift, EG, nrows, nh * D);
+  store_rows<NT>(dv + o, (long long)a.H * D, vs + win.shift, EG, nrows, nh * D);
 }
 
 // ------------------------------------------------------- backward: dK, dV
@@ -669,6 +1261,55 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const vo
   return (int)cudaGetLastError();
 }
 
+// True for what the staged routes cannot take: not bf16, more heads than
+// WARPS, an odd head dim, rows that are not whole 16-byte pieces, pointers
+// or token and batch strides (or-ed together) off 16-byte alignment.
+bool staged_refuses(int dtype, int B, int Lq, int Lk, int H, int D,
+                    std::initializer_list<const void*> ptrs, long long strides) {
+  bool off = false;
+  for (const void* p : ptrs) off |= reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  return dtype != 1 || bad_shape(B, Lq, Lk, H, D) || H > WARPS || D % 2 || (H * D) % 8 || off ||
+         strides % 8 != 0;
+}
+
+template <bool DROP, bool LSE>
+int fwd_staged(const void* q, const void* k, const void* v, const void* allow, const void* seeds,
+               void* out, void* lse, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_fwd_staged_kernel<DROP, LSE>;
+  const size_t smem = fwd_staged_smem(a.Lk, a.H, a.D);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks =
+      (long long)a.B * ((a.Lq + TILE - 1) / TILE) * ((a.H + HG - 1) / HG);
+  kernel<<<(unsigned)blocks, FWD_PARTS * HG * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const unsigned char*>(allow),
+      static_cast<const int*>(seeds), static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      a);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int bwd_dkv_staged(const void* q, const void* k, const void* v, const void* g,
+                   const void* allow_t, const void* lse, const void* r, const void* seeds,
+                   void* dk, void* dv, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_bwd_dkv_staged_kernel<DROP>;
+  const size_t smem = dkv_staged_smem(a.Lq, a.H, a.D);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks =
+      (long long)a.B * ((a.Lk + TILE - 1) / TILE) * ((a.H + HG - 1) / HG);
+  kernel<<<(unsigned)blocks, DKV_PARTS * HG * 32, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const unsigned char*>(allow_t), static_cast<const float*>(lse),
+      static_cast<const float*>(r), static_cast<const int*>(seeds),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Dropout is on when `seeds` is not null
@@ -725,10 +1366,8 @@ extern "C" int masked_mha_bwd_dq_staged(int dtype, const void* q, const void* k,
                                         long long v_sl, long long g_sb, long long g_sl,
                                         float scale, unsigned threshold, float keep_scale,
                                         void* stream) {
-  const auto off16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (dtype != 1 || bad_shape(B, Lq, Lk, H, D) || H > WARPS || D % 2 || (H * D) % 8 ||
-      off16(q) || off16(k) || off16(v) || off16(g) || off16(dq) ||
-      (q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) % 8 != 0 ||
+  if (staged_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, g, dq},
+                     q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) ||
       dq_staged_smem(Lk, H, D) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
@@ -759,4 +1398,52 @@ extern "C" int masked_mha_bwd_dkv(int dtype, const void* q, const void* k, const
     return drop ? bwd_dkv<__nv_bfloat16, true>(q, k, v, g, allow_t, lse, r, seeds, dk, dv, a, s)
                 : bwd_dkv<__nv_bfloat16, false>(q, k, v, g, allow_t, lse, r, seeds, dk, dv, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The staged forward route (bf16 only): the arguments and outputs of
+// masked_mha_fwd. It refuses (cudaErrorInvalidValue) what staged_refuses
+// names and shared memory past a block's limit; the wrapper's fwd_plan and
+// fwd_route check the same first.
+extern "C" int masked_mha_fwd_staged(int dtype, const void* q, const void* k, const void* v,
+                                     const void* allow, const void* seeds, void* out,
+                                     void* lse, int B, int Lq, int Lk, int H, int D,
+                                     long long q_sb, long long q_sl, long long k_sb,
+                                     long long k_sl, long long v_sb, long long v_sl,
+                                     float scale, unsigned threshold, float keep_scale,
+                                     void* stream) {
+  if (staged_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, out},
+                     q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) ||
+      fwd_staged_smem(Lk, H, D) + static_smem(FWD_PARTS, 1) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, 0, 0,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seeds == nullptr)
+    return lse == nullptr ? fwd_staged<false, false>(q, k, v, allow, seeds, out, lse, a, s)
+                          : fwd_staged<false, true>(q, k, v, allow, seeds, out, lse, a, s);
+  return lse == nullptr ? fwd_staged<true, false>(q, k, v, allow, seeds, out, lse, a, s)
+                        : fwd_staged<true, true>(q, k, v, allow, seeds, out, lse, a, s);
+}
+
+// The staged dK/dV route (bf16 only): the arguments and outputs of
+// masked_mha_bwd_dkv. It refuses what masked_mha_fwd_staged refuses (the
+// wrapper's dkv_plan and dkv_route check the same first).
+extern "C" int masked_mha_bwd_dkv_staged(int dtype, const void* q, const void* k, const void* v,
+                                         const void* g, const void* allow_t, const void* lse,
+                                         const void* r, const void* seeds, void* dk, void* dv,
+                                         int B, int Lq, int Lk, int H, int D, long long q_sb,
+                                         long long q_sl, long long k_sb, long long k_sl,
+                                         long long v_sb, long long v_sl, long long g_sb,
+                                         long long g_sl, float scale, unsigned threshold,
+                                         float keep_scale, void* stream) {
+  if (staged_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, g, dk, dv},
+                     q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) ||
+      dkv_staged_smem(Lq, H, D) + static_smem(DKV_PARTS, 2) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return seeds != nullptr
+             ? bwd_dkv_staged<true>(q, k, v, g, allow_t, lse, r, seeds, dk, dv, a, s)
+             : bwd_dkv_staged<false>(q, k, v, g, allow_t, lse, r, seeds, dk, dv, a, s);
 }

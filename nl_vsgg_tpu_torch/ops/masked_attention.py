@@ -29,14 +29,22 @@ gradients and at rate 0 it is the eval forward: no lse, no hashing.
 `LAUNCHES` counts kernel launches by kernel ("fwd", "bwd_dq", "bwd_dkv");
 `reset_launches()` sets them to 0.
 
-The dQ kernel has two routes, one launch either way; `dq_route` picks one
-from dtype, shapes and alignment before the launch. "staged" (bf16, at
-most 8 heads, an even head dim, q/k/v/g rows and batch and token strides
-on 16-byte boundaries, H * D * 2 bytes a multiple of 16, shared memory for
-two blocks an SM; the training path's column blocks of the fused
-projection) brings whole token rows in by 16-byte copies and walks the
-allowed keys once, summing dQ as scale (sum p dP k - r sum p k);
-"per-element" (fp32, odd D, other views) loads a head's dims one by one.
+Each kernel has two routes, one launch either way, picked before the
+launch from dtype, shapes and alignment alone (`fwd_route`, `dq_route`,
+`dkv_route`, all on one rule, `staged_layout`: bf16, at most 8 heads, an
+even head dim, q/k/v/g rows and batch and token strides on 16-byte
+boundaries, H * D * 2 bytes a multiple of 16; the serving and training
+paths' column blocks of the fused projection). "staged" brings token rows in
+by 16-byte copies:
+  - the forward and dK/dV: one block a (video, tile of 16 query or key
+    rows, 2 heads; `fwd_plan`, `dkv_plan`); the block lists the union of
+    its rows' allowed keys (queries), copies their rows' slices once a tile
+    and runs 16 x 8 tiles of the products on the tensor cores, the warps of
+    a head (`FWD_PARTS`, `DKV_PARTS`) splitting S's k-steps;
+  - dQ: one block a query row, its allowed keys walked once, summing dQ as
+    scale (sum p dP k - r sum p k).
+"per-element" (fp32, odd D, other views) runs one warp a (row, head) and
+loads a head's dims one by one.
 """
 
 from __future__ import annotations
@@ -54,12 +62,21 @@ _M32 = 0xFFFFFFFF
 
 LAUNCHES = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
-# the staged dQ route (csrc/masked_attention.cu KC, STAGES, WARPS, dq_staged_smem)
-STAGED_KEYS = 2                  # keys a cp.async chunk
-STAGED_CHUNKS = 2                # chunks in the ring
-STAGED_MAX_HEADS = 8             # one warp a head
-STAGED_SMEM_MAX = 113 * 1024     # two blocks of an SM's 228 KB (1 KB each reserved)
+# the staged routes (csrc/masked_attention.cu WARPS, KC, STAGES, TILE, HG, CK,
+# FWD_STAGES, DKV_STAGES, FWD_PARTS, DKV_PARTS and the *_staged_smem functions)
+STAGED_MAX_HEADS = 8             # dQ: one warp a head
+STAGED_SMEM_MAX = 113 * 1024     # dQ: two blocks of an SM's 228 KB (1 KB each reserved)
+BLOCK_SMEM_MAX = 232448          # a block's shared memory on sm_90 (227 KB)
+STAGED_KEYS = 2                  # dQ: keys a cp.async chunk
+STAGED_CHUNKS = 2                # dQ: chunks in the ring
+TILE_ROWS = 16                   # forward / dK/dV: query / key rows a block (the mma's m)
+HEAD_GROUP = 2                   # forward / dK/dV: heads a block
+CHUNK_ROWS = 8                   # forward / dK/dV: keys / queries a cp.async chunk
+FWD_CHUNKS = DKV_CHUNKS = 2      # forward / dK/dV: chunks in the ring
+FWD_PARTS, DKV_PARTS = 4, 2      # forward / dK/dV: warps a head
 _DQ_ENTRY = {"staged": "masked_mha_bwd_dq_staged", "per-element": "masked_mha_bwd_dq"}
+_FWD_ENTRY = {"staged": "masked_mha_fwd_staged", "per-element": "masked_mha_fwd"}
+_DKV_ENTRY = {"staged": "masked_mha_bwd_dkv_staged", "per-element": "masked_mha_bwd_dkv"}
 
 
 def reset_launches() -> None:
@@ -254,8 +271,9 @@ def _forward_cuda(q, k, v, allow, sm_scale, dropout_rate, seeds, with_lse):
     allow = allow.contiguous()
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if with_lse else None
+    route = fwd_route(q, k, v)
     with torch.cuda.device(q.device):
-        rc = _fn("masked_mha_fwd")(
+        rc = _fn(_FWD_ENTRY[route])(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), allow.data_ptr(),
             _ptr(seeds), out.data_ptr(), _ptr(lse), B, Lq, k.shape[1], H, D,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
@@ -286,6 +304,20 @@ def _bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale):
             threshold, keep_scale)
 
 
+def staged_layout(tensors) -> bool:
+    """Whether the staged routes can take these (B, L, H, D) tensors: bf16,
+    at most 8 heads, an even head dim (a head's slice starts on 4 bytes:
+    its bf16 pairs), rows of whole 16-byte pieces, and every tensor's
+    pointer and batch and token strides on 16 bytes (the 16-byte copies of
+    whole token rows). The one rule of `dq_route`, `fwd_route` and
+    `dkv_route`."""
+    _, _, H, D = tensors[0].shape
+    return (tensors[0].dtype == torch.bfloat16 and H <= STAGED_MAX_HEADS and D % 2 == 0
+            and (H * D) % 8 == 0
+            and all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                    for t in tensors))
+
+
 def dq_staged_smem_bytes(lk: int, num_heads: int, head_dim: int) -> int:
     """Shared memory of one staged dQ block: the q and g rows, a ring of
     STAGED_CHUNKS chunks of STAGED_KEYS keys' k and v rows (bf16), the key
@@ -294,16 +326,82 @@ def dq_staged_smem_bytes(lk: int, num_heads: int, head_dim: int) -> int:
     return (2 + 2 * STAGED_CHUNKS * STAGED_KEYS) * e * 2 + lk * 4
 
 
+def _shared_row(num_heads: int, head_dim: int) -> int:
+    """Elements a shared row of the staged forward and dK/dV: a group's
+    16-byte window (its heads' slice and up to 8 elements around it),
+    rounded to 8 mod 16 (bank-conflict-free fragment loads)."""
+    w = min(num_heads, HEAD_GROUP) * head_dim + 8
+    return w + (24 - w % 16) % 16
+
+
+def fwd_staged_smem_bytes(lk: int, num_heads: int, head_dim: int) -> int:
+    """Shared memory of one staged forward block: its TILE_ROWS query rows'
+    slices of HEAD_GROUP heads, a ring of FWD_CHUNKS chunks of CHUNK_ROWS
+    keys' k and v slices (bf16, rows `_shared_row` apart), the key list
+    (int32) and its row bits (16 bits a key)."""
+    eg = _shared_row(num_heads, head_dim)
+    return (TILE_ROWS + 2 * FWD_CHUNKS * CHUNK_ROWS) * eg * 2 + lk * 6
+
+
+def dkv_staged_smem_bytes(lq: int, num_heads: int, head_dim: int) -> int:
+    """Shared memory of one staged dK/dV block: its TILE_ROWS key rows' k and
+    v slices of HEAD_GROUP heads, a ring of DKV_CHUNKS chunks of CHUNK_ROWS
+    queries' q and g slices (bf16, rows `_shared_row` apart), lse, r and
+    the dropout row key of each (query, head of the group) (fp32 / uint32),
+    the query list (int32) and its row bits (16 bits a query)."""
+    eg = _shared_row(num_heads, head_dim)
+    return (2 * TILE_ROWS + 2 * DKV_CHUNKS * CHUNK_ROWS) * eg * 2 + lq * HEAD_GROUP * 12 + lq * 6
+
+
+def _plan(length: int, num_heads: int, parts: int, sums: int, smem: int) -> dict:
+    """A staged launch: one block a (video, tile, head group) of `parts`
+    warps a head; tile t covers rows [t * TILE_ROWS, min(length, (t + 1) *
+    TILE_ROWS)), so `tiles` of them cover every row once, the last one short
+    when TILE_ROWS does not divide length. `static_smem` is the kernel's own
+    shared memory: each lane's `sums` partial 16 x 8 tiles (a float4 each)
+    and a count a warp."""
+    threads = 32 * parts * HEAD_GROUP
+    static = threads * 16 * sums + threads // 32 * 4
+    return {"rows": TILE_ROWS, "tiles": -(-length // TILE_ROWS),
+            "head_groups": -(-num_heads // HEAD_GROUP), "threads": threads, "smem": smem,
+            "static_smem": static, "fits": smem + static <= BLOCK_SMEM_MAX}
+
+
+def fwd_plan(lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
+    """The staged forward's blocks: {"rows", "tiles", "head_groups",
+    "threads", "smem", "static_smem", "fits"}, ring depth FWD_CHUNKS of
+    CHUNK_ROWS keys."""
+    return _plan(lq, num_heads, FWD_PARTS, 1, fwd_staged_smem_bytes(lk, num_heads, head_dim))
+
+
+def dkv_plan(lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
+    """The staged dK/dV kernel's blocks over key tiles, as `fwd_plan` (S^T
+    and dP~^T partial sums), ring depth DKV_CHUNKS of CHUNK_ROWS queries."""
+    return _plan(lk, num_heads, DKV_PARTS, 2, dkv_staged_smem_bytes(lq, num_heads, head_dim))
+
+
 def dq_route(q, k, v, g) -> str:
     """The dQ kernel's route for these inputs, "staged" or "per-element",
     from dtype, shapes and 16-byte alignment alone."""
     _, _, H, D = q.shape
-    tensors = (q, k, v, g)
-    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
-                  for t in tensors)
-    staged = (q.dtype == torch.bfloat16 and H <= STAGED_MAX_HEADS and D % 2 == 0
-              and (H * D) % 8 == 0 and aligned
+    staged = (staged_layout((q, k, v, g))
               and dq_staged_smem_bytes(k.shape[1], H, D) <= STAGED_SMEM_MAX)
+    return "staged" if staged else "per-element"
+
+
+def fwd_route(q, k, v) -> str:
+    """The forward kernel's route, "staged" (query tiles, `fwd_plan`) or
+    "per-element", from dtype, shapes and 16-byte alignment alone."""
+    _, Lq, H, D = q.shape
+    staged = staged_layout((q, k, v)) and fwd_plan(Lq, k.shape[1], H, D)["fits"]
+    return "staged" if staged else "per-element"
+
+
+def dkv_route(q, k, v, g) -> str:
+    """The dK/dV kernel's route, "staged" (key tiles, `dkv_plan`) or
+    "per-element", from dtype, shapes and 16-byte alignment alone."""
+    _, Lq, H, D = q.shape
+    staged = staged_layout((q, k, v, g)) and dkv_plan(Lq, k.shape[1], H, D)["fits"]
     return "staged" if staged else "per-element"
 
 
@@ -348,8 +446,9 @@ def masked_mha_bwd_dkv(q, k, v, allow_t, sm_scale: float, g, lse, r,
     allow_t, lse, r = allow_t.contiguous(), lse.contiguous(), r.contiguous()
     dk = torch.empty((B, k.shape[1], H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    route = dkv_route(q, k, v, g)
     with torch.cuda.device(q.device):
-        rc = _fn("masked_mha_bwd_dkv")(
+        rc = _fn(_DKV_ENTRY[route])(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             allow_t.data_ptr(), lse.data_ptr(), r.data_ptr(), _ptr(seeds), dk.data_ptr(),
             dv.data_ptr(), *_bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale),
@@ -411,17 +510,21 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"masked_mha {what} kernel launch failed: cudaError {rc}")
 
 
-_ARGTYPES = {  # after (dtype, pointers...): sizes, strides, scale, threshold, keep scale, stream
-    "masked_mha_fwd": 7, "masked_mha_bwd_dq": 9, "masked_mha_bwd_dq_staged": 9,
-    "masked_mha_bwd_dkv": 10}
+_ARGTYPES = {  # pointers after dtype; then sizes, strides, scale, threshold, keep scale, stream
+    "masked_mha_fwd": 7, "masked_mha_fwd_staged": 7, "masked_mha_bwd_dq": 9,
+    "masked_mha_bwd_dq_staged": 9, "masked_mha_bwd_dkv": 10, "masked_mha_bwd_dkv_staged": 10}
+
+
+def entry_argtypes(name: str) -> list:
+    """The ctypes argument types of the C entry `name` of the library."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    strides = 6 if name.startswith("masked_mha_fwd") else 8
+    return ([i] + [p] * _ARGTYPES[name] + [i] * 5 + [ll] * strides
+            + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, p])
 
 
 def _fn(name: str):
     fn = getattr(_build.load("masked_attention"), name)
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        strides = 6 if name == "masked_mha_fwd" else 8
-        fn.argtypes = ([i] + [p] * _ARGTYPES[name] + [i] * 5 + [ll] * strides
-                       + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, p])
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = entry_argtypes(name), ctypes.c_int
     return fn

@@ -1,4 +1,4 @@
-"""Ablations of the port's staged tensor-core kernels on the card: each
+"""Ablations of the port's staged kernels on the card: each
 kernel beside copies of its source with one thing changed, built with nvcc
 and timed on the same inputs in one process, so that the differences say
 where a kernel's time goes.
@@ -26,18 +26,32 @@ that leaves out work computes a wrong result and is timed only:
     taps-8        8 taps a column bin in registers at S = 2 (as at S = 4)
     min-blocks-2  2 blocks an SM asked of the compiler in place of 3
     min-blocks-4  4 (64 registers a thread)
-  masked_mha_bwd_dq at the train step's four shapes (B = 64, H = 8, D =
-  242, bf16, q/k/v column blocks of a fused projection, 3% of pairs
-  allowed at random, dropout 0.1), summed over the four, on the staged
-  route the wrapper picks (and the per-element route where named):
-    kernel          the committed kernel, both routes
-    no-kv-load      the staged route's k and v copies zero-filled, not read
-    stages-1        a ring of one chunk: no chunk in flight during a walk
-    min-blocks-2    2 blocks an SM asked of the compiler in place of 3
-    no-walk         the walk over the listed keys left out (copies kept)
-    no-mask         no key allowed (the mask read, no key copied)
-    no-second-walk  the per-element route without its second walk (the dQ
-                    sum; r only): what the two-walk design paid
+  masked_attention at the train step's four shapes (B = 64, H = 8, D =
+  242, bf16, q/k/v column blocks of a fused projection, dropout 0.1), each
+  kernel summed over the four calls. dQ on random 3% masks; the forward
+  (train: lse and dropout; eval beside it) and dK/dV on two mask sets,
+  path-like (`path_masks`: a synthetic batch's frames and windows, as
+  models/sttran.py builds them) and random 3%. Each variant is timed on
+  the staged route of the kernels it edits; the committed kernel also on
+  the per-element route (the first kernels):
+    kernel          the committed kernels
+    no-kv-load      dQ: the keys' k and v copies zero-filled, not read
+    no-chunk-load   forward and dK/dV: the listed rows' copies zero-filled
+    stages-1        every ring one chunk deep: no chunk in flight during a walk
+    stages-3        forward and dK/dV: rings 3 chunks deep
+    stages-4        forward and dK/dV: rings 4 chunks deep
+    min-blocks-2    dQ: 2 blocks an SM asked of the compiler in place of 3
+    fewer-blocks    forward and dK/dV: 2 blocks an SM in place of 3
+    more-blocks     forward and dK/dV: 4 blocks an SM
+    heads-4         forward and dK/dV: 4 heads a block in place of 2
+    parts-swap      the forward 2 warps a head in place of 4 (4 blocks an SM),
+                    dK/dV 4 in place of 2 (2 blocks an SM)
+    no-walk         the walk over the listed rows left out (copies kept)
+    no-list         forward and dK/dV: nothing listed (mask read, tile
+                    copied, zeros stored)
+    no-mask         dQ: no key allowed (the mask read, no key copied)
+    no-second-walk  the per-element dQ route without its second walk (the
+                    dQ sum; r only): what the two-walk design paid
 
 Each row prints device us (or ms) a call, two-point differenced with the
 card kept busy while the host queues the calls (`tools.timing`), beside
@@ -71,6 +85,19 @@ def _stages(n):
     return lambda s: re.sub(r"constexpr int STAGES = \d+;", f"constexpr int STAGES = {n};", s)
 
 
+def _edits(*pairs):
+    """A variant made of literal text edits (old, new), every one of which
+    must apply to the source (`pairs` keeps them for the tests)."""
+    def edit(src):
+        for old, new in pairs:
+            if old not in src:
+                raise RuntimeError(f"the edit of {old!r} no longer applies to the source")
+            src = src.replace(old, new)
+        return src
+    edit.pairs = pairs
+    return edit
+
+
 VARIANTS = {
     "probe_matmul": {
         "kernel": lambda s: s,
@@ -101,20 +128,59 @@ VARIANTS = {
     },
     "masked_attention": {
         "kernel": lambda s: s,
-        "no-kv-load": lambda s: s.replace(
-            "kb + key * a.k_sl + 8 * piece, true);", "kb + key * a.k_sl + 8 * piece, false);"
-        ).replace("vb + key * a.v_sl + 8 * piece, true);", "vb + key * a.v_sl + 8 * piece, false);"),
-        "stages-1": _stages(1),
-        "min-blocks-2": lambda s: s.replace("DQ_MIN_BLOCKS = 3;", "DQ_MIN_BLOCKS = 2;"),
-        "no-walk": lambda s: s.replace("if (h < a.H) {\n      const __nv_bfloat16* st = ring",
-                                       "if (h < 0) {\n      const __nv_bfloat16* st = ring"),
-        "no-mask": lambda s: s.replace("const bool on = kj < a.Lk && arow[kj];",
-                                       "const bool on = kj < a.Lk && arow[kj] == 7;"),
-        "no-second-walk": lambda s: s.replace("for (int pass = 0; pass < 2; ++pass)",
-                                              "for (int pass = 0; pass < 1; ++pass)"),
+        "no-kv-load": _edits(   # dQ and forward: the keys' k and v copies
+            ("kb + key * a.k_sl + 8 * piece, true);", "kb + key * a.k_sl + 8 * piece, false);"),
+            ("vb + key * a.v_sl + 8 * piece, true);", "vb + key * a.v_sl + 8 * piece, false);")),
+        "no-chunk-load": _edits(   # forward and dK/dV: the listed rows' copies
+            ("cp_async16(dst + j * ld + e, xs + e, in);",
+             "cp_async16(dst + j * ld + e, xs + e, false);"),
+            ("cp_async16(dst + (CK + j) * ld + e, ys + e, in);",
+             "cp_async16(dst + (CK + j) * ld + e, ys + e, false);")),
+        "stages-1": _edits(("constexpr int STAGES = 2;", "constexpr int STAGES = 1;"),
+                           ("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 1;"),
+                           ("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 1;")),
+        "min-blocks-2": _edits(("DQ_MIN_BLOCKS = 3;", "DQ_MIN_BLOCKS = 2;")),
+        "stages-3": _edits(("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 3;"),
+                           ("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;")),
+        "stages-4": _edits(("constexpr int FWD_STAGES = 2;", "constexpr int FWD_STAGES = 4;"),
+                           ("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 4;")),
+        "fewer-blocks": _edits(("FWD_MIN_BLOCKS = 3;", "FWD_MIN_BLOCKS = 2;"),
+                               ("DKV_STAGED_MIN_BLOCKS = 3;", "DKV_STAGED_MIN_BLOCKS = 2;")),
+        "more-blocks": _edits(("FWD_MIN_BLOCKS = 3;", "FWD_MIN_BLOCKS = 4;"),
+                              ("DKV_STAGED_MIN_BLOCKS = 3;", "DKV_STAGED_MIN_BLOCKS = 4;")),
+        "heads-4": _edits(("constexpr int HG = 2;", "constexpr int HG = 4;")),
+        "parts-swap": _edits(("constexpr int FWD_PARTS = 4;", "constexpr int FWD_PARTS = 2;"),
+                             ("constexpr int DKV_PARTS = 2;", "constexpr int DKV_PARTS = 4;"),
+                             ("FWD_MIN_BLOCKS = 3;", "FWD_MIN_BLOCKS = 4;"),
+                             ("DKV_STAGED_MIN_BLOCKS = 3;", "DKV_STAGED_MIN_BLOCKS = 2;")),
+        "no-walk": _edits(
+            ("if (h < a.H) {\n      const __nv_bfloat16* st = ring",
+             "if (h < 0) {\n      const __nv_bfloat16* st = ring"),
+            ("if (live) {\n      // this warp's k-steps of S:", "if (false) {\n      // this warp's k-steps of S:"),
+            ("if (live) {\n      float s[4] = {0.f, 0.f, 0.f, 0.f};  // the head's S",
+             "if (false) {\n      float s[4] = {0.f, 0.f, 0.f, 0.f};  // the head's S"),
+            ("if (live) {\n      // this warp's k-steps of S^T", "if (false) {\n      // this warp's k-steps of S^T"),
+            ("if (live) {\n      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4]",
+             "if (false) {\n      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4]")),
+        "no-list": _edits(   # forward and dK/dV: no row allowed (the mask read, nothing listed)
+            ("          if (r < nrows) bits |= (arow", "          if (r < 0) bits |= (arow"),
+            ("          if (r < nrows) bits |= (acol", "          if (r < 0) bits |= (acol")),
+        "no-mask": _edits(("[&](int kj) { return (unsigned)arow[kj]; }",
+                           "[&](int kj) { return (unsigned)(arow[kj] == 7); }")),
+        "no-second-walk": _edits(("for (int pass = 0; pass < 2; ++pass)",
+                                  "for (int pass = 0; pass < 1; ++pass)")),
     },
 }
-# the dQ routes each masked_attention variant is timed on
+# the attention kernels each masked_attention variant is timed on, and the
+# dQ routes
+ATTENTION_KINDS = {"kernel": ("dq", "fwd", "dkv"), "no-kv-load": ("dq",),
+                   "no-chunk-load": ("fwd", "dkv"), "stages-1": ("dq", "fwd", "dkv"),
+                   "min-blocks-2": ("dq",), "fewer-blocks": ("fwd", "dkv"),
+                   "more-blocks": ("fwd", "dkv"),
+                   "stages-3": ("fwd", "dkv"), "stages-4": ("fwd", "dkv"),
+                   "heads-4": ("fwd", "dkv"), "parts-swap": ("fwd", "dkv"),
+                   "no-walk": ("dq", "fwd", "dkv"), "no-mask": ("dq",), "no-list": ("fwd", "dkv"),
+                   "no-second-walk": ("dq",)}
 DQ_ROUTES = {"kernel": ("staged", "per-element"), "no-second-walk": ("per-element",)}
 ROI_MAP, ROIS_PER_FRAME, ROI_OUT = (32, 38, 64, 1024), 300, (14, 14)
 DQ_SHAPES = ((96, 96), (192, 192), (192, 192), (96, 192))   # (Lq, Lk), one train step
@@ -187,7 +253,9 @@ def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> lis
     if "roi_align" in kernels:
         _run_roi_align(add, dev, iters, clock, stream)
     if "masked_attention" in kernels:
-        _run_dq(add, dev, iters, clock, stream)
+        libs = build("masked_attention")
+        _run_dq(libs, add, dev, iters, clock, stream)
+        _run_fwd_dkv(libs, add, log, dev, iters, clock, stream)
     return rows
 
 
@@ -297,9 +365,8 @@ def dq_inputs(lq, lk, dev, seed=0):
     return q, k, v, gout, allow, seeds, lse, scale
 
 
-def _run_dq(add, dev, iters, clock, stream):
+def _run_dq(libs, add, dev, iters, clock, stream):
     from ..ops import masked_attention as ma
-    libs = build("masked_attention")
     totals = {}
     for lq, lk in DQ_SHAPES:
         q, k, v, gout, allow, seeds, lse, scale = dq_inputs(lq, lk, dev)
@@ -313,11 +380,10 @@ def _run_dq(add, dev, iters, clock, stream):
         if ma.dq_route(q, k, v, gout) != "staged":
             raise RuntimeError("the train shapes no longer take the staged dQ route")
         runs = [(f"{key} {route}", getattr(lib, ma._DQ_ENTRY[route]))
-                for key, lib in libs.items() for route in DQ_ROUTES.get(key, ("staged",))]
+                for key, lib in libs.items() if "dq" in ATTENTION_KINDS[key]
+                for route in DQ_ROUTES.get(key, ("staged",))]
         for key, fn in runs:
-            fn.argtypes = ([I] + [P] * 9 + [I] * 5 + [ctypes.c_longlong] * 8
-                           + [ctypes.c_float, ctypes.c_uint32, ctypes.c_float, P])
-            fn.restype = I
+            fn.argtypes, fn.restype = ma.entry_argtypes(fn.__name__), I
             args = (1, q.data_ptr(), k.data_ptr(), v.data_ptr(), gout.data_ptr(),
                     allow.contiguous().data_ptr(), lse.data_ptr(), seeds.data_ptr(),
                     dq.data_ptr(), r.data_ptr(), B, lq, lk, H, D, q.stride(0), q.stride(1),
@@ -333,6 +399,108 @@ def _run_dq(add, dev, iters, clock, stream):
             totals[key] = totals.get(key, 0.0) + t
     for key, t in totals.items():
         add("bwd dQ, the 4 calls of a step", key, t, "ms")
+
+
+def path_masks(dev, B: int = DQ_B) -> dict:
+    """The train step's masks on a synthetic batch (32 frames, 3 relations
+    a frame, 96 relation slots), built from its im_idx and rel_mask as
+    models/sttran.py builds them: {(96, 96): same frame, (192, 192): same
+    window of the duplicated streams, (96, 192): the last decoder layer's
+    queries against the windows}."""
+    from ..data.entry import stack_entries
+    from ..data.synthetic import make_synthetic_entry
+    rng = np.random.default_rng(0)
+    batch = stack_entries([make_synthetic_entry(rng, n_frames=32, objs_per_frame=3,
+                                                bucket_boxes=128, bucket_rels=96, feat_dim=8)
+                           for _ in range(B)])
+    im, rm = batch.im_idx.to(dev).long(), batch.rel_mask.to(dev)
+
+    def pairs(a, b):
+        return a[:, :, None] & b[:, None, :]
+
+    window = torch.cat([im, im - 1], -1)
+    last = torch.where(rm, im, 0).amax(-1, keepdim=True) - 1
+    valid = torch.cat([rm & (im <= last), rm & (im >= 1)], -1)
+    is0 = im == 0
+    q_window = torch.where(is0, im, im - 1)
+    q_valid = torch.where(is0, rm & (im <= last), rm & (im >= 1))
+    return {(96, 96): (im[:, :, None] == im[:, None, :]) & pairs(rm, rm),
+            (192, 192): (window[:, :, None] == window[:, None, :]) & pairs(valid, valid),
+            (96, 192): (q_window[:, :, None] == window[:, None, :]) & pairs(q_valid, valid)}
+
+
+def _run_fwd_dkv(libs, add, log, dev, iters, clock, stream):
+    """The train forward (dropout 0.1 and lse) and dK/dV at the train step's
+    four shapes on two mask sets, path-like (`path_masks`) and random 3%,
+    summed over the four calls: each variant on the staged route, the
+    committed kernel also on the per-element route (the first kernels),
+    and the eval forward (no lse, no dropout) beside them."""
+    from ..ops import masked_attention as ma
+    paths = path_masks(dev)
+    thr, keep = ma.drop_threshold(DQ_RATE), 1.0 / (1.0 - DQ_RATE)
+    for masks in ("path-like", "random 3%"):
+        totals = {}
+        for lq, lk in DQ_SHAPES:
+            q, k, v, gout, allow, seeds, _, scale = dq_inputs(lq, lk, dev)
+            if masks == "path-like":
+                allow = paths[lq, lk]
+            _, lse = ma.masked_mha_forward(q, k, v, allow, scale, DQ_RATE, seeds)
+            _, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, DQ_RATE, seeds)
+            allow_t = allow.transpose(1, 2).contiguous()
+            B, _, H, D = q.shape
+            if ma.fwd_route(q, k, v) != "staged" or ma.dkv_route(q, k, v, gout) != "staged":
+                raise RuntimeError("the train shapes no longer take the staged routes")
+            out = torch.empty(B, lq, H, D, device=dev, dtype=q.dtype)
+            lse_o = torch.empty(B, H, lq, device=dev)
+            dk = torch.empty(B, lk, H, D, device=dev, dtype=q.dtype)
+            dv = torch.empty_like(dk)
+            sizes = (B, lq, lk, H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                     v.stride(0), v.stride(1))
+            fwd = lambda sd, ls: (1, q.data_ptr(), k.data_ptr(), v.data_ptr(),  # noqa: E731
+                                  allow.data_ptr(), sd, out.data_ptr(), ls, *sizes, scale,
+                                  thr, keep)
+            dkv = (1, q.data_ptr(), k.data_ptr(), v.data_ptr(), gout.data_ptr(),
+                   allow_t.data_ptr(), lse.data_ptr(), r.data_ptr(), seeds.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), *sizes, gout.stride(0), gout.stride(1), scale,
+                   thr, keep)
+            el = B * H * D * 2
+            nbytes = (2 * lq + 2 * lk) * el + allow.numel()
+            pairs_ops = H * D * float(allow.sum())
+            for kind, nb, ops in (("fwd", nbytes + B * H * lq * 4, 4 * pairs_ops),
+                                  ("dkv", nbytes + 2 * lk * el + 2 * B * H * lq * 4,
+                                   8 * pairs_ops)):
+                bound, by = timing.bound_s(nb, ops, q.dtype)
+                totals[kind, f"bound ({by})"] = totals.get((kind, f"bound ({by})"), 0.0) + bound
+            runs = []
+            for key, lib in libs.items():
+                kinds = ATTENTION_KINDS[key]
+                if "fwd" in kinds:
+                    runs.append(("fwd", f"{key} staged", lib.masked_mha_fwd_staged,
+                                 fwd(seeds.data_ptr(), lse_o.data_ptr())))
+                if "dkv" in kinds:
+                    runs.append(("dkv", f"{key} staged", lib.masked_mha_bwd_dkv_staged, dkv))
+                if key == "kernel":
+                    runs += [("fwd", "kernel per-element", lib.masked_mha_fwd,
+                              fwd(seeds.data_ptr(), lse_o.data_ptr())),
+                             ("fwd eval", "kernel staged", lib.masked_mha_fwd_staged,
+                              fwd(None, None)),
+                             ("fwd eval", "kernel per-element", lib.masked_mha_fwd,
+                              fwd(None, None)),
+                             ("dkv", "kernel per-element", lib.masked_mha_bwd_dkv, dkv)]
+            for kind, key, fn, args in runs:
+                fn.argtypes, fn.restype = ma.entry_argtypes(fn.__name__), I
+                if fn(*args, stream):
+                    log(f"  {kind} {lq}x{lk} {masks}: {key} does not launch (shared memory)")
+                    continue
+
+                def call(fn=fn, args=(*args, stream), key=key):
+                    if fn(*args):
+                        raise RuntimeError(f"{fn.__name__} variant {key} failed to launch")
+                t = timing.timed_delta(call, iters, clock).device_s
+                add(f"{kind} {lq}x{lk} {masks}", key, t, "ms")
+                totals[kind, key] = totals.get((kind, key), 0.0) + t
+        for (kind, key), t in totals.items():
+            add(f"{kind}, the 4 calls of a step, {masks}", key, t, "ms")
 
 
 def main(argv=None) -> None:

@@ -217,6 +217,102 @@ def test_dq_routes_match_plain_on_gpu(gpu, case, L, H, D, pad, route, rate):
     assert (dq[:, 4::9] == 0).all()
 
 
+def path_mask(B, lq, lk, device):
+    """The path's mask structure: query i in frame i // 3, key j in window
+    (j // 3) mod ceil(lq / 3), allowed when the two agree (the spatial
+    mask at lq = lk, windows of two frames' keys at lk = 2 lq, queries with
+    no window at lq > lk)."""
+    fq = torch.arange(lq, device=device) // 3
+    fk = (torch.arange(lk, device=device) // 3) % -(-lq // 3)
+    return (fq[:, None] == fk[None, :]).expand(B, lq, lk).clone()
+
+
+def _attention_case(gen, lq, lk, H, D, pad, mask, rate):
+    """q from a fused (B, lq, 3 H D + pad) bf16 projection, k and v from a
+    (B, lk, ...) one (column blocks, `pad` elements off 16 bytes), g, the
+    mask ("frames": `path_mask`; "random": 3% with some query rows fully
+    allowed, some empty, and some key columns empty) and the seeds."""
+    B, E = 4, H * D
+    xq = torch.randn(B, lq, 3 * E + pad, device="cuda", generator=gen).bfloat16()[..., pad:]
+    xk = torch.randn(B, lk, 3 * E + pad, device="cuda", generator=gen).bfloat16()[..., pad:]
+    q = xq[..., :E].unflatten(-1, (H, D))
+    k, v = (xk[..., i * E:(i + 1) * E].unflatten(-1, (H, D)) for i in (1, 2))
+    gout = torch.randn(B, lq, H, D, device="cuda", generator=gen).bfloat16()
+    if mask == "frames":
+        allow = path_mask(B, lq, lk, "cuda")
+    else:
+        allow = torch.rand(B, lq, lk, device="cuda", generator=gen) < 0.03
+        allow[:, ::9] = True
+        allow[:, 4::9] = False
+        allow[:, :, 5::11] = False
+    seeds = torch.tensor([5, -6, 7, 8], dtype=torch.int32, device="cuda") if rate else None
+    return q, k, v, gout, allow, seeds
+
+
+_ROUTE_CASES = [
+    ("frames-96x96", 96, 96, 8, 242, 0, "frames", "staged"),
+    ("frames-192x192", 192, 192, 8, 242, 0, "frames", "staged"),
+    ("frames-96x192", 96, 192, 8, 242, 0, "frames", "staged"),
+    ("frames-192x96", 192, 96, 8, 242, 0, "frames", "staged"),
+    ("random-192x192", 192, 192, 8, 242, 0, "random", "staged"),
+    ("random-97x101", 97, 101, 8, 242, 0, "random", "staged"),
+    ("random-1x5", 1, 5, 8, 242, 0, "random", "staged"),
+    ("3-heads-of-64", 96, 96, 3, 64, 0, "random", "staged"),
+    ("misaligned-view", 96, 96, 8, 242, 1, "random", "per-element"),
+    ("odd-D", 97, 96, 8, 241, 0, "random", "per-element"),
+    ("3-heads-of-242", 96, 96, 3, 242, 0, "random", "per-element")]
+
+
+@pytest.mark.parametrize("case,lq,lk,H,D,pad,mask,route", _ROUTE_CASES)
+@pytest.mark.parametrize("rate,with_lse", [(0.0, False), (0.0, True), (0.1, False), (0.1, True)])
+def test_fwd_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route, rate,
+                                       with_lse):
+    """The forward on the route the wrapper picks, eval (no lse) and train
+    (lse), dropout off and on: out to one bf16 ulp, lse to 2e-4 + 1e-5
+    |ref|, rows with no allowed key exactly 0 and LSE_EMPTY, one launch."""
+    q, k, v, _, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate)
+    assert ma.fwd_route(q, k, v) == route
+    scale = D ** -0.5
+    ma.reset_launches()
+    out, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, seeds, with_lse)
+    torch.cuda.synchronize()
+    assert ma.LAUNCHES["fwd"] == 1
+    ref = ma.masked_mha_reference(q, k, v, allow, scale, rate, seeds)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    empty = ~allow.any(-1)
+    assert (out[empty] == 0).all()
+    if with_lse:
+        ref_lse = ma.masked_mha_lse_reference(q, k, allow, scale)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=2e-4)
+        assert (lse.transpose(1, 2)[empty] == ma.LSE_EMPTY).all()
+    else:
+        assert lse is None
+
+
+@pytest.mark.parametrize("case,lq,lk,H,D,pad,mask,route", _ROUTE_CASES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_dkv_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route, rate):
+    """The dK/dV kernel on the route the wrapper picks, dropout off and on,
+    from the dQ kernel's r: dk and dv to one bf16 ulp, key rows no query
+    may see exactly 0, one launch."""
+    q, k, v, gout, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate)
+    assert ma.dkv_route(q, k, v, gout) == route
+    scale = D ** -0.5
+    _, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, seeds)
+    _, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, seeds)
+    ma.reset_launches()
+    dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow.transpose(1, 2).contiguous(), scale, gout,
+                                   lse, r, rate, seeds)
+    torch.cuda.synchronize()
+    assert ma.LAUNCHES["bwd_dkv"] == 1
+    ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, scale, gout, r, rate,
+                                                     seeds)
+    torch.testing.assert_close(dk.float(), ref_dk.float(), rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(dv.float(), ref_dv.float(), rtol=2 ** -7, atol=1e-3)
+    unseen = ~allow.any(1)
+    assert (dk[unseen] == 0).all() and (dv[unseen] == 0).all()
+
+
 @pytest.mark.parametrize("N,H,W,C", [(2, 152, 256, 256), (2, 76, 128, 512), (3, 38, 64, 1024),
                                      (300, 7, 7, 2048), (5, 9, 13, 256),
                                      (1201, 7, 7, 2048),     # crops not a multiple of the tile's 5
