@@ -72,16 +72,19 @@ Phases, in order; any failure exits non-zero before the result line:
      a torch.profiler table of one bf16 `detect_video`;
  10. the probe path (`nl_vsgg_tpu_torch.tools.probe_overhead` and
      `probe_ablate`): its four kernels against their plain versions at the
-     probes' full shapes (the copy exact in float32 and bfloat16 at 1, 8 and
-     an SM-filling grid of blocks; the (M, 128) @ (128, 128) mma kernel at
-     M = 20480, 1000, 4255, 5 and 1, and every conv variant at every tile
-     size in bfloat16 to KERNEL_TOL on the (8, 40, 64, 1024) stage-4 input;
-     `full` and `bt-full` in float32 against cuDNN's groups-8 conv to 1e-5
-     of its largest magnitude), then
-     both probe entry points with small `--iters`, the launch counts set to
-     0 just before and read just after (each kernel's count equal to the
-     calls its rows made); the three copies' times beside their bounds and
-     `x * 2`;
+     probes' full shapes (the copy exact in float32 and bfloat16 at (256,
+     128), (8, 40, 64, 128), (1001,) and (1,) as 1, 8 and 3 units; the (M,
+     128) @ (128, 128) mma kernel at M = 20480, 1000, 4255, 5 and 1, and
+     every conv variant at every tile size in bfloat16 to KERNEL_TOL on the
+     (8, 40, 64, 1024) stage-4 input; `full` and `bt-full` in float32
+     against cuDNN's groups-8 conv to 1e-5 of its largest magnitude), the
+     packed conv's edges (`ABLATE_EDGES` and H = 38 with tiles that do not
+     divide its parts, every variant and layout, route printed; misaligned
+     storage refused), then both probe entry points with small `--iters`,
+     the launch counts set to 0 just before and read just after (each
+     kernel's count equal to the calls its rows made), every copy and conv
+     row on the new route (printed); the three copies' times beside their
+     bounds and `x * 2` on each row's own input;
  11. the `kernels` JSON line, then the device JSON line, last.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
@@ -794,6 +797,55 @@ def detector_phases(dev, card) -> list[dict]:
 
 # ------------------------------------------------------------------ probes
 PROBE_ITERS = {"overhead": 20, "ablate": 5}
+# the packed conv's edges, as tests/test_torch_kernels_gpu.py: (tile_rows, W,
+# route) at H = 7 (no tile above 1 row divides it): the ring at 64 to 256
+# pixels a tile, the tile route where the ring refuses (32 or 96 pixels; 256
+# pixels of W = 128, whose row ring does not fit shared memory)
+ABLATE_EDGES = ((1, 64, "ring"), (2, 64, "ring"), (3, 64, "ring"), (4, 64, "ring"),
+                (2, 32, "ring"), (8, 32, "ring"), (1, 128, "ring"), (2, 128, "tile"),
+                (1, 32, "tile"), (3, 32, "tile"), (4, 32, "ring"))
+
+
+def ablate_edge_checks(ga, g, dev) -> None:
+    """Phase 10's packed-conv edges: every variant and layout against its
+    plain version (KERNEL_TOL) on the route `kernel_plan` picks, at
+    ABLATE_EDGES and at the probe's H = 38 (parts of 19 rows) with tiles of
+    2, 3 and 4 rows; storage 2 bytes off 16-byte alignment refused on both
+    routes."""
+    import torch
+    probe_h = ((2, 64, "ring"), (3, 64, "ring"), (4, 64, "ring"))
+    for (N, Hx, C), cases in (((2, 9, 512), ABLATE_EDGES), ((1, 40, 256), probe_h)):
+        for th, W, route in cases:
+            x = torch.randn(N, Hx, W, C, generator=g, device=dev).bfloat16()
+            w = (torch.randn(3, 3, 128, C, generator=g, device=dev) * 0.05).bfloat16()
+            xt, wt = ga.to_block_major(x, w)
+            got = (ga.route(x, th), ga.route(xt, th, block_major=True))
+            if got != (route, route):
+                fail(f"grouped_conv_ablate rows{th} W={W} took routes {got}, expected {route}")
+            worst = 0.0
+            for v in ga.VARIANTS + ga.BT_VARIANTS:
+                bt = v in ga.BT_VARIANTS
+                out = (ga.grouped_conv_ablate_bt(xt, wt, v, th) if bt
+                       else ga.grouped_conv_ablate(x, w, v, th))
+                torch.cuda.synchronize()
+                ref = (ga.grouped_conv_ablate_bt_reference(xt, wt, v) if bt
+                       else ga.grouped_conv_ablate_reference(x, w, v))
+                err, ok = kernel_err(out, ref)
+                worst = max(worst, err)
+                if not ok:
+                    fail(f"{v} rows{th} at ({N}, {Hx}, {W}, {C}) on the {route} route disagrees "
+                         f"with its plain version (max_abs_err {err:.3e})")
+            log(f"grouped_conv_ablate edge ({N}, {Hx}, {W}, {C}) rows{th}: route {route}, every "
+                f"variant and layout max_abs_err {worst:.3e}")
+    flat = torch.randn(1 + 2 * 12 * 32 * 128, generator=g, device=dev).bfloat16()
+    w = torch.zeros(3, 3, 128, 128, device=dev, dtype=torch.bfloat16)
+    for th in (1, 2):                          # the tile route, then the ring
+        try:
+            ga.grouped_conv_ablate(flat[1:].view(2, 12, 32, 128), w, "full", th)
+        except ValueError:
+            continue
+        fail(f"grouped_conv_ablate took storage off 16-byte alignment at rows{th}")
+    log("grouped_conv_ablate: storage off 16-byte alignment refused on both routes")
 
 
 def probe_phases(dev, card) -> list[dict]:
@@ -813,18 +865,18 @@ def probe_phases(dev, card) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(4)
     errs = {"probe_copy": 0.0, "probe_matmul": 0.0, "grouped_conv_ablate": 0.0,
             "grouped_conv_ablate_bt": 0.0}
-    fill = (torch.cuda.get_device_properties(dev).multi_processor_count
-            * probe_overhead.BLOCKS_PER_SM)
-    for shape in ((256, 128), (8, 40, 64, 128), (1001,)):   # (1001,): a tail past the vectors
+    # the copy at the probes' shapes, a tail past the vectors (1001) and one
+    # element, at the probes' unit counts (1, 8) and an uneven 3
+    for shape in ((256, 128), (8, 40, 64, 128), (1001,), (1,)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
-            for blocks in (1, 8, fill):
-                y = pc.probe_copy(x, blocks)
+            for units in (1, 8, 3):
+                y = pc.probe_copy(x, units)
                 torch.cuda.synchronize()
                 if not torch.equal(y, pc.probe_copy_reference(x)):
-                    fail(f"probe_copy differs from x * 2 at {shape} {dtype} blocks={blocks}")
-    log(f"probe_copy: exact (x * 2) at (256, 128), (8, 40, 64, 128), (1001,) in float32 and "
-        f"bfloat16 with 1, 8 and {fill} blocks")
+                    fail(f"probe_copy differs from x * 2 at {shape} {dtype} units={units}")
+    log("probe_copy: exact (x * 2) at (256, 128), (8, 40, 64, 128), (1001,), (1,) in float32 "
+        "and bfloat16 as 1, 8 and 3 units")
 
     w = (torch.randn(128, 128, generator=g, device=dev) * 0.05).bfloat16()
     for m in (20480, 1000, 4255, 5, 1):   # 4255: a ragged last 32-row tile
@@ -878,6 +930,7 @@ def probe_phases(dev, card) -> list[dict]:
             log(f"grouped_conv_ablate bf16 ({N}, {Hc + 2}, {Wc}, {C}) rows{th}: max_abs_err "
                 + ", ".join(line))
     del x32, w32, x, w, xt, wt, refs, ref, out
+    ablate_edge_checks(ga, g, dev)
 
     # the probe path: both entry points, launch counts from 0
     pc.reset_launches()
@@ -894,6 +947,14 @@ def probe_phases(dev, card) -> list[dict]:
     if got != want or not all(got.values()):
         fail(f"probe launches {got}, expected {want} (each kernel's count equal to the calls "
              f"its rows made, none zero)")
+    new_route = {"probe_copy": pc.ROUTE, "grouped_conv_ablate": "ring",
+                 "grouped_conv_ablate_bt": "ring"}
+    routes = {r["name"]: r["route"] for r in over + abl if r["kernel"] in new_route}
+    log(f"probe rows' routes: {routes}")
+    off = [r["name"] for r in over + abl
+           if r["kernel"] in new_route and r["route"] != new_route[r["kernel"]]]
+    if off:
+        fail(f"probe rows off the new routes: {off}")
 
     # plain versions timed on the probes' main inputs
     rows = {r["name"]: r for r in over + abl}
@@ -939,10 +1000,21 @@ def probe_phases(dev, card) -> list[dict]:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
 
-    slab, mm = rows["slab-copy"], rows["mm-kernel"]
+    # the copy's row: the three probe rows summed, each beside x * 2 on its
+    # own input (the plain version and the library call)
+    copies = [(name, rows[name], pl) for name, pl in
+              (("tiny-copy", tiny_pl), ("slab-copy", copy_pl), ("slab-copy-g8", copy_pl))]
+    copy_row = row("probe_copy", "tools/probe_pallas_overhead.py:67",
+                   sum(r["device_us"] for _, r, _ in copies) / 1e3,
+                   sum(pl for _, _, pl in copies), sum(r["bound_us"] for _, r, _ in copies) / 1e3,
+                   "bytes", sum(pl for _, _, pl in copies))
+    copy_row["rows"] = [{"name": name, "replaces": f"tools/probe_pallas_overhead.py:{line}",
+                         "ms": r["device_us"] / 1e3, "x2_ms": pl, "bound_ms": r["bound_us"] / 1e3,
+                         "calls": r["calls"]}
+                        for (name, r, pl), line in zip(copies, (67, 75, 84))]
+    mm = rows["mm-kernel"]
     return [
-        row("probe_copy", "tools/probe_pallas_overhead.py:75", slab["device_us"] / 1e3, copy_pl,
-            slab["bound_us"] / 1e3, slab["bound_by"], copy_pl),   # x * 2 is the library call
+        copy_row,
         row("probe_matmul", "tools/probe_pallas_overhead.py:105", mm["device_us"] / 1e3, mm_pl,
             mm["bound_us"] / 1e3, mm["bound_by"], rows["mm-torch"]["device_us"] / 1e3),
         row("grouped_conv_ablate", "tools/probe_pallas_ablate.py:87", full["device_ms"], full_pl,

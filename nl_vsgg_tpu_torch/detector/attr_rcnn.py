@@ -77,9 +77,11 @@ def video_bucket_hw(frame_images_bgr) -> tuple[int, int]:
 
 
 def preprocess(image_bgr: np.ndarray, bucket_hw: tuple[int, int] | None = None,
-               device: str | torch.device = "cpu"):
+               device: str | torch.device | None = None):
     """BGR uint8 (H, W, 3) -> (padded float32 (Hb, Wb, 3) on `device`,
-    box_scale (4,) numpy [sx, sy, sx, sy], (new_h, new_w))."""
+    box_scale (4,) numpy [sx, sy, sx, sy], (new_h, new_w)). `device=None`
+    is the GPU (`resolve_device`); pass "cpu" for the CPU."""
+    device = resolve_device(device)
     h, w = image_bgr.shape[:2]
     nh, nw = resize_hw(h, w)
     img = torch.as_tensor(np.ascontiguousarray(image_bgr), device=device)

@@ -1,6 +1,6 @@
 """The packed grouped 3x3 conv of the ablation probe and its ablation
 variants: the CUDA kernels' wrappers (`csrc/grouped_conv_ablate.cu`,
-mma.sync on the tensor cores) and their plain versions.
+wgmma and mma.sync on the tensor cores) and their plain versions.
 
 Port of tools/probe_pallas_ablate.py (`make`, NHWC, and `make_bt`,
 block-major). Groups of the stage-4 conv are packed block-diagonally into
@@ -29,8 +29,14 @@ blk(o) = o // 128 and xp zero outside [0, W) along W, the variants are
               out[n,h,w,o] = sum_i xp[n, h+1, w, blk(o)*128+i] w[1, 1, i, o].
 
 The probe's `tn` (images a grid step) has no meaning for a Hopper block; the
-kernel's tile of output rows, `tile_rows`, takes its place (the kernel needs
-tile_rows * W a multiple of 32 and at most 256). The sums are float32 and
+kernel's tile of output rows, `tile_rows`, takes its place. `kernel_plan`
+says what a launch uses and which route the kernel takes, from dtype and
+shape alone: "ring" (bf16, tile_rows * W a multiple of 64 and at most 256,
+W a multiple of 8: persistent blocks that walk the row tiles of one image
+and super-group, input rows staged once, tap weights through a ring of
+tensor copies, products on wgmma) or "tile" (float32, and bf16 tiles the
+ring refuses: tile_rows * W a multiple of 32 and at most 256; the first
+design). Storage must be 16-byte aligned on both. The sums are float32 and
 the output is in x's type. `to_block_major` / `from_block_major` are the
 probe's layout changes (`probe_pallas_ablate.py:133-134`, `:154`).
 
@@ -54,7 +60,12 @@ BT_VARIANTS = ("bt-full", "bt-mm1")
 ADD = 0.001
 _CODES = {"full": 0, "mm-only": 1, "mm1-only": 2, "add-only": 3, "bt-full": 0, "bt-mm1": 4}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"tile": 0, "ring": 1}
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+WG_PIXELS = 64            # csrc WG_PIXELS: output pixels a warpgroup
+RING_MAX_PIXELS = 256     # RING_MAX_PIXELS: output pixels a tile
+PIXEL_BYTES = 2 * CB      # a staged pixel or weight row, bf16
+MAX_W_STAGES = 3          # tap weight slots of the ring where shared memory allows, else 2
 
 LAUNCHES = {"grouped_conv_ablate": 0, "grouped_conv_ablate_bt": 0}
 
@@ -146,38 +157,97 @@ def grouped_conv_ablate_bt_reference(xt: torch.Tensor, wt: torch.Tensor,
 
 
 def smem_bytes(dtype: torch.dtype, tile_rows: int, W: int) -> int:
-    """Shared memory of one kernel block: one tap's weights and the
+    """Shared memory of one "tile" block: one tap's weights and the
     tile_rows + 2 staged input rows of W + 2 columns, rows padded by 16 bytes."""
     el = 2 if dtype == torch.bfloat16 else 4
     ps = CB + 16 // el
     return el * ps * (CB + (tile_rows + 2) * (W + 2))
 
 
-def _launch(x, w, variant, tile_rows, block_major):
+def ring_smem_bytes(tile_rows: int, W: int, stages: int) -> int:
+    """Shared memory of one "ring" block (csrc ring_smem): `stages` tap slots
+    of 32 KB, 2 tile_rows + 2 input row slots of W pixels x 256 bytes, a
+    256-byte zero row (the W halo), a full and an empty barrier a slot and
+    two for the tiles' rows."""
+    return (stages * CB * PIXEL_BYTES + (2 * tile_rows + 2) * W * PIXEL_BYTES + PIXEL_BYTES
+            + (2 * stages + 2) * 8)
+
+
+def ring_stages(tile_rows: int, W: int) -> int:
+    """The ring's tap slots: MAX_W_STAGES where they fit, else 2."""
+    return MAX_W_STAGES if ring_smem_bytes(tile_rows, W, MAX_W_STAGES) <= SMEM_LIMIT else 2
+
+
+def kernel_plan(dtype: torch.dtype, N: int, H: int, W: int, C: int, tile_rows: int,
+                sms: int) -> dict:
+    """What one launch uses at output (N, H, W, C) with `tile_rows` output
+    rows a tile on a card of `sms` SMs: {"route", "tile_rows", "threads",
+    "stages", "smem", "grid", "parts", "rows_per_part", "tiles"}. The ring
+    takes bf16 with tile_rows * W a multiple of 64, at most 256, W a
+    multiple of 8 (its rows are 128-byte swizzled tensor-copy boxes), within
+    the shared-memory limit at 2 tap slots: `parts` blocks for each image
+    and super-group (SMs over images x super-groups, at least 1, at most
+    H), each walking ceil(H / parts) output rows in tiles of tile_rows; a
+    warpgroup (wgmma) a 64 pixels; `stages` its row and tap slots (3 tap
+    slots where they fit, 2 for the one-tap variants). Otherwise the tile
+    route: a block a tile, 2 threads a pixel. Raises ValueError for what
+    neither takes."""
     if tile_rows < 1:
         raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
+    if N < 1 or H < 1 or W < 1 or C < CB or C % CB:
+        raise ValueError(f"expected N, H, W >= 1 and C a multiple of {CB}, got "
+                         f"{(N, H, W, C)}")
+    nb, pixels = C // CB, tile_rows * W
+    if (dtype == torch.bfloat16 and pixels % WG_PIXELS == 0 and pixels <= RING_MAX_PIXELS
+            and W % 8 == 0 and ring_smem_bytes(tile_rows, W, 2) <= SMEM_LIMIT):
+        parts = max(1, min(H, sms // (N * nb)))
+        rows = -(-H // parts)
+        parts = -(-H // rows)                      # no part left empty
+        stages = ring_stages(tile_rows, W)
+        return {"route": "ring", "tile_rows": tile_rows, "threads": 2 * pixels,
+                "stages": {"rows": 2 * tile_rows + 2, "taps": stages},
+                "smem": ring_smem_bytes(tile_rows, W, stages), "grid": (parts, N, nb),
+                "parts": parts, "rows_per_part": rows,
+                "tiles": parts * N * nb * -(-rows // tile_rows)}
+    if pixels % 32 or pixels > 256:
+        raise ValueError(f"the kernel needs tile_rows * W a multiple of 32 (of 64 for the "
+                         f"bf16 ring) and at most 256, got tile_rows={tile_rows}, W={W}")
+    smem = smem_bytes(dtype, tile_rows, W)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"tile_rows={tile_rows} at W={W} in {dtype} needs {smem} bytes of "
+                         f"shared memory, more than a block's {SMEM_LIMIT}")
+    tiles = -(-H // tile_rows)
+    return {"route": "tile", "tile_rows": tile_rows, "threads": 2 * pixels,
+            "stages": {"rows": tile_rows + 2, "taps": 1}, "smem": smem,
+            "grid": (tiles, N, nb), "parts": tiles, "rows_per_part": tile_rows,
+            "tiles": tiles * N * nb}
+
+
+def route(x: torch.Tensor, tile_rows: int, block_major: bool = False) -> str:
+    """The route a launch on x takes at `tile_rows` (`kernel_plan`)."""
+    return kernel_plan(x.dtype, *_out_geometry(x, block_major), tile_rows, 1)["route"]
+
+
+def _out_geometry(x, block_major):
     if block_major:
         nb, N, Hx, W, _ = x.shape
-        C = nb * CB
-    else:
-        N, Hx, W, C = x.shape
-    H = Hx - 2
-    if (tile_rows * W) % 32 or tile_rows * W > 256:
-        raise ValueError(f"the kernel needs tile_rows * W a multiple of 32 and at most 256, "
-                         f"got tile_rows={tile_rows}, W={W}")
-    if smem_bytes(x.dtype, tile_rows, W) > SMEM_LIMIT:
-        raise ValueError(f"tile_rows={tile_rows} at W={W} in {x.dtype} needs "
-                         f"{smem_bytes(x.dtype, tile_rows, W)} bytes of shared memory, more "
-                         f"than a block's {SMEM_LIMIT}")
+        return N, Hx - 2, W, nb * CB
+    N, Hx, W, C = x.shape
+    return N, Hx - 2, W, C
+
+
+def _launch(x, w, variant, tile_rows, block_major):
+    N, H, W, C = _out_geometry(x, block_major)
+    plan = kernel_plan(x.dtype, N, H, W, C, tile_rows, _build.sm_count(x.device))
     x, w = x.contiguous(), w.contiguous()
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("grouped_conv_ablate needs 16-byte aligned storage")
     shape = (C // CB, N, H, W, CB) if block_major else (N, H, W, C)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _fn()(_DTYPES[x.dtype], _CODES[variant], int(block_major), x.data_ptr(),
-                   w.data_ptr(), out.data_ptr(), N, H, W, C, tile_rows,
-                   torch.cuda.current_stream().cuda_stream)
+        rc = _fn()(_DTYPES[x.dtype], _CODES[variant], int(block_major), _ROUTES[plan["route"]],
+                   x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, tile_rows,
+                   plan["parts"], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"grouped_conv_ablate kernel launch failed: cudaError {rc}")
     LAUNCHES["grouped_conv_ablate_bt" if block_major else "grouped_conv_ablate"] += 1
@@ -208,6 +278,6 @@ def _fn():
     fn = _build.load("grouped_conv_ablate").grouped_conv_ablate
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, i, i, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [i, i, i, i, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn

@@ -17,6 +17,39 @@ that leaves out work computes a wrong result and is timed only:
   grouped_conv3x3 bf16 at the detector's four classes (the path's N):
     kernel        the committed kernel
     stages-3      a 3-stage input ring in place of 2 (c = 64 does not fit)
+  probe_copy at the launch-overhead probe's rows (tiny-copy (256, 128)
+  fp32 as 1 unit, slab-copy (8, 40, 64, 128) bf16 as 1 unit, slab-copy-g8
+  the same as 8 units), beside `x * 2`:
+    kernel        the committed kernel at its plan's blocks a unit; also
+                  at 1 block a unit (the TPU's grid, one block a grid
+                  step) and at twice the plan's (the blocks-per-unit rows
+                  are launch arguments, not text edits)
+    depth-1       one 16-byte load in flight a thread in place of 2
+    depth-4       four
+    depth-8       eight
+    bulk          1-D bulk async copies (cp.async.bulk, an mbarrier ring)
+                  in place of the loads
+    threads-128   128 threads a block in place of 256
+    empty         the kernel returns at once: the launch alone
+    idx64         64-bit indices where 32 bits would do
+  grouped_conv_ablate bf16 at the ablation probe's geometry ((8, 40, 64,
+  1024) x, 128-channel super-groups), `full` on the ring route at 2, 3 and
+  4 rows a tile and `bt-full` at 4, beside cuDNN's groups-8 conv:
+    kernel        the committed kernel
+    stages-2      2 tap weight slots where 3 fit (4 rows: 2 either way)
+    w-resident    each weight slot copied once and kept: what streaming the
+                  taps' weights costs
+    no-w-load     no weight copies at all
+    no-x-load     no input row copies
+    no-mma        the products left out (the A fragments still loaded)
+    no-a-load     the A fragments made from their address, not loaded
+    no-store      the tile's output not stored (staged in shared memory)
+    tile-body     the ring's launches run the first design's body (one
+                  tile a block, rows staged twice, taps into one buffer,
+                  mma.sync)
+  A variant without its copies computes on stale shared memory and is
+  timed only; the products' power, and so the clocks, may differ on such
+  data, so a difference is an estimate of the left-out part's share.
   roi_align at the detector path's inputs: a (32, 38, 64, 1024) bf16 C4
   map, 300 random rois a frame in frame order, 14x14, S = 2, bf16 out:
     kernel        the committed kernel
@@ -111,6 +144,34 @@ VARIANTS = {
     "grouped_conv": {
         "kernel": lambda s: s,
         "stages-3": _stages(3),
+    },
+    "probe_copy": {
+        "kernel": lambda s: s,
+        "depth-1": _edits(("constexpr int DEPTH = 2;", "constexpr int DEPTH = 1;")),
+        "depth-4": _edits(("constexpr int DEPTH = 2;", "constexpr int DEPTH = 4;")),
+        "depth-8": _edits(("constexpr int DEPTH = 2;", "constexpr int DEPTH = 8;")),
+        "bulk": _edits(("constexpr bool BULK = false;", "constexpr bool BULK = true;")),
+        "threads-128": _edits(("constexpr int THREADS = 256;", "constexpr int THREADS = 128;")),
+        "empty": _edits(("  const Idx v0 = per * (Idx)blockIdx.y, v1 = min(nvec, v0 + per);\n",
+                         "  const Idx v0 = per * (Idx)blockIdx.y, v1 = min(nvec, v0 + per);\n"
+                         "  if (v0 >= 0) return;\n")),
+        "idx64": _edits(("if (n + (long long)(DEPTH + 1)", "if (false && n + (long long)(DEPTH + 1)")),
+    },
+    "grouped_conv_ablate": {
+        "kernel": lambda s: s,
+        "stages-2": _edits(("constexpr int MAX_W_STAGES = 3;", "constexpr int MAX_W_STAGES = 2;")),
+        "w-resident": _edits(("constexpr int W_LOADS = 2;", "constexpr int W_LOADS = 1;")),
+        "no-w-load": _edits(("constexpr int W_LOADS = 2;", "constexpr int W_LOADS = 0;")),
+        "no-x-load": _edits(("constexpr bool X_LOADS = true;", "constexpr bool X_LOADS = false;")),
+        "no-mma": _edits(("wgmma_64x128x16(acc, a[ks], b_desc(wslot + ks * 2048));",
+                          'asm volatile("" :: "r"(a[ks][0]), "r"(a[ks][3]));')),
+        "no-a-load": _edits((
+            "ldsm_x4(a[ks], pix + kh * half_stride + swz(key, (2 * ks + a_hi) & 7));",
+            "a[ks][0] = a[ks][1] = a[ks][2] = a[ks][3] = pix + ks;")),
+        "no-store": _edits(("        *reinterpret_cast<uint4*>(out + base + v * 8) = ",
+                            "        if (v == 99) *reinterpret_cast<uint4*>(out + base + v * 8) = ")),
+        "tile-body": _edits(("constexpr bool RING_BODY = true;",
+                             "constexpr bool RING_BODY = false;")),
     },
     "roi_align": {
         "kernel": lambda s: s,
@@ -250,6 +311,10 @@ def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> lis
         _run_mm(put, add, rng, iters, clock, stream, sms)
     if "grouped_conv" in kernels:
         _run_conv(add, dev, iters, clock, stream, sms)
+    if "probe_copy" in kernels:
+        _run_copy(put, add, rng, iters, clock, stream, sms)
+    if "grouped_conv_ablate" in kernels:
+        _run_ablate(put, add, rng, iters, clock, stream, sms)
     if "roi_align" in kernels:
         _run_roi_align(add, dev, iters, clock, stream)
     if "masked_attention" in kernels:
@@ -308,6 +373,76 @@ def _run_conv(add, dev, iters, clock, stream, sms):
                 if fn(*args):
                     raise RuntimeError(f"grouped_conv3x3 variant {key} failed to launch")
             add(what, key, timing.timed_delta(call, max(1, iters // 4), clock).device_s, "ms")
+
+
+COPY_ROWS = (("tiny-copy", (256, 128), torch.float32, 1),
+             ("slab-copy", (8, 40, 64, 128), torch.bfloat16, 1),
+             ("slab-copy-g8", (8, 40, 64, 128), torch.bfloat16, 8))
+
+
+def _run_copy(put, add, rng, iters, clock, stream, sms):
+    from ..ops import probe_copy as pc
+    libs = build("probe_copy")
+    for what, shape, dtype, units in COPY_ROWS:
+        x = put(rng.standard_normal(shape), dtype)
+        y = torch.empty_like(x)
+        add(what, "x * 2", timing.timed_delta(lambda: x * 2, iters, clock).device_s, "us")
+        for key, lib in libs.items():
+            fn = lib.probe_copy
+            fn.argtypes, fn.restype = [I, P, P, ctypes.c_longlong, ctypes.c_longlong, I, I, P], I
+            plan = pc.copy_plan(x.numel(), dtype, units, sms,
+                                {"depth-1": 1, "depth-4": 4, "depth-8": 8}.get(key, pc.DEPTH),
+                                128 if key == "threads-128" else pc.THREADS)
+            per, plan = plan["per_unit"], plan["blocks_per_unit"]
+            grids = {key: plan}
+            if key == "kernel":
+                grids.update({"kernel 1 block a unit": 1, "kernel 2x blocks": 2 * plan})
+            for label, bpu in grids.items():
+                args = (pc._DTYPES[dtype], x.data_ptr(), y.data_ptr(), x.numel(), per, units,
+                        bpu, stream)
+
+                def call(fn=fn, args=args, label=label):
+                    if fn(*args):
+                        raise RuntimeError(f"probe_copy variant {label} failed to launch")
+                add(what, f"{label} ({bpu} a unit)",
+                    timing.timed_delta(call, iters, clock).device_s, "us")
+
+
+ABLATE_GEOMETRY = (8, 38, 64, 1024)   # (N, H, W, C) of the output
+ABLATE_ROWS = (("full", 0, 2), ("full", 0, 3), ("full", 0, 4), ("bt-full", 1, 4))
+
+
+def _run_ablate(put, add, rng, iters, clock, stream, sms):
+    from ..ops import grouped_conv_ablate as ga
+    libs = build("grouped_conv_ablate")
+    N, H, W, C = ABLATE_GEOMETRY
+    x = put(rng.standard_normal((N, H + 2, W, C)))
+    w = put(rng.standard_normal((3, 3, ga.CB, C)) * 0.05)
+    xt, wt = ga.to_block_major(x, w)
+    out = torch.empty(N, H, W, C, device=x.device, dtype=x.dtype)
+    xl, wl = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    what = f"packed conv {ABLATE_GEOMETRY}"
+    add(what, f"cuDNN groups {C // ga.CB}", timing.timed_delta(
+        lambda: F.conv2d(xl, wl, padding=(0, 1), groups=C // ga.CB), iters, clock).device_s,
+        "ms")
+    for key, lib in libs.items():
+        fn = lib.grouped_conv_ablate
+        fn.argtypes, fn.restype = [I, I, I, I, P, P, P] + [I] * 6 + [P], I
+        for variant, bm, th in ABLATE_ROWS:
+            plan = ga.kernel_plan(torch.bfloat16, N, H, W, C, th, sms)
+            xa, wa = (xt, wt) if bm else (x, w)
+            args = (1, ga._CODES[variant], bm, ga._ROUTES[plan["route"]], xa.data_ptr(),
+                    wa.data_ptr(), out.data_ptr(), N, H, W, C, th, plan["parts"], stream)
+            label = f"{variant} rows{th} {plan['route']}"
+            if fn(*args):
+                add(what, f"{label} {key}: does not launch (shared memory)", float("nan"), "ms")
+                continue
+
+            def call(fn=fn, args=args, key=key):
+                if fn(*args):
+                    raise RuntimeError(f"grouped_conv_ablate variant {key} failed to launch")
+            add(what, f"{label} {key}", timing.timed_delta(call, iters, clock).device_s, "ms")
 
 
 def path_like_rois(n_frames, per_frame, H, W, dev, seed=0):

@@ -10,8 +10,9 @@ np.random.default_rng(0) as the probe draws them. The variants (`full`,
 `mm-only`, `mm1-only`, `add-only`, and `bt-full`, `bt-mm1` in the
 block-major layout) are defined in `nl_vsgg_tpu_torch.ops.grouped_conv_ablate`.
 The probe's sweep over images a grid step becomes a sweep over the
-kernel's tile of output rows; the block-major rows time the kernel on
-inputs laid out once beforehand. Beside them, at the same geometry:
+kernel's tile of output rows (each kernel row prints the route it took,
+`grouped_conv_ablate.kernel_plan`); the block-major rows time the kernel
+on inputs laid out once beforehand. Beside them, at the same geometry:
 
   row5-conv(g32)  the detector's grouped conv kernel (csrc/grouped_conv.cu)
                   on the (8, 38, 64, 1024) map with unpacked c = 32 weights;
@@ -41,7 +42,7 @@ from ..device import resolve_device
 from ..ops import grouped_conv as gc, grouped_conv_ablate as ga
 from . import timing
 
-TILE_ROWS = (1, 2, 4)
+TILE_ROWS = (2, 3, 4)   # output rows a tile: 128, 192 and 256 pixels at W = 64
 
 
 def run(iters: int = 20, device=None, N: int = 8, H: int = 38, W: int = 64, C: int = 1024,
@@ -83,43 +84,48 @@ def run(iters: int = 20, device=None, N: int = 8, H: int = 38, W: int = 64, C: i
             return H * x_rows + tap_b + out_b, prod
         return out_b, 0.0                              # add-only: the output alone
 
+    # (label, kernel, call, (bytes, operations), route on the card)
     rows = []
     for th in tile_rows:
+        route = ga.route(x, th) if on_gpu else None
         for v in ga.VARIANTS:
             rows.append((f"{v} rows{th}", "grouped_conv_ablate",
-                         lambda v=v, th=th: ga.grouped_conv_ablate(x, w, v, th), work(v)))
+                         lambda v=v, th=th: ga.grouped_conv_ablate(x, w, v, th), work(v), route))
+        route = ga.route(xt, th, block_major=True) if on_gpu else None
         for v in ga.BT_VARIANTS:
             rows.append((f"{v} rows{th}", "grouped_conv_ablate_bt",
-                         lambda v=v, th=th: ga.grouped_conv_ablate_bt(xt, wt, v, th), work(v)))
+                         lambda v=v, th=th: ga.grouped_conv_ablate_bt(xt, wt, v, th), work(v),
+                         route))
     g5 = C // 32
     row5_work = (2 * c4.numel() * el + w5.numel() * el, 2.0 * c4.numel() * 9 * 32)
     rows += [
         (f"row5-conv(g{g5})", "grouped_conv3x3", lambda: gc.grouped_conv3x3(c4, w5, g5),
-         row5_work),
+         row5_work, None),
         (f"cudnn(g{g5})", None, lambda: F.conv2d(c4_nchw, w5_oihw, padding=1, groups=g5),
-         row5_work),
+         row5_work, None),
         (f"cudnn(g{nb})", None, lambda: F.conv2d(x_nchw, w_oihw, padding=(0, 1), groups=nb),
-         work("full")),
+         work("full"), None),
     ]
     name = torch.cuda.get_device_name(dev) if on_gpu else "cpu (plain versions)"
     log(f"# probe_ablate on {name}: x {tuple(x.shape)} bf16, w {tuple(w.shape)}, out "
         f"({N}, {H}, {W}, {C}), iters={iters}")
     out = []
-    for label, kernel, fn, (nbytes, ops) in rows:
+    for label, kernel, fn, (nbytes, ops), route in rows:
         t = timing.timed_delta(fn, iters, clock)
         b, by = timing.bound_s(nbytes, ops, torch.bfloat16)
         row = dict(name=label, kernel=kernel if on_gpu else None, calls=t.calls,
                    host_ms=t.host_s * 1e3, bound_ms=b * 1e3, bound_by=by, device_ms=None,
-                   rate=None)
+                   rate=None, route=route)
+        shown_route = f"  route {route}" if route else ""
         if t.device_s is None:
             log(f"  {label:20s} host {t.host_s * 1e3:9.4f} ms/call (cpu; device not measured)"
-                f"  bound {b * 1e3:7.4f} ms ({by})")
+                f"  bound {b * 1e3:7.4f} ms ({by}){shown_route}")
         else:
             row.update(device_ms=t.device_s * 1e3, rate=useful_mxu / t.device_s / 1e12)
             log(f"  {label:20s} {row['device_ms']:9.4f} ms  ({row['rate']:7.1f} T/s stored-tap"
                 f" rate, {row['rate'] * 1e12 / timing.PEAK_OPS[torch.bfloat16] * 100:5.1f}% of "
                 f"bf16 peak)  host {row['host_ms'] * 1e3:8.2f} us/call  bound "
-                f"{b * 1e3:7.4f} ms ({by})")
+                f"{b * 1e3:7.4f} ms ({by}){shown_route}")
         out.append(row)
     if on_gpu:
         full = min((r for r in out if r["name"].startswith("full ")),

@@ -197,7 +197,7 @@ def test_preprocess_matches_cv2_within_one_unit():
     for h, w in ((240, 320), (500, 333), (600, 800), (120, 500)):
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         ref, ref_scale, ref_hw = jax_preprocess(img)
-        got, scale, hw = preprocess(img)
+        got, scale, hw = preprocess(img, device="cpu")
         assert hw == ref_hw == resize_hw(h, w) and got.shape == ref.shape
         np.testing.assert_array_equal(scale, ref_scale)
         assert float(np.abs(got.numpy() - ref).max()) <= 1.0

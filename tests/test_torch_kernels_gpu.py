@@ -372,14 +372,15 @@ def test_grouped_conv_refuses_misaligned_storage_on_gpu(gpu):
     assert gc.LAUNCHES["grouped_conv3x3"] == 1
 
 
-@pytest.mark.parametrize("shape", [(256, 128), (8, 40, 64, 128), (1001,)])
+@pytest.mark.parametrize("shape", [(256, 128), (8, 40, 64, 128), (1001,), (1,)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_probe_copy_matches_plain_on_gpu(gpu, dtype, shape):
+    """Exact at the probes' shapes, a tail past the last vector (1001) and a
+    single element, at the probes' unit counts (1 and 8) and an uneven 3."""
     x = torch.randn(shape, device="cuda", generator=gpu).to(dtype)
-    fill = torch.cuda.get_device_properties(0).multi_processor_count * 8
     pc.reset_launches()
-    for blocks in (1, 8, fill):
-        y = pc.probe_copy(x, blocks)
+    for units in (1, 8, 3):
+        y = pc.probe_copy(x, units)
         torch.cuda.synchronize()
         assert torch.equal(y, pc.probe_copy_reference(x))
     assert pc.LAUNCHES["probe_copy"] == 3
@@ -397,11 +398,19 @@ def test_probe_matmul_matches_plain_on_gpu(gpu, M):
                                rtol=2 ** -7, atol=1e-3)
 
 
-@pytest.mark.parametrize("tile_rows,W", [(1, 64), (2, 64), (4, 64), (1, 32), (3, 32)])
-def test_grouped_conv_ablate_matches_plain_on_gpu(gpu, tile_rows, W):
+@pytest.mark.parametrize("tile_rows,W,route", [
+    (1, 64, "ring"), (2, 64, "ring"), (4, 64, "ring"), (3, 64, "ring"), (2, 32, "ring"),
+    (8, 32, "ring"), (1, 128, "ring"), (2, 128, "tile"), (1, 32, "tile"), (3, 32, "tile"),
+    (4, 32, "ring")])
+def test_grouped_conv_ablate_matches_plain_on_gpu(gpu, tile_rows, W, route):
+    """Every variant and layout at H = 7 (no tile_rows above 1 divides it)
+    on the route `kernel_plan` picks: the ring at 64 to 256 pixels a tile,
+    the tile route where the ring refuses (32 or 96 pixels; 256 pixels of
+    W = 128, whose row ring does not fit shared memory)."""
     x = torch.randn(2, 9, W, 512, device="cuda", generator=gpu).bfloat16()   # H = 7
     w = (torch.randn(3, 3, 128, 512, device="cuda", generator=gpu) * 0.05).bfloat16()
     xt, wt = ga.to_block_major(x, w)
+    assert ga.route(x, tile_rows) == ga.route(xt, tile_rows, block_major=True) == route
     ga.reset_launches()
     for v in ga.VARIANTS + ga.BT_VARIANTS:
         bt = v in ga.BT_VARIANTS
@@ -412,6 +421,24 @@ def test_grouped_conv_ablate_matches_plain_on_gpu(gpu, tile_rows, W):
                else ga.grouped_conv_ablate_reference(x, w, v))
         torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
     assert ga.LAUNCHES == {"grouped_conv_ablate": 4, "grouped_conv_ablate_bt": 2}
+
+
+@pytest.mark.parametrize("tile_rows,route", [(2, "ring"), (3, "ring"), (4, "ring")])
+def test_grouped_conv_ablate_ring_at_the_probe_height_on_gpu(gpu, tile_rows, route):
+    """The probe's H = 38 and W = 64 (the ring's parts of 19 rows: no tile of
+    2, 3 or 4 rows divides them), every variant and layout, one image."""
+    x = torch.randn(1, 40, 64, 256, device="cuda", generator=gpu).bfloat16()
+    w = (torch.randn(3, 3, 128, 256, device="cuda", generator=gpu) * 0.05).bfloat16()
+    xt, wt = ga.to_block_major(x, w)
+    assert ga.route(x, tile_rows) == route
+    for v in ga.VARIANTS + ga.BT_VARIANTS:
+        bt = v in ga.BT_VARIANTS
+        out = (ga.grouped_conv_ablate_bt(xt, wt, v, tile_rows) if bt
+               else ga.grouped_conv_ablate(x, w, v, tile_rows))
+        torch.cuda.synchronize()
+        ref = (ga.grouped_conv_ablate_bt_reference(xt, wt, v) if bt
+               else ga.grouped_conv_ablate_reference(x, w, v))
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
 
 
 @pytest.mark.parametrize("tile_rows", [1, 2])
@@ -437,8 +464,9 @@ def test_probe_kernels_refuse_misaligned_storage_on_gpu(gpu):
     is refused before launch."""
     flat = torch.randn(1 + 2 * 12 * 32 * 128, device="cuda", generator=gpu).bfloat16()
     w = torch.zeros(3, 3, 128, 128, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="aligned"):
-        ga.grouped_conv_ablate(flat[1:].view(2, 12, 32, 128), w, "full", 1)
+    for tile_rows in (1, 2):                     # the tile route, then the ring
+        with pytest.raises(ValueError, match="aligned"):
+            ga.grouped_conv_ablate(flat[1:].view(2, 12, 32, 128), w, "full", tile_rows)
     with pytest.raises(ValueError, match="aligned"):
         pm.probe_matmul(flat[1:1 + 64 * 128].view(64, 128), w[0, 0])
     with pytest.raises(ValueError, match="aligned"):

@@ -37,8 +37,8 @@ def test_copy_matches_jax(rng, shape, dtype):
     ref = np.asarray((jnp.asarray(x, dtype) * 2.0).astype(jnp.float32))
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
     pc.reset_launches()
-    for blocks in (1, 8):
-        got = pc.probe_copy(tx, blocks)
+    for units in (1, 8):
+        got = pc.probe_copy(tx, units)
         assert got.dtype == tx.dtype and got.shape == tx.shape
         np.testing.assert_array_equal(got.float().numpy(), ref)
     assert pc.LAUNCHES["probe_copy"] == 0       # the CPU runs the plain version
@@ -47,7 +47,7 @@ def test_copy_matches_jax(rng, shape, dtype):
 def test_copy_rejects_bad_arguments():
     with pytest.raises(TypeError):
         pc.probe_copy(torch.zeros(4, dtype=torch.float16))
-    with pytest.raises(ValueError, match="blocks"):
+    with pytest.raises(ValueError, match="units"):
         pc.probe_copy(torch.zeros(4), 0)
 
 
