@@ -85,7 +85,25 @@ Phases, in order; any failure exits non-zero before the result line:
      kernel's count equal to the calls its rows made), every copy and conv
      row on the new route (printed); the three copies' times beside their
      bounds and `x * 2` on each row's own input;
- 11. the `kernels` JSON line, then the device JSON line, last.
+ 11. the evaluation path at full width on phase 3's 64 videos (a bf16 STTran
+     drawn from the same seed): seeded AG_Test GT from each Entry's box
+     table (`data.synthetic.make_synthetic_gt`), the eval step (4 forward
+     launches), `entry_to_eval_pred`, the host `SceneGraphEvaluator` and
+     `device_eval_batch` on the card (every with/no/semi row equal to the
+     host's within 1e-6, no GT dropped), mR@K from `mean_recall_video`
+     equal to the host collectors', R@K printed; `evaluate_epoch` over the
+     64 videos in batches of 16 with a `DeviceEvalPromotion` (it must
+     promote, its score(20) equal the host's, 4 launches a batch); the
+     sgcls two-stage flow on 8 videos (stage 1, `sgcls_assign`,
+     `build_infer_entry` with the mask sentinel and zero union features,
+     stage 2: 8 launches) and the sgdet flow from seeded detections
+     (`sgdet_assign`, `build_infer_entry`, one forward), each evaluator's
+     R@K finite and in [0, 1]; `nms_mask` and `batched_nms_mask` keep the
+     same boxes on the card as on the CPU; host and device ms per video,
+     the device scorer alone, the loop's fetch waits and the phase's wall
+     time, beside the card's name and power limit;
+ 12. the `kernels` JSON line, then the device JSON line, last; the line
+     before them prints the card and the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -1024,7 +1042,287 @@ def probe_phases(dev, card) -> list[dict]:
     ]
 
 
+# --------------------------------------------------------------- evaluation
+EVAL_BATCH = 16                  # evaluate_epoch's batch of videos
+SGCLS_VIDEOS, SGDET_VIDEOS = 8, 4
+# device rows against host rows: the same hit counts over the same GT counts,
+# divided in float32 on the card and in float64 on the host -> 1e-6
+EVAL_ATOL = 1e-6
+NMS_BOXES = 300
+
+
+def detections(rng, n_frames: int, feat: int):
+    """Seeded raw sgdet detections of one video and its AG_Test GT: a frame
+    holds a person, three objects (labels drawn from 5, 8, 17 and the rest,
+    so `clean_class` duplicates fire) and a near-copy of one object of the
+    same class (so NMS suppresses); 36-way softmax rows with the true class
+    leading; GT boxes jittered from the detections."""
+    boxes, frames, logits, gt = [], [], [], []
+    for f in range(n_frames):
+        person = np.array([rng.uniform(0, 300), rng.uniform(0, 100)])
+        pb = np.concatenate([person, person + rng.uniform(150, 300, 2)])
+        objs = []
+        for _ in range(3):
+            xy = rng.uniform(0, 500, 2)
+            cls = int(rng.choice([5, 8, 17])) if rng.uniform() < 0.5 else int(rng.integers(2, 37))
+            objs.append((np.concatenate([xy, xy + rng.uniform(40, 200, 2)]), cls))
+        dup_box, dup_cls = objs[0]
+        rows = [(pb, 1)] + objs + [(dup_box + rng.uniform(-3, 3, 4), dup_cls)]
+        for b, cls in rows:
+            lg = rng.standard_normal(36)
+            lg[cls - 1] += 4.0
+            boxes.append(b)
+            frames.append(f)
+            logits.append(lg)
+        frame = [{"person_bbox": (pb + rng.uniform(-6, 6, 4)).astype(np.float32)[None]}]
+        for b, cls in objs:
+            frame.append({"bbox": (b + rng.uniform(-6, 6, 4)).astype(np.float32), "class": cls,
+                          "attention_relationship": np.array([rng.integers(0, 3)]),
+                          "spatial_relationship": np.array([rng.integers(0, 6)]),
+                          "contacting_relationship": np.array([rng.integers(0, 17)])})
+        gt.append(frame)
+    logits = np.asarray(logits, np.float32)
+    dist = np.exp(logits - logits.max(1, keepdims=True))
+    dist /= dist.sum(1, keepdims=True)
+    feats = (rng.standard_normal((len(boxes), feat)) * 0.1).astype(np.float32)
+    return (np.asarray(boxes, np.float32), np.asarray(frames, np.int64), dist, feats, gt)
+
+
+def recall_line(ev) -> str:
+    ev.calculate_mean_recall()
+    parts = [f"{name} " + "/".join(f"{float(np.mean(sink[k])):.4f}" for k in (10, 20, 50))
+             for name, sink in (("with", ev.recall), ("no", ev.recall_nogc),
+                                ("semi", ev.semi_recall))]
+    parts.append("mR " + "/".join(f"{v:.4f}" for v in ev.mean_recall.mean_recall.values()))
+    parts.append("ng-mR " + "/".join(f"{v:.4f}" for v in ev.ng_mean_recall.mean_recall.values()))
+    return "R@10/20/50 " + ", ".join(parts)
+
+
+def check_recalls(ev, what: str) -> None:
+    for name in ("recall", "recall_nogc", "semi_recall"):
+        vals = np.asarray([v for k in (10, 20, 50) for v in getattr(ev, name)[k]])
+        if not len(vals) or not np.isfinite(vals).all() or (vals < 0).any() or (vals > 1).any():
+            fail(f"{what}: {name} rows empty, non-finite or outside [0, 1]")
+
+
+def eval_phases(dev, card, entries) -> None:
+    """Phase 11: the evaluation path at full width on the phase-3 videos:
+    the bf16 eval step, the host evaluator and the device scorers (rows
+    equal, mR@K equal), the streaming `evaluate_epoch` with its device-eval
+    promotion, the sgcls two-stage flow, the sgdet flow from raw detections,
+    and NMS on the card against the CPU."""
+    import torch
+
+    from nl_vsgg_tpu_torch.data.entry import to_numpy
+    from nl_vsgg_tpu_torch.data.grounding import entry_to_eval_pred
+    from nl_vsgg_tpu_torch.data.infer_entry import build_infer_entry
+    from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_gt
+    from nl_vsgg_tpu_torch.eval import epoch as epoch_mod
+    from nl_vsgg_tpu_torch.eval import recall_device as rd
+    from nl_vsgg_tpu_torch.eval.recall import SceneGraphEvaluator
+    from nl_vsgg_tpu_torch.models.sgcls_infer import sgcls_assign
+    from nl_vsgg_tpu_torch.models.sgdet_infer import sgdet_assign
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.ops.nms import batched_nms_mask, nms_mask
+    from nl_vsgg_tpu_torch.serve import place_batch
+    from nl_vsgg_tpu_torch.train.step import eval_step
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    kw = dict(feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3, dtype=bf16, device=dev)
+    model = STTran(mode="sgdet", generator=torch.Generator().manual_seed(0), **kw)
+    rng = np.random.default_rng(2000)
+    gts = [make_synthetic_gt(e, rng) for e in entries]
+    one_fwd = {"fwd": 4, "bwd_dq": 0, "bwd_dkv": 0}
+
+    # ---- the eval step, then both scorers on the same 64 videos ----
+    batch = place_batch(entries, dev, bf16)
+    ma.reset_launches()
+    out = eval_step(model, batch)
+    torch.cuda.synchronize()
+    if dict(ma.LAUNCHES) != one_fwd:
+        fail(f"the eval step launched {dict(ma.LAUNCHES)}, expected {one_fwd}")
+    host_out = {k: to_numpy(out[k]) for k in epoch_mod.EVAL_KEYS}
+    preds = [entry_to_eval_pred(e, {k: v[i] for k, v in host_out.items()})
+             for i, e in enumerate(entries)]
+    del out, batch
+
+    ev = SceneGraphEvaluator("sgdet")
+    t0 = time.perf_counter()
+    for gt, p in zip(gts, preds):
+        ev.evaluate_scene_graph(gt, p)
+    host_ms = (time.perf_counter() - t0) / len(entries) * 1e3
+
+    rd.device_eval_batch(entries[:2], preds[:2], gts[:2], ev, f_bucket=N_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = rd.device_eval_batch(entries, preds, gts, ev, f_bucket=N_FRAMES, device=dev)
+    batch_ms = (time.perf_counter() - t0) / len(entries) * 1e3
+    if any(r["gt_dropped"] for r in rows):
+        fail(f"device_eval_batch dropped GT: {[r['gt_dropped'] for r in rows]}")
+    worst = 0.0
+    for name, sink in (("recall", ev.recall), ("recall_nogc", ev.recall_nogc),
+                       ("semi", ev.semi_recall)):
+        host_rows = np.stack([sink[k] for k in (10, 20, 50)], -1)
+        dev_rows = np.concatenate([r[name] for r in rows])
+        if dev_rows.shape != host_rows.shape:
+            fail(f"device {name} rows {dev_rows.shape} against host rows {host_rows.shape}")
+        err = float(np.abs(dev_rows - host_rows).max())
+        worst = max(worst, err)
+        if err > EVAL_ATOL:
+            fail(f"device {name} rows differ from the host's by {err} > {EVAL_ATOL}")
+
+    packed = [rd.pack_gt_video(g, ev, 32, N_FRAMES) for g in gts]
+    args = [rd.host_args(e, p, pk) for e, p, pk in zip(entries, preds, packed)]
+    stacked = [torch.from_numpy(np.stack([a[j] for a in args])).to(dev) for j in range(12)]
+    scorer_ms = cuda_ms(lambda: rd._recall_batch_all(*stacked), iters=10)
+    hits, counts = (t.cpu().numpy().astype(np.float64) for t in rd.mean_recall_video(*stacked))
+    del stacked
+    log(recall_line(ev) + f"  (sgdet, {len(entries)} videos x {N_FRAMES} frames)")
+    mr_err = 0.0
+    for ki, k in enumerate((10, 20, 50)):
+        per_class = [[] for _ in range(hits.shape[-1])]
+        for b, f, c in zip(*np.nonzero(counts > 0)):
+            per_class[c].append(hits[b, f, ki, c] / counts[b, f, c])
+        mr = sum(float(np.mean(v)) if v else 0.0 for v in per_class) / len(per_class)
+        mr_err = max(mr_err, abs(mr - ev.mean_recall.mean_recall[k]))
+    if mr_err > EVAL_ATOL:
+        fail(f"mR@K from mean_recall_video differs from the host's by {mr_err}")
+    log(f"device scorers vs host evaluator: {len(rows)} videos, rows max |diff| {worst:.3e}, "
+        f"mR@K max |diff| {mr_err:.3e} (tol {EVAL_ATOL}), gt_dropped 0")
+    log(f"eval timing: host evaluator {host_ms:.3f} ms/video; device_eval_batch {batch_ms:.3f} "
+        f"ms/video wall (pack, upload, score, fetch); device scorer alone {scorer_ms:.4f} ms "
+        f"for {len(entries)} videos = {scorer_ms / len(entries):.4f} ms/video (CUDA events); "
+        f"card {card}")
+
+    # ---- the streaming loop with the device-eval promotion ----
+    promo = epoch_mod.DeviceEvalPromotion(burnin=16, recheck_every=64)
+    batches = [list(zip(gts[s:s + EVAL_BATCH], entries[s:s + EVAL_BATCH]))
+               for s in range(0, len(entries), EVAL_BATCH)]
+    waits = []
+    start_fetch = epoch_mod._start_fetch
+
+    def timed_fetch(out, device):
+        wait = start_fetch(out, device)
+
+        def timed():
+            t = time.perf_counter()
+            host = wait()
+            waits.append((time.perf_counter() - t) * 1e3)
+            return host
+        return timed
+
+    epoch_mod._start_fetch = timed_fetch
+    try:
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        epoch_mod.evaluate_epoch(model, batches, promotion=promo, device=dev)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    finally:
+        epoch_mod._start_fetch = start_fetch
+    want = {"fwd": 4 * len(batches), "bwd_dq": 0, "bwd_dkv": 0}
+    if dict(ma.LAUNCHES) != want:
+        fail(f"evaluate_epoch launched {dict(ma.LAUNCHES)}, expected {want}")
+    diff = abs(promo.score(20) - ev.mean_score(20))
+    if not promo.promoted or diff > EVAL_ATOL:
+        fail(f"evaluate_epoch: promoted {promo.promoted} (checked {promo.checked}), "
+             f"score(20) {promo.score(20)} against the host's {ev.mean_score(20)}")
+    placed = place_batch(entries[:EVAL_BATCH], dev, bf16)
+    fwd16_ms = cuda_ms(lambda: eval_step(model, placed), iters=5)
+    del placed
+    busy_ms = len(batches) * fwd16_ms + scorer_ms * (len(batches) - 1) / len(batches)
+    log(f"evaluate_epoch: {len(entries)} videos in batches of {EVAL_BATCH}, promoted after "
+        f"{promo.checked} host-checked videos, score(20) {promo.score(20):.6f} = host "
+        f"{ev.mean_score(20):.6f}; wall {epoch_s:.3f} s; fetch waits in the loop "
+        f"{[round(w, 3) for w in waits[:-1]]} ms, after the last batch {waits[-1]:.3f} ms, "
+        f"against a {fwd16_ms:.3f} ms forward of {EVAL_BATCH} videos (CUDA events); device "
+        f"busy about {busy_ms:.1f} ms of the loop (forwards and the promoted batches' "
+        f"scorers, timed alone), idle share about {1 - busy_ms / (epoch_s * 1e3):.4f}; "
+        f"card {card}")
+
+    # ---- the sgcls two-stage flow (tools/test_STTran.py:150-170) ----
+    sg_model = STTran(mode="sgcls", generator=torch.Generator().manual_seed(1), **kw)
+    sub, sub_gts = entries[:SGCLS_VIDEOS], gts[:SGCLS_VIDEOS]
+    ma.reset_launches()
+    stage1 = to_numpy(eval_step(sg_model, place_batch(sub, dev, bf16))["distribution"])
+    stage2_entries = []
+    for i, e in enumerate(sub):
+        nb = int(e.box_mask.sum())
+        frames = e.box_frame[:nb].numpy()
+        assign = sgcls_assign(stage1[i, :nb], frames)
+        assign.update(boxes=e.boxes[:nb].numpy(), box_frame=frames,
+                      features=e.features[:nb].numpy())
+        e2 = build_infer_entry(assign, int(e.num_frames), e.n_boxes, e.n_rels, feat_dim=FEAT,
+                               compute_spatial_masks=False)
+        if e2 is None:
+            fail(f"sgcls: video {i} has no person-object pair after assignment")
+        stage2_entries.append(e2)
+    out2 = eval_step(sg_model, place_batch(stage2_entries, dev, bf16))
+    torch.cuda.synchronize()
+    want = {"fwd": 8, "bwd_dq": 0, "bwd_dkv": 0}
+    if dict(ma.LAUNCHES) != want:
+        fail(f"sgcls two stages launched {dict(ma.LAUNCHES)}, expected {want}")
+    out2 = {k: to_numpy(out2[k]) for k in epoch_mod.EVAL_KEYS}
+    ev_cls = SceneGraphEvaluator("sgcls")
+    for i, (gt, e2) in enumerate(zip(sub_gts, stage2_entries)):
+        ev_cls.evaluate_scene_graph(gt, entry_to_eval_pred(e2, {k: v[i] for k, v in out2.items()}))
+    check_recalls(ev_cls, "sgcls")
+    log(recall_line(ev_cls) + f"  (sgcls two-stage, {SGCLS_VIDEOS} videos, launches "
+        f"{dict(ma.LAUNCHES)})")
+
+    # ---- the sgdet flow from raw detections ----
+    drng = np.random.default_rng(3000)
+    assigns, det_gts = [], []
+    for _ in range(SGDET_VIDEOS):
+        boxes, frames, dist, feats, gt = detections(drng, N_FRAMES, FEAT)
+        assigns.append(sgdet_assign(boxes, frames, dist, feats))
+        det_gts.append(gt)
+    n_b = -(-max(len(a["boxes"]) for a in assigns) // 16) * 16
+    n_r = -(-max(len(a["pair_idx"]) for a in assigns) // 16) * 16
+    det_entries = [build_infer_entry(a, N_FRAMES, n_b, n_r, feat_dim=FEAT,
+                                     compute_spatial_masks=False) for a in assigns]
+    ma.reset_launches()
+    out3 = eval_step(model, place_batch(det_entries, dev, bf16))
+    torch.cuda.synchronize()
+    if dict(ma.LAUNCHES) != one_fwd:
+        fail(f"the sgdet flow's forward launched {dict(ma.LAUNCHES)}, expected {one_fwd}")
+    out3 = {k: to_numpy(out3[k]) for k in epoch_mod.EVAL_KEYS}
+    ev_det = SceneGraphEvaluator("sgdet")
+    for i, (gt, e3) in enumerate(zip(det_gts, det_entries)):
+        ev_det.evaluate_scene_graph(gt, entry_to_eval_pred(e3, {k: v[i] for k, v in out3.items()}))
+    check_recalls(ev_det, "sgdet flow")
+    log(recall_line(ev_det) + f"  (sgdet_assign flow, {SGDET_VIDEOS} videos, bucket "
+        f"{n_b} boxes / {n_r} relations, launches {dict(ma.LAUNCHES)})")
+
+    # ---- NMS on the card against the CPU, exact ties ----
+    nrng = np.random.default_rng(5000)
+    xy = nrng.uniform(0, 400, (4, NMS_BOXES, 2))
+    nb_ = np.concatenate([xy, xy + nrng.uniform(10, 120, (4, NMS_BOXES, 2))], -1)
+    ns_ = nrng.uniform(0, 1, (4, NMS_BOXES))
+    ns_[:, ::3] = ns_[:, 1::3]
+    ns_[:, ::7] = 0.5
+    nv_ = nrng.uniform(size=(4, NMS_BOXES)) > 0.1
+    nc_ = nrng.integers(0, 4, (4, NMS_BOXES))
+    cpu_args = [torch.from_numpy(a) for a in (nb_.astype(np.float32), ns_.astype(np.float32),
+                                               nv_, nc_)]
+    gpu_args = [a.to(dev) for a in cpu_args]
+    kept = []
+    for what, fn in (("nms_mask", lambda b, s, v, c: nms_mask(b, s, 0.5, valid=v)),
+                     ("batched_nms_mask", lambda b, s, v, c: batched_nms_mask(b, s, c, 0.5,
+                                                                               valid=v))):
+        on_cpu, on_gpu = fn(*cpu_args), fn(*gpu_args).cpu()
+        if not torch.equal(on_cpu, on_gpu):
+            fail(f"{what} keeps other boxes on the card than on the CPU")
+        kept.append(int(on_gpu.sum()))
+    log(f"nms on the card = on the CPU: 4 x {NMS_BOXES} boxes with exact ties, nms_mask keeps "
+        f"{kept[0]}, batched_nms_mask (4 classes) keeps {kept[1]}")
+    log(f"evaluation phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1436,7 +1734,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     probe_rows = probe_phases(dev, card)
 
-    # ---- 11. result lines ----
+    # ---- 11. the evaluation path ----
+    torch.cuda.empty_cache()
+    eval_phases(dev, card, entries)
+
+    # ---- 12. result lines ----
     by = max(bound_terms, key=bound_terms.get)
     kernels = [{
         "name": "masked_mha", "route": "cuda",
@@ -1457,7 +1759,7 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["terms"], key=r["terms"].get), "library_ms": r["library_ms"]})
     kernels += det_rows + probe_rows
-    log(f"card: {card}")
+    log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

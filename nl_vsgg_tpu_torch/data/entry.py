@@ -77,6 +77,15 @@ class Entry:
         return cls(**{k: torch.as_tensor(np.asarray(v)) for k, v in arrays.items()})
 
 
+def to_numpy(x) -> np.ndarray:
+    """A host numpy copy of a tensor on any device (floating tensors as
+    float32: bfloat16 has no numpy dtype), or np.asarray of anything else."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.is_floating_point() else x).cpu().numpy()
+    return np.asarray(x)
+
+
 def stack_entries(entries: list[Entry]) -> Entry:
     """Stack same-bucket Entries into a leading batch axis."""
     return Entry(**{f.name: torch.stack([getattr(e, f.name) for e in entries])

@@ -6,6 +6,9 @@ Shapes and statistics follow Action Genome as the grounding engine produces
 them: per frame one person box plus a handful of objects, one relation per
 (person, object) pair, 2048-d RoI features, 7x7 union features, 27x27
 two-channel spatial masks, multi-hot 3/6/17 relation pseudo-labels.
+
+`make_synthetic_gt` (the port's own) draws evaluation GT in the AG_Test
+format for such an Entry, so the evaluators have something to match.
 """
 
 from __future__ import annotations
@@ -72,3 +75,37 @@ def make_synthetic_entry(rng: np.random.Generator, n_frames: int = 16,
         num_frames=np.int32(n_frames),
     ))
     return pad_entry(e, bucket_boxes, bucket_rels)
+
+
+def make_synthetic_gt(entry: Entry, rng: np.random.Generator, jitter: float = 8.0,
+                      flip_cls_prob: float = 0.2) -> list[list[dict]]:
+    """AG_Test-format GT for one synthetic Entry (padded or not): per
+    frame its person box and its objects from the Entry's own box table,
+    each box jittered by up to `jitter` pixels, object classes replaced by a
+    random one with probability `flip_cls_prob`, and attention (one),
+    spatial and contacting (one or two each) predicates drawn from `rng`.
+    Predictions on the Entry then match some GT and miss some."""
+    boxes = entry.boxes.numpy()
+    frames = entry.box_frame.numpy()
+    labels = entry.labels.numpy()
+    valid = entry.box_mask.numpy()
+    gt = []
+    for f in range(int(entry.num_frames)):
+        rows = np.flatnonzero(valid & (frames == f))
+        person = rows[labels[rows] == 1][0]
+        frame = [{"person_bbox": (boxes[person] + rng.uniform(-jitter, jitter, 4))
+                  .astype(np.float32)[None]}]
+        for r in rows[labels[rows] != 1]:
+            cls = (int(labels[r]) if rng.uniform() > flip_cls_prob
+                   else int(rng.integers(2, schema.NUM_OBJ_CLASSES)))
+            frame.append({
+                "bbox": (boxes[r] + rng.uniform(-jitter, jitter, 4)).astype(np.float32),
+                "class": cls,
+                "attention_relationship": np.array([rng.integers(0, schema.NUM_ATTENTION)]),
+                "spatial_relationship": np.sort(rng.choice(
+                    schema.NUM_SPATIAL, size=rng.integers(1, 3), replace=False)),
+                "contacting_relationship": np.sort(rng.choice(
+                    schema.NUM_CONTACTING, size=rng.integers(1, 3), replace=False)),
+            })
+        gt.append(frame)
+    return gt

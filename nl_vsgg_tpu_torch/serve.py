@@ -24,15 +24,11 @@ import numpy as np
 import torch
 
 from .data import schema
-from .data.entry import Entry, stack_entries
+from .data.entry import Entry, stack_entries, to_numpy as _np
 from .device import resolve_device
 from .train.step import eval_step
 
 NEEDED = ("attention_distribution", "spatial_distribution", "contacting_distribution")
-
-
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def scene_graph_json(video_id: str, entry: Entry, pred: dict, tax, topk: int) -> dict:
