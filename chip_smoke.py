@@ -100,8 +100,10 @@ Phases, in order; any failure exits non-zero before the result line:
      (`sgdet_assign`, `build_infer_entry`, one forward), each evaluator's
      R@K finite and in [0, 1]; `nms_mask` and `batched_nms_mask` keep the
      same boxes on the card as on the CPU; host and device ms per video,
-     the device scorer alone, the loop's fetch waits and the phase's wall
-     time, beside the card's name and power limit;
+     the device scorer alone, the loop's `place_batch` times and fetch
+     waits, the loop traced once more by `torch.profiler` (the card's busy
+     time, kernels and copies, and idle share over the traced span) and the
+     phase's wall time, beside the card's name and power limit;
  12. the `kernels` JSON line, then the device JSON line, last; the line
      before them prints the card and the script's total wall time.
 
@@ -269,6 +271,50 @@ def profile_table(fn, step_ms: float, label: str, n: int = 3) -> None:
                 f"{e.count // n:4d}/step  {e.key[:90]}")
     except Exception as ex:  # the profiler is a diagnostic: report, never fail
         log(f"profile {label}: unavailable ({ex!r})")
+
+
+def device_busy(fn, label: str) -> dict | None:
+    """One call of `fn` under torch.profiler, the card synchronized inside
+    the traced span: the span's wall ms, the union of its kernel, copy and
+    memset intervals on the card (busy ms), and kernel, host-to-device and
+    device-to-host copy ms summed. A diagnostic: None, reported, where the
+    trace holds no device events or the profiler fails; never fails."""
+    import torch
+    try:
+        from torch.profiler import ProfilerActivity, profile, record_function
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("device_busy_span"):
+                fn()
+                torch.cuda.synchronize()
+        path = os.path.join(HERE, "build", "device_busy_trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        span = next(e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name") == "device_busy_span")
+        t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+        dev_ev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if not dev_ev:
+            log(f"trace {label}: the profiler recorded no device events (not measured)")
+            return None
+        busy, end = 0.0, t0
+        for a, b in sorted((max(float(e["ts"]), t0), min(float(e["ts"]) + float(e["dur"]), t1))
+                           for e in dev_ev):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+
+        def total(cat, key=""):
+            return sum(float(e["dur"]) for e in dev_ev
+                       if e["cat"] == cat and key in e.get("name", "")) / 1e3
+        return {"span_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+                "kernel_ms": total("kernel"), "htod_ms": total("gpu_memcpy", "HtoD"),
+                "dtoh_ms": total("gpu_memcpy", "DtoH")}
+    except Exception as ex:  # the trace is a diagnostic: report, never fail
+        log(f"trace {label}: unavailable ({ex!r})")
+        return None
 
 
 def dq_edge_checks(ma, g, dev) -> None:
@@ -1213,7 +1259,16 @@ def eval_phases(dev, card, entries) -> None:
             return host
         return timed
 
-    epoch_mod._start_fetch = timed_fetch
+    places = []
+    place = epoch_mod.place_batch
+
+    def timed_place(*a):
+        t = time.perf_counter()
+        b = place(*a)
+        places.append((time.perf_counter() - t) * 1e3)
+        return b
+
+    epoch_mod._start_fetch, epoch_mod.place_batch = timed_fetch, timed_place
     try:
         ma.reset_launches()
         t0 = time.perf_counter()
@@ -1221,7 +1276,7 @@ def eval_phases(dev, card, entries) -> None:
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
     finally:
-        epoch_mod._start_fetch = start_fetch
+        epoch_mod._start_fetch, epoch_mod.place_batch = start_fetch, place
     want = {"fwd": 4 * len(batches), "bwd_dq": 0, "bwd_dkv": 0}
     if dict(ma.LAUNCHES) != want:
         fail(f"evaluate_epoch launched {dict(ma.LAUNCHES)}, expected {want}")
@@ -1232,15 +1287,23 @@ def eval_phases(dev, card, entries) -> None:
     placed = place_batch(entries[:EVAL_BATCH], dev, bf16)
     fwd16_ms = cuda_ms(lambda: eval_step(model, placed), iters=5)
     del placed
-    busy_ms = len(batches) * fwd16_ms + scorer_ms * (len(batches) - 1) / len(batches)
     log(f"evaluate_epoch: {len(entries)} videos in batches of {EVAL_BATCH}, promoted after "
         f"{promo.checked} host-checked videos, score(20) {promo.score(20):.6f} = host "
-        f"{ev.mean_score(20):.6f}; wall {epoch_s:.3f} s; fetch waits in the loop "
+        f"{ev.mean_score(20):.6f}; wall {epoch_s:.3f} s; place_batch (stacking and upload) "
+        f"{[round(t, 3) for t in places]} ms host wall; fetch waits in the loop "
         f"{[round(w, 3) for w in waits[:-1]]} ms, after the last batch {waits[-1]:.3f} ms, "
-        f"against a {fwd16_ms:.3f} ms forward of {EVAL_BATCH} videos (CUDA events); device "
-        f"busy about {busy_ms:.1f} ms of the loop (forwards and the promoted batches' "
-        f"scorers, timed alone), idle share about {1 - busy_ms / (epoch_s * 1e3):.4f}; "
+        f"against a {fwd16_ms:.3f} ms forward of {EVAL_BATCH} videos (CUDA events); "
         f"card {card}")
+    # the same loop once more, traced: the card's busy time in it
+    tr = device_busy(lambda: epoch_mod.evaluate_epoch(
+        model, batches, promotion=epoch_mod.DeviceEvalPromotion(burnin=16, recheck_every=64),
+        device=dev), "evaluate_epoch")
+    if tr is not None:
+        log(f"evaluate_epoch traced (torch.profiler): span {tr['span_ms']:.3f} ms against "
+            f"{epoch_s * 1e3:.3f} ms untraced, card busy "
+            f"{tr['busy_ms']:.3f} ms (kernels {tr['kernel_ms']:.3f}, copies to the card "
+            f"{tr['htod_ms']:.3f}, to the host {tr['dtoh_ms']:.3f}), idle share "
+            f"{1 - tr['busy_ms'] / tr['span_ms']:.4f}; card {card}")
 
     # ---- the sgcls two-stage flow (tools/test_STTran.py:150-170) ----
     sg_model = STTran(mode="sgcls", generator=torch.Generator().manual_seed(1), **kw)

@@ -77,14 +77,19 @@ def make_synthetic_entry(rng: np.random.Generator, n_frames: int = 16,
     return pad_entry(e, bucket_boxes, bucket_rels)
 
 
-def make_synthetic_gt(entry: Entry, rng: np.random.Generator, jitter: float = 8.0,
-                      flip_cls_prob: float = 0.2) -> list[list[dict]]:
+# GT boxes are the Entry's boxes moved by up to GT_JITTER pixels per
+# coordinate, and an object's GT class is a random one with probability
+# GT_FLIP_PROB, so predictions on the Entry match some GT and miss some.
+GT_JITTER = 8.0
+GT_FLIP_PROB = 0.2
+
+
+def make_synthetic_gt(entry: Entry, rng: np.random.Generator) -> list[list[dict]]:
     """AG_Test-format GT for one synthetic Entry (padded or not): per
     frame its person box and its objects from the Entry's own box table,
-    each box jittered by up to `jitter` pixels, object classes replaced by a
-    random one with probability `flip_cls_prob`, and attention (one),
-    spatial and contacting (one or two each) predicates drawn from `rng`.
-    Predictions on the Entry then match some GT and miss some."""
+    boxes jittered by GT_JITTER and classes flipped with GT_FLIP_PROB, and
+    attention (one), spatial and contacting (one or two each) predicates
+    drawn from `rng`."""
     boxes = entry.boxes.numpy()
     frames = entry.box_frame.numpy()
     labels = entry.labels.numpy()
@@ -93,13 +98,13 @@ def make_synthetic_gt(entry: Entry, rng: np.random.Generator, jitter: float = 8.
     for f in range(int(entry.num_frames)):
         rows = np.flatnonzero(valid & (frames == f))
         person = rows[labels[rows] == 1][0]
-        frame = [{"person_bbox": (boxes[person] + rng.uniform(-jitter, jitter, 4))
+        frame = [{"person_bbox": (boxes[person] + rng.uniform(-GT_JITTER, GT_JITTER, 4))
                   .astype(np.float32)[None]}]
         for r in rows[labels[rows] != 1]:
-            cls = (int(labels[r]) if rng.uniform() > flip_cls_prob
+            cls = (int(labels[r]) if rng.uniform() > GT_FLIP_PROB
                    else int(rng.integers(2, schema.NUM_OBJ_CLASSES)))
             frame.append({
-                "bbox": (boxes[r] + rng.uniform(-jitter, jitter, 4)).astype(np.float32),
+                "bbox": (boxes[r] + rng.uniform(-GT_JITTER, GT_JITTER, 4)).astype(np.float32),
                 "class": cls,
                 "attention_relationship": np.array([rng.integers(0, schema.NUM_ATTENTION)]),
                 "spatial_relationship": np.sort(rng.choice(

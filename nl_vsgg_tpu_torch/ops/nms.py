@@ -3,8 +3,11 @@ nl_vsgg_tpu/ops/nms.py), batched over leading axes.
 
 `nms_mask` / `batched_nms_mask`: the full pairwise IoU matrix formed once,
 then the greedy pass in score order (a stable argsort of the scores, so
-equal scores keep their input order) updating a suppression mask as tensors,
-with no host sync; the keep flags are scattered back to the input order.
+equal scores keep their input order) updating a suppression mask as tensors;
+the keep flags are scattered back to the input order. The pass is a Python
+loop over the N boxes of about five tensor ops a step, so on the card it
+costs O(N) kernel launches (about 1500 for N=300) where the JAX op is one
+compiled `lax.fori_loop`. It makes no host sync.
 With `class_ids`, boxes of different classes never suppress each other.
 They are public ops that no path of the JAX package calls (its RPN imports
 `nms_mask` but calls `nms_topk`; sgdet inference runs its own host NMS,
