@@ -104,7 +104,33 @@ Phases, in order; any failure exits non-zero before the result line:
      waits, the loop traced once more by `torch.profiler` (the card's busy
      time, kernels and copies, and idle share over the traced span) and the
      phase's wall time, beside the card's name and power limit;
- 12. the `kernels` JSON line, then the device JSON line, last; the line
+ 12. DSG-DETR at full width (sgdet: 1 local + 3 global encoder layers, 8
+     heads, feat 2048, bf16, random weights from a seeded generator) on
+     phase 3's 64 videos (set (a): a new class per object and frame) and on
+     a copy of them whose object slots keep one class through the clip (set
+     (b), tracklets, as an Action Genome clip follows a few objects), the
+     local and global masks' allowed-pair densities printed (about 3% and
+     3% on (a), 3% and 1/3 on (b)): `serve.predict` on both sets with the
+     launch counts set to 0 just before and read just after (4 forward
+     launches), the kernel path against the plain path (MODEL_TOL, float32
+     and bfloat16), the bf16 eval step's frames/s; on set (b) train
+     gradients of both paths (TRAIN_GRAD_TOL) and 5 bf16 `train_step`s at
+     B=64 (4 + 4 + 4 launches a step, finite losses, no skip, ms/step,
+     frames/s, peak memory); the forward, dQ and dK/dV on the inputs of one
+     eval step and one train step on each set, each against its plain
+     version on the staged route (or the run fails), timed beside SDPA and
+     the bound, with the time per allowed pair; the sgcls tracklet
+     encoder's 8 heads of 297 on the per-element route (forward with and
+     without dropout and lse, dQ, dK/dV, float32 and bfloat16, rows with no
+     allowed key exactly 0) and an sgcls train forward and backward, kernel
+     against plain path; `evaluate_epoch` on set (b) with a
+     `DeviceEvalPromotion` (promoted, score(20) equal to the host's); the
+     sgcls two-stage flow on 8 videos with `sgcls_group_ids` from the
+     tracker feeding both stages (3 tracklet-encoder and 4 relation
+     launches a forward), R@K finite and in [0, 1];
+     `solve_lsap_auction` on the card against scipy on the tracker's
+     non-degenerate cost matrices; the phase's wall time and the card;
+ 13. the `kernels` JSON line, then the device JSON line, last; the line
      before them prints the card and the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
@@ -462,6 +488,52 @@ def route_edge_checks(ma, g, dev) -> None:
         log(f"fwd / bwd_dkv {what} {(B, lq, Hh, D)} x Lk={lk}: routes {want}; max_abs_err "
             + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
             + "; empty rows and unseen keys exactly 0, one launch a call")
+
+
+def train_grads(model, batch, seed: int, dev, **kw) -> dict:
+    """Parameter gradients of one train-mode forward and backward (the
+    train step's loss), BatchNorm updates dropped; `kw` goes to the model
+    (DSG-DETR's `group_id`)."""
+    import torch
+
+    from nl_vsgg_tpu_torch.models.layers import MaskedBatchNorm
+    from nl_vsgg_tpu_torch.models.losses import sttran_losses
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model.zero_grad(set_to_none=True)
+    per_video = sttran_losses(model(batch, train=True, generator=gen, **kw), batch, gen)
+    w = batch.box_mask.any(-1).float()
+    (torch.where(w > 0, per_video["total"] * w, 0.0).sum() / w.sum().clamp(min=1.0)).backward()
+    for mod in model.modules():
+        if isinstance(mod, MaskedBatchNorm):
+            mod.discard()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def compare_grads(ker: dict, pln: dict, what: str, tol: float) -> tuple[float, str]:
+    """Worst ||g_kernel - g_plain|| / ||g_plain|| over the parameters; fails
+    past `tol`, on non-finite kernel gradients or different parameter sets.
+    A gradient that is 0 in exact arithmetic is rounding noise on both
+    paths (a bias whose output a train-mode BatchNorm re-centres, as the
+    sgcls tracklet head's `decoder_fc1.bias` and its last LayerNorm's bias:
+    about 1e-8 against norms of 0.1-7), so the denominator is at least 1e-6
+    of the largest gradient norm."""
+    if ker.keys() != pln.keys():
+        fail(f"{what}: the two paths gave gradients to different parameters")
+    floor = 1e-6 * max(float(g.norm()) for g in pln.values())
+    worst, worst_name = 0.0, ""
+    for name, gp in pln.items():
+        gk = ker[name]
+        if not bool(gk.isfinite().all()):
+            fail(f"{what} gradient {name} is not finite")
+        rel = float((gk - gp).norm() / gp.norm().clamp(min=max(floor, 1e-30)))
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > tol:
+        fail(f"{what}: kernel path differs from plain by {worst} at {worst_name}")
+    return worst, worst_name
 
 
 # ---------------------------------------------------------------- detector
@@ -1384,6 +1456,625 @@ def eval_phases(dev, card, entries) -> None:
     log(f"evaluation phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
 
 
+# ----------------------------------------------------------------- DSG-DETR
+IM_SIZE = (600.0, 1000.0)        # the synthetic frames' (height, width), the tracker's im_size
+# the tracker's cost matrices on the card's auction solver: a small eps and
+# enough rounds to finish; a matrix counts as non-degenerate when scipy's
+# optimum beats every other assignment by more than rows * eps
+AUCTION_EPS, AUCTION_ITERS, AUCTION_MATRICES = 0.02, 2000, 8
+
+
+def tracklet_entries(entries, rng) -> list:
+    """Set (b): the videos with each object slot keeping one class, drawn
+    once a video, through every frame (its detector distribution peaked on
+    that class as make_synthetic_entry peaks one), as an Action Genome clip
+    follows a person and a few objects through its frames."""
+    import torch
+
+    from nl_vsgg_tpu_torch.data import schema
+    out = []
+    for e in entries:
+        nb = int(e.box_mask.sum())
+        slot = np.arange(nb) % (OBJS + 1)        # make_synthetic_entry: person, then OBJS objects
+        obj = slot > 0
+        classes = rng.integers(2, schema.NUM_OBJ_CLASSES, OBJS + 1)
+        labels, dist = e.labels.numpy().copy(), e.distribution.numpy().copy()
+        labels[:nb][obj] = classes[slot[obj]]
+        d = rng.uniform(0, 0.1, (nb, dist.shape[1]))
+        d[np.arange(nb), labels[:nb] - 1] = rng.uniform(0.6, 1.0, nb)
+        dist[:nb][obj] = (d / d.sum(1, keepdims=True))[obj]
+        out.append(e.replace(labels=torch.from_numpy(labels), distribution=torch.from_numpy(dist)))
+    return out
+
+
+def dsg_masks(batch):
+    """DSG-DETR's two allow masks on a batch: local (the relations of one
+    frame) and global (the relations whose object has one class)."""
+    from nl_vsgg_tpu_torch.models.dsg_detr import _same_group, _take
+    obj = batch.pair_idx[..., 1]
+    return (_same_group(_take(batch.box_frame, obj), batch.rel_mask),
+            _same_group(_take(batch.labels, obj), batch.rel_mask))
+
+
+def capture_attention(model, run) -> list:
+    """The attention core's inputs (q, k, v, allow, scale) of every
+    MaskedMHA call one `run()` makes through `model`, rebuilt from each
+    call's own arguments (forward pre-hooks)."""
+    import torch
+
+    from nl_vsgg_tpu_torch.models.layers import MaskedMHA
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, kwargs: calls.append((mod, args, kwargs)), with_kwargs=True)
+        for m in model.modules() if isinstance(m, MaskedMHA)]
+    try:
+        run()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    with torch.inference_mode():
+        out = []
+        for mod, args, kwargs in calls:
+            q, k, v = mod.heads(*args[:3], dup2_pos=kwargs.get("dup2_pos"))
+            out.append((q, k, v, args[3], q.shape[-1] ** -0.5))
+    return out
+
+
+def record_train_attention(ma, run) -> list:
+    """The attention inputs and output gradient of every masked_mha call of
+    one `run()` (a train step)."""
+    records = []
+    orig = ma.masked_mha
+
+    def recording(q, k, v, allow, s, rate=0.0, seeds=None):
+        out = orig(q, k, v, allow, s, rate, seeds)
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "allow": allow, "s": s,
+               "rate": rate, "seeds": seeds}
+        records.append(rec)
+        out.register_hook(lambda gr, rec=rec: rec.__setitem__("g", gr.detach()))
+        return out
+
+    ma.masked_mha = recording
+    try:
+        run()
+    finally:
+        ma.masked_mha = orig
+    return records
+
+
+def attention_row(name: str, line: int, launches: int, r: dict) -> dict:
+    """A `kernels` row of the attention kernels from summed timings `r`
+    (`time_eval_calls`, `time_train_records`); `line` is the TPU kernel's
+    call site in nl_vsgg_tpu/ops/pallas_attention.py."""
+    return {"name": name, "route": "cuda", "source": "nl_vsgg_tpu_torch/csrc/masked_attention.cu",
+            "replaces": f"nl_vsgg_tpu/ops/pallas_attention.py:{line}",
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": max(r["terms"], key=r["terms"].get), "library_ms": r["library_ms"]}
+
+
+def _row_sums():
+    return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
+                pairs=0.0, terms={"bytes": 0.0, "operations": 0.0})
+
+
+def _add(row, err, kms, pms, bound, lms, pairs):
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    for key, val in (("ms", kms), ("plain_ms", pms), ("library_ms", lms), ("pairs", pairs)):
+        row[key] += val
+    row["bound_ms"] += bound[0]
+    row["terms"][bound[1]] += bound[0]
+
+
+def time_eval_calls(ma, calls, want_route: str, what: str) -> dict:
+    """Each captured eval forward against its plain version (KERNEL_TOL),
+    on `want_route` or the run fails; kernel, plain, SDPA and bound times
+    summed over the calls."""
+    import torch.nn.functional as F
+    row = _row_sums()
+    for q, k, v, allow, s in calls:
+        route = ma.fwd_route(q, k, v)
+        if route != want_route:
+            fail(f"{what}: the forward {tuple(q.shape)} took the {route} route, not {want_route}")
+        err, ok = kernel_err(ma.masked_mha(q, k, v, allow, s),
+                             ma.masked_mha_reference(q, k, v, allow, s))
+        if not ok:
+            fail(f"{what}: masked_mha disagrees with its plain version on {tuple(q.shape)} "
+                 f"(max_abs_err {err:.3e})")
+        kms = cuda_ms(lambda: ma.masked_mha(q, k, v, allow, s))
+        pms = cuda_ms(lambda: ma.masked_mha_reference(q, k, v, allow, s))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow[:, None],
+                                                             scale=s))
+        bound = attention_bound_ms(q, k, v, allow)
+        pairs = float(allow.sum())
+        _add(row, err, kms, pms, bound, lms, pairs)
+        log(f"{what} {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]}, route {route}: "
+            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound {bound[0]:.4f} "
+            f"ms ({bound[1]}), allowed pairs {pairs / allow.numel():.4f} "
+            f"({kms * 1e6 / pairs:.3f} ns a pair), max_abs_err {err:.3e}")
+    return row
+
+
+def time_train_records(ma, records, what: str) -> dict:
+    """Each recorded train call's forward and both backward kernels against
+    their plain versions (KERNEL_TOL / GRAD_TOL) on the staged route (or
+    the run fails), timed beside the plain versions, SDPA and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    rows = {n: _row_sums() for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    for rec in records:
+        q, k, v, allow, s, rate, sd, gout = (rec[n] for n in
+                                             ("q", "k", "v", "allow", "s", "rate", "seeds", "g"))
+        allow_t = allow.transpose(1, 2).contiguous()
+        routes = {"fwd": ma.fwd_route(q, k, v), "dQ": ma.dq_route(q, k, v, gout),
+                  "dK/dV": ma.dkv_route(q, k, v, gout)}
+        if set(routes.values()) != {"staged"}:
+            fail(f"{what}: the attention {tuple(q.shape)} took the routes {routes}")
+        out, lse = ma.masked_mha_forward(q, k, v, allow, s, rate, sd)
+        dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, s, gout, lse, rate, sd)
+        dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow_t, s, gout, lse, r, rate, sd)
+        ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, s, gout, rate, sd)
+        ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, s, gout, ref_r, rate, sd)
+        errs = {}
+        for name, got, ref, tol in (
+                ("fwd", out, ma.masked_mha_reference(q, k, v, allow, s, rate, sd), KERNEL_TOL),
+                ("bwd_dq", dq, ref_dq, GRAD_TOL), ("bwd_dq r", r, ref_r, GRAD_TOL),
+                ("bwd_dkv", dk, ref_dk, GRAD_TOL), ("bwd_dkv v", dv, ref_dv, GRAD_TOL)):
+            err, ok = kernel_err(got, ref, tol)
+            if not ok:
+                fail(f"{what}: {name} disagrees with its plain version on {tuple(q.shape)} "
+                     f"(max_abs_err {err:.3e})")
+            errs[name.split()[0]] = max(errs.get(name.split()[0], 0.0), err)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        gt, mask = gout.transpose(1, 2), allow[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=rate,
+                                                  scale=s)
+
+        lib_fwd = cuda_ms(sdpa)
+        lib_bwd = max(cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), gt)) - lib_fwd,
+                      0.0)
+        t = {"fwd": (cuda_ms(lambda: ma.masked_mha_forward(q, k, v, allow, s, rate, sd)),
+                     cuda_ms(lambda: ma.masked_mha_reference(q, k, v, allow, s, rate, sd)),
+                     attention_bound_ms(q, k, v, allow, True), lib_fwd),
+             "bwd_dq": (cuda_ms(lambda: ma.masked_mha_bwd_dq(q, k, v, allow, s, gout, lse, rate,
+                                                              sd)),
+                        cuda_ms(lambda: ma.masked_mha_bwd_dq_reference(q, k, v, allow, s, gout,
+                                                                       rate, sd)),
+                        attention_bwd_bound_ms(q, k, allow, "dq"), lib_bwd),
+             "bwd_dkv": (cuda_ms(lambda: ma.masked_mha_bwd_dkv(q, k, v, allow_t, s, gout, lse, r,
+                                                                rate, sd)),
+                         cuda_ms(lambda: ma.masked_mha_bwd_dkv_reference(q, k, v, allow, s, gout,
+                                                                         ref_r, rate, sd)),
+                         attention_bwd_bound_ms(q, k, allow, "dkv"), lib_bwd)}
+        pairs = float(allow.sum())
+        for n, (kms, pms, bound, lms) in t.items():
+            _add(rows[n], errs[n], kms, pms, bound, lms, pairs)
+        log(f"{what} {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}, routes staged: fwd "
+            f"{t['fwd'][0]:.4f} (plain {t['fwd'][1]:.4f}, sdpa {lib_fwd:.4f}), bwd dQ "
+            f"{t['bwd_dq'][0]:.4f} (plain {t['bwd_dq'][1]:.4f}), bwd dK/dV {t['bwd_dkv'][0]:.4f} "
+            f"(plain {t['bwd_dkv'][1]:.4f}), sdpa backward {lib_bwd:.4f} ms; allowed pairs "
+            f"{pairs / allow.numel():.4f}; max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    return rows
+
+
+def tracklet_kernel_checks(ma, calls, g, dev) -> None:
+    """The per-element route at the tracklet encoder's D = 297 on its own
+    inputs (set (b) boxes grouped by class), float32 and bfloat16: the
+    forward with and without dropout and lse, dQ and dK/dV against their
+    plain versions (KERNEL_TOL / GRAD_TOL) on the first call, the eval
+    forward on the others; every 17th query row given no allowed key,
+    whose outputs and dQ must be exactly 0."""
+    import torch
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
+    for i, (q0, k0, v0, allow0, s) in enumerate(calls):
+        allow = allow0.clone()
+        allow[:, ::17] = False
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q0, k0, v0))
+            gout = torch.randn(q.shape, device=dev, generator=g).to(dtype)
+            routes = (ma.fwd_route(q, k, v), ma.dq_route(q, k, v, gout),
+                      ma.dkv_route(q, k, v, gout))
+            if set(routes) != {"per-element"} or q.shape[-1] != (FEAT + 200 + 128) // 8:
+                fail(f"tracklet attention {tuple(q.shape)} {dtype}: routes {routes}")
+            errs = {}
+            for rate in ((0.0, RATE) if i == 0 else (0.0,)):
+                sd = seeds if rate else None
+                ref = ma.masked_mha_reference(q, k, v, allow, s, rate, sd)
+                for with_lse in ((False, True) if i == 0 else (False,)):
+                    out, lse = ma.masked_mha_forward(q, k, v, allow, s, rate, sd, with_lse)
+                    checks = [("out", out, ref, KERNEL_TOL)]
+                    if with_lse:
+                        checks.append(("lse", lse, ma.masked_mha_lse_reference(q, k, allow, s),
+                                       GRAD_TOL))
+                    if float(out[:, ::17].float().abs().max()) != 0.0:
+                        fail(f"tracklet forward {dtype}: rows with no allowed key are not 0")
+                    for name, got, want, tol in checks:
+                        err, ok = kernel_err(got, want, tol)
+                        errs[name] = max(errs.get(name, 0.0), err)
+                        if not ok:
+                            fail(f"tracklet {name} {dtype} rate {rate} disagrees with its plain "
+                                 f"version (max_abs_err {err:.3e})")
+                if i:
+                    continue
+                dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, s, gout, lse, rate, sd)
+                dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow.transpose(1, 2).contiguous(), s,
+                                               gout, lse, r, rate, sd)
+                torch.cuda.synchronize()
+                ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, s, gout, rate, sd)
+                ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, s, gout, ref_r,
+                                                                 rate, sd)
+                for name, got, want in (("dq", dq, ref_dq), ("r", r, ref_r), ("dk", dk, ref_dk),
+                                        ("dv", dv, ref_dv)):
+                    err, ok = kernel_err(got, want, GRAD_TOL)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    if not ok:
+                        fail(f"tracklet {name} {dtype} rate {rate} disagrees with its plain "
+                             f"version (max_abs_err {err:.3e})")
+                if float(dq[:, ::17].float().abs().max()) != 0.0:
+                    fail(f"tracklet dQ {dtype}: rows with no allowed key are not 0")
+            log(f"tracklet attention call {i} {tuple(q.shape)} {str(dtype)[6:]}, routes "
+                f"per-element: max_abs_err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + "; empty rows exactly 0")
+
+
+def auction_checks(costs, dev) -> str:
+    """`solve_lsap_auction` on the card against scipy on the tracker's cost
+    matrices (rows <= columns, transposed where needed) whose optimum beats
+    every other assignment by more than rows * AUCTION_EPS (found by brute
+    force; larger matrices skipped): the same assignment, or the run fails."""
+    import itertools
+    import math
+
+    import torch
+
+    from nl_vsgg_tpu_torch.models.matcher import solve_lsap_auction, solve_lsap_host
+    checked = degenerate = large = 0
+    t0 = time.perf_counter()
+    for cost in costs:
+        c = cost if cost.shape[0] <= cost.shape[1] else cost.T
+        n, m = c.shape
+        if n == 0 or math.perm(m, n) > 5040:
+            large += 1
+            continue
+        totals = sorted(float(c[np.arange(n), list(p)].sum())
+                        for p in itertools.permutations(range(m), n))
+        if len(totals) > 1 and totals[1] - totals[0] <= n * AUCTION_EPS:
+            degenerate += 1
+            continue
+        got = solve_lsap_auction(torch.from_numpy(np.ascontiguousarray(c)).to(dev),
+                                 n_iter=AUCTION_ITERS, eps=AUCTION_EPS).cpu().numpy()
+        _, col = solve_lsap_host(c)
+        if not np.array_equal(got, col):
+            fail(f"solve_lsap_auction on the card assigned {got}, scipy {col} on a {n}x{m} "
+                 f"tracker cost matrix")
+        checked += 1
+        if checked == AUCTION_MATRICES:
+            break
+    if checked == 0:
+        fail("no non-degenerate tracker cost matrix to hold the auction solver against")
+    return (f"solve_lsap_auction on the card = scipy on {checked} tracker cost matrices "
+            f"(eps {AUCTION_EPS}, {AUCTION_ITERS} rounds; {degenerate} degenerate and {large} "
+            f"large ones skipped of {len(costs)} recorded), "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
+
+
+def dsg_detr_phases(dev, card, entries) -> list[dict]:
+    """Phase 12: DSG-DETR at full width on phase 3's 64 videos (set (a),
+    random classes) and the same videos with tracklets (set (b), one class
+    a slot through every frame): serving, the kernel path against the
+    plain path, training, the attention kernels on its own inputs (per
+    allowed pair), the tracklet encoder's D = 297 per-element route, the
+    epoch eval with its promotion, the sgcls two-stage flow with tracker
+    ids and the auction solver. Returns the phase's `kernels` rows."""
+    import torch
+
+    from nl_vsgg_tpu_torch.data.entry import to_numpy
+    from nl_vsgg_tpu_torch.data.grounding import entry_to_eval_pred
+    from nl_vsgg_tpu_torch.data.infer_entry import build_infer_entry
+    from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_gt
+    from nl_vsgg_tpu_torch.eval import epoch as epoch_mod
+    from nl_vsgg_tpu_torch.eval.recall import SceneGraphEvaluator
+    from nl_vsgg_tpu_torch.models import matcher as matcher_mod
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.models.sgcls_infer import sgcls_assign
+    from nl_vsgg_tpu_torch.models.track import sgcls_group_ids
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.ops.boxes import center_size
+    from nl_vsgg_tpu_torch.serve import place_batch, predict
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import eval_step, make_train_step
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    dtypes = {"float32": None, "bfloat16": bf16}
+    sets = {"a": entries, "b": tracklet_entries(entries, np.random.default_rng(4000))}
+    batches = {(n, d): place_batch(es, dev, dt) for n, es in sets.items()
+               for d, dt in dtypes.items()}
+    for n in sets:
+        local, glob = dsg_masks(batches[n, "bfloat16"])
+        dens = (float(local.float().mean()), float(glob.float().mean()))
+        log(f"DSG-DETR set ({n}) {'random classes' if n == 'a' else 'tracklets'}: {B} videos x "
+            f"{N_FRAMES} frames, {N_RELS} relation slots; allowed pairs local {dens[0]:.4f}, "
+            f"global {dens[1]:.4f}")
+        if n == "b" and dens[1] < 0.2:
+            fail(f"set (b)'s global masks allow {dens[1]:.4f} of the pairs: not tracklets")
+    kw = dict(mode="sgdet", feat_dim=FEAT, device=dev)
+    t0 = time.perf_counter()
+    models = {(d, fused): DSGDETR(dtype=dt, fused=fused, generator=torch.Generator().manual_seed(0),
+                                  **kw)
+              for d, dt in dtypes.items() for fused in (True, False)}
+    log(f"models: 4 x DSG-DETR sgdet in {time.perf_counter() - t0:.3f} s")
+    one_fwd = {"fwd": 4, "bwd_dq": 0, "bwd_dkv": 0}
+
+    # ---- serving, kernel path against plain path, eval step rate ----
+    serve_launches = {}
+    for n, es in sets.items():
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        graphs = predict(models["bfloat16", True], es, batch=B, device=dev)
+        torch.cuda.synchronize()
+        serve_launches[n] = dict(ma.LAUNCHES)
+        log(f"DSG-DETR serve.predict set ({n}): {len(graphs)} scene graphs in "
+            f"{time.perf_counter() - t0:.3f} s wall; launches {serve_launches[n]}")
+        if serve_launches[n] != one_fwd:
+            fail(f"DSG-DETR serving launched {serve_launches[n]}, expected {one_fwd}")
+        if len(graphs) != B or any(not gr["triplets"] for gr in graphs) or not all(
+                np.isfinite(t["score"]) for gr in graphs for t in gr["triplets"]):
+            fail("DSG-DETR serve.predict did not return one finite scene graph per video")
+    for n in sets:
+        for d in dtypes:
+            ker = eval_step(models[d, True], batches[n, d])
+            pln = eval_step(models[d, False], batches[n, d])
+            diffs = {}
+            for key in HEADS + ("global_output",):
+                a, b = ker[key], pln[key]
+                if a.shape[0] != B or not bool(a.isfinite().all()):
+                    fail(f"DSG-DETR {d} {key}: shape {tuple(a.shape)} or non-finite values")
+                diffs[key] = float((a.float() - b.float()).abs().max())
+                if key in HEADS and diffs[key] > MODEL_TOL[d]:
+                    fail(f"DSG-DETR set ({n}) {d} {key}: kernel path differs from plain by "
+                         f"{diffs[key]} > {MODEL_TOL[d]}")
+            log(f"DSG-DETR set ({n}) {d} kernel vs plain max_abs_diff: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+    del ker, pln
+    frames = B * N_FRAMES
+    eval_ms = {}
+    for n in sets:
+        for fused in (True, False):
+            m, batch = models["bfloat16", fused], batches[n, "bfloat16"]
+            eval_ms[n, fused] = cuda_ms(lambda: eval_step(m, batch), iters=10)
+            log(f"DSG-DETR eval_step bf16 set ({n}) {'kernel' if fused else 'plain'} attention: "
+                f"{eval_ms[n, fused]:.3f} ms/step, {frames / eval_ms[n, fused] * 1e3:.1f} "
+                f"frames/s (B={B} x {N_FRAMES} frames); card {card}")
+
+    # ---- training on set (b) ----
+    for d in dtypes:
+        ma.reset_launches()
+        ker = train_grads(models[d, True], batches["b", d], 7, dev)
+        torch.cuda.synchronize()
+        got = dict(ma.LAUNCHES)
+        ma.reset_launches()
+        pln = train_grads(models[d, False], batches["b", d], 7, dev)
+        if got != {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4} or any(ma.LAUNCHES.values()):
+            fail(f"DSG-DETR {d} train forward/backward launched {got} (kernel path) and "
+                 f"{dict(ma.LAUNCHES)} (plain path)")
+        worst, name = compare_grads(ker, pln, f"DSG-DETR {d} train gradients", TRAIN_GRAD_TOL[d])
+        log(f"DSG-DETR train grads {d} set (b) kernel vs plain attention (dropout {RATE}, same "
+            f"generator seed): {len(pln)} tensors, worst ||dg||/||g|| {worst:.3e} at {name} "
+            f"(tol {TRAIN_GRAD_TOL[d]})")
+    del ker, pln
+    batch_b = batches["b", "bfloat16"]
+    train_ms, train_launches, kept = {}, {}, None
+    for fused in (True, False):
+        m = models["bfloat16", fused]
+        st = create_train_state(m, lr=1e-5)
+        step = make_train_step(m, st.optimizer)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for _ in range(2):                        # warm-up
+            st, met = step(st, batch_b, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        totals_t = []
+        for _ in range(TRAIN_STEPS):
+            st, met = step(st, batch_b, gen)
+            totals_t.append(met["total"])
+        torch.cuda.synchronize()
+        train_ms[fused] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        train_launches[fused] = dict(ma.LAUNCHES)
+        losses = [float(t) for t in totals_t]
+        label = "kernel" if fused else "plain"
+        log(f"DSG-DETR train_step bf16 set (b) {label} attention: {train_ms[fused]:.3f} ms/step, "
+            f"{frames / train_ms[fused] * 1e3:.1f} frames/s (B={B} x {N_FRAMES} frames, "
+            f"{TRAIN_STEPS} steps after 2 warm-up), losses {[round(x, 4) for x in losses]}, "
+            f"skipped {st.skipped}, launches {train_launches[fused]}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card {card}")
+        if not all(np.isfinite(losses)) or st.skipped != 0:
+            fail(f"DSG-DETR bf16 train steps ({label}): losses {losses}, skipped {st.skipped}")
+        want = ({"fwd": 4 * TRAIN_STEPS, "bwd_dq": 4 * TRAIN_STEPS, "bwd_dkv": 4 * TRAIN_STEPS}
+                if fused else {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0})
+        if train_launches[fused] != want:
+            fail(f"DSG-DETR train steps ({label}) launched {train_launches[fused]}, "
+                 f"expected {want}")
+        if fused:
+            kept = (st, step, gen)
+        del st, step
+
+    # ---- the kernels on DSG-DETR's own inputs, per allowed pair ----
+    eval_rows, train_rows = {}, {}
+    st, step, gen = kept
+    for n in sets:
+        calls = capture_attention(models["bfloat16", True],
+                                  lambda: eval_step(models["bfloat16", True],
+                                                    batches[n, "bfloat16"]))
+        eval_rows[n] = time_eval_calls(ma, calls, "staged", f"DSG-DETR eval set ({n})")
+        del calls
+        holder = {}
+
+        def one_step():
+            holder["st"], _ = step(st, batches[n, "bfloat16"], gen)
+        records = record_train_attention(ma, one_step)
+        st = holder["st"]
+        if len(records) != 4 or not all("g" in r for r in records):
+            fail(f"recorded {len(records)} DSG-DETR attention calls with gradients in one step")
+        train_rows[n] = time_train_records(ma, records, f"DSG-DETR train set ({n})")
+        del records
+    for n in sets:
+        e, t = eval_rows[n], train_rows[n]
+        log(f"DSG-DETR set ({n}) per step: eval forward {e['ms']:.4f} ms (plain "
+            f"{e['plain_ms']:.4f}, sdpa {e['library_ms']:.4f}, bound {e['bound_ms']:.4f}) = "
+            f"{e['ms'] / eval_ms[n, True] * 100:.1f}% of the eval step; train fwd "
+            f"{t['fwd']['ms']:.4f}, dQ {t['bwd_dq']['ms']:.4f}, dK/dV {t['bwd_dkv']['ms']:.4f} ms; "
+            f"ns per allowed (query, key) pair, 8 heads: eval fwd "
+            f"{e['ms'] * 1e6 / e['pairs']:.3f}, train fwd "
+            f"{t['fwd']['ms'] * 1e6 / t['fwd']['pairs']:.3f}, dQ "
+            f"{t['bwd_dq']['ms'] * 1e6 / t['bwd_dq']['pairs']:.3f}, dK/dV "
+            f"{t['bwd_dkv']['ms'] * 1e6 / t['bwd_dkv']['pairs']:.3f}; card {card}")
+    del kept, st, step, gen
+    for m in models.values():
+        m.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # ---- the tracklet encoder: sgcls, D = 297 on the per-element route ----
+    # its box-position BatchNorm is given the running statistics of the
+    # boxes it reads, as a trained head's would hold: drawn near (0, 1)
+    # against pixel coordinates of ~400, it would give the first layer
+    # logits of ~2400, where any two float32 summation orders disagree
+    # (a check of conditioning, not of the kernel)
+    cz = center_size(batch_b.boxes)[batch_b.box_mask].float()
+    sg = {}
+    for fused in (True, False):
+        sg[fused] = DSGDETR(mode="sgcls", feat_dim=FEAT, dtype=bf16, fused=fused, device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        bn = sg[fused].object_classifier.pos_bn
+        bn.running_mean.copy_(cz.mean(0))
+        bn.running_var.copy_(cz.var(0))
+    calls = capture_attention(sg[True].object_classifier, lambda: eval_step(sg[True], batch_b))
+    if len(calls) != 3:
+        fail(f"the tracklet encoder made {len(calls)} attention calls, expected 3")
+    tracklet_kernel_checks(ma, calls, torch.Generator(device=dev).manual_seed(5), dev)
+    d297 = time_eval_calls(ma, calls, "per-element", "tracklet encoder eval")
+    del calls
+    ma.reset_launches()
+    ker = train_grads(sg[True], batch_b, 7, dev)
+    torch.cuda.synchronize()
+    got = dict(ma.LAUNCHES)
+    pln = train_grads(sg[False], batch_b, 7, dev)
+    if got != {"fwd": 7, "bwd_dq": 7, "bwd_dkv": 7}:
+        fail(f"the sgcls train forward/backward launched {got}, expected 7 of each")
+    worst, name = compare_grads(ker, pln, "DSG-DETR sgcls bf16 train gradients",
+                                TRAIN_GRAD_TOL["bfloat16"])
+    log(f"DSG-DETR sgcls train grads set (b) kernel vs plain attention: {len(pln)} tensors, "
+        f"worst ||dg||/||g|| {worst:.3e} at {name} (tol {TRAIN_GRAD_TOL['bfloat16']}); "
+        f"launches {got}")
+    del ker, pln, sg[False]
+
+    # ---- evaluation: evaluate_epoch with its promotion, set (b) ----
+    # the host evaluator scores the eval step's outputs on the batches the
+    # epoch loop forms, so both score the same predictions
+    model = models["bfloat16", True]
+    gts = [make_synthetic_gt(e, np.random.default_rng(6000 + i)) for i, e in enumerate(sets["b"])]
+    ebatches = [list(zip(gts[s:s + EVAL_BATCH], sets["b"][s:s + EVAL_BATCH]))
+                for s in range(0, B, EVAL_BATCH)]
+    ev = SceneGraphEvaluator("sgdet")
+    ma.reset_launches()
+    for items in ebatches:
+        out = eval_step(model, place_batch([e for _, e in items], dev, bf16))
+        host_out = {k: to_numpy(out[k]) for k in epoch_mod.EVAL_KEYS}
+        for i, (gt, e) in enumerate(items):
+            ev.evaluate_scene_graph(gt, entry_to_eval_pred(e, {k: v[i]
+                                                               for k, v in host_out.items()}))
+    torch.cuda.synchronize()
+    want = {"fwd": 4 * len(ebatches), "bwd_dq": 0, "bwd_dkv": 0}
+    if dict(ma.LAUNCHES) != want:
+        fail(f"the DSG-DETR eval steps launched {dict(ma.LAUNCHES)}, expected {want}")
+    check_recalls(ev, "DSG-DETR sgdet")
+    log(recall_line(ev) + f"  (DSG-DETR sgdet, set (b), {B} videos x {N_FRAMES} frames)")
+    promo = epoch_mod.DeviceEvalPromotion(burnin=16, recheck_every=64)
+    ma.reset_launches()
+    t0 = time.perf_counter()
+    epoch_mod.evaluate_epoch(model, ebatches, promotion=promo, device=dev)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    if dict(ma.LAUNCHES) != want:
+        fail(f"DSG-DETR evaluate_epoch launched {dict(ma.LAUNCHES)}, expected {want}")
+    if not promo.promoted or abs(promo.score(20) - ev.mean_score(20)) > EVAL_ATOL:
+        fail(f"DSG-DETR evaluate_epoch: promoted {promo.promoted} (checked {promo.checked}), "
+             f"score(20) {promo.score(20)} against the host's {ev.mean_score(20)}")
+    log(f"DSG-DETR evaluate_epoch: {B} videos in batches of {EVAL_BATCH}, promoted after "
+        f"{promo.checked} host-checked videos, score(20) {promo.score(20):.6f} = host "
+        f"{ev.mean_score(20):.6f}; wall {epoch_s:.3f} s; card {card}")
+
+    # ---- the sgcls two-stage flow with tracker ids (test_DSG_DETR.py:53-60) ----
+    sub, sub_gts = sets["b"][:SGCLS_VIDEOS], gts[:SGCLS_VIDEOS]
+    costs = []
+    host_solver = matcher_mod.solve_lsap_host
+
+    def recording_solver(cost):
+        costs.append(np.array(cost))
+        return host_solver(cost)
+
+    matcher_mod.solve_lsap_host = recording_solver
+    t0 = time.perf_counter()
+    try:
+        gid_np = np.stack([sgcls_group_ids(e, IM_SIZE) for e in sub])
+    finally:
+        matcher_mod.solve_lsap_host = host_solver
+    track_ms = (time.perf_counter() - t0) / len(sub) * 1e3
+    gid = torch.from_numpy(gid_np).to(dev)
+    tracklets = [len(set(g[:int(e.box_mask.sum())].tolist())) for g, e in zip(gid_np, sub)]
+    ma.reset_launches()
+    with torch.inference_mode():
+        stage1 = to_numpy(sg[True](place_batch(sub, dev, bf16), group_id=gid)["distribution"])
+    stage2_entries = []
+    for i, e in enumerate(sub):
+        nb = int(e.box_mask.sum())
+        frames_i = e.box_frame[:nb].numpy()
+        assign = sgcls_assign(stage1[i, :nb], frames_i)
+        assign.update(boxes=e.boxes[:nb].numpy(), box_frame=frames_i,
+                      features=e.features[:nb].numpy())
+        e2 = build_infer_entry(assign, int(e.num_frames), e.n_boxes, e.n_rels, feat_dim=FEAT,
+                               compute_spatial_masks=False)
+        if e2 is None:
+            fail(f"DSG-DETR sgcls: video {i} has no person-object pair after assignment")
+        stage2_entries.append(e2)
+    with torch.inference_mode():
+        out2 = sg[True](place_batch(stage2_entries, dev, bf16), group_id=gid)
+    torch.cuda.synchronize()
+    sg_launches = dict(ma.LAUNCHES)
+    want = {"fwd": 14, "bwd_dq": 0, "bwd_dkv": 0}
+    if sg_launches != want:
+        fail(f"the DSG-DETR sgcls two stages launched {sg_launches}, expected {want} "
+             f"(3 tracklet-encoder and 4 relation launches a forward)")
+    out2 = {k: to_numpy(out2[k]) for k in epoch_mod.EVAL_KEYS}
+    ev_cls = SceneGraphEvaluator("sgcls")
+    for i, (gt, e2) in enumerate(zip(sub_gts, stage2_entries)):
+        ev_cls.evaluate_scene_graph(gt, entry_to_eval_pred(e2, {k: v[i] for k, v in out2.items()}))
+    check_recalls(ev_cls, "DSG-DETR sgcls")
+    log(recall_line(ev_cls) + f"  (DSG-DETR sgcls two-stage, {SGCLS_VIDEOS} videos of set (b), "
+        f"tracker ids on both stages: {tracklets} tracklets of {N_BOXES} boxes, tracker "
+        f"{track_ms:.1f} ms/video on the host; launches {sg_launches}: 3 tracklet-encoder + 4 "
+        f"relation a forward)")
+    log(auction_checks(costs, dev))
+    log(f"DSG-DETR phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+
+    tb = train_rows["b"]
+    return [attention_row("masked_mha_dsg_detr", 143, serve_launches["b"]["fwd"], eval_rows["b"]),
+            attention_row("masked_mha_fwd_train_dsg_detr", 143, train_launches[True]["fwd"],
+                          tb["fwd"]),
+            attention_row("masked_mha_bwd_dq_dsg_detr", 157, train_launches[True]["bwd_dq"],
+                          tb["bwd_dq"]),
+            attention_row("masked_mha_bwd_dkv_dsg_detr", 157, train_launches[True]["bwd_dkv"],
+                          tb["bwd_dkv"]),
+            attention_row("masked_mha_d297_tracklet", 143,
+                          sg_launches["fwd"] - 2 * one_fwd["fwd"], d297)]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1397,10 +2088,7 @@ def main() -> None:
         import nl_vsgg_tpu_torch  # noqa: F401
     except ImportError:
         fail(f"package nl_vsgg_tpu_torch not found beside {__file__}")
-    import torch.nn.functional as F
-
     from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
-    from nl_vsgg_tpu_torch.models.layers import MaskedMHA
     from nl_vsgg_tpu_torch.models.sttran import STTran
     from nl_vsgg_tpu_torch.ops import _build, masked_attention as ma
     from nl_vsgg_tpu_torch.serve import place_batch, predict
@@ -1565,43 +2253,10 @@ def main() -> None:
     # ---- 4. kernel timings on the main path's own inputs ----
     # the attention core's inputs of one bf16 forward, rebuilt from each
     # MaskedMHA call's own arguments (forward pre-hooks record them)
-    calls = []
-    mhas = [m for m in models["bfloat16", True].modules() if isinstance(m, MaskedMHA)]
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args, kwargs: calls.append((mod, args, kwargs)), with_kwargs=True)
-        for m in mhas]
-    try:
-        eval_step(models["bfloat16", True], batches["bfloat16"])
-    finally:
-        for hk in hooks:
-            hk.remove()
-    with torch.inference_mode():
-        captured = [(*mod.heads(*args[:3], dup2_pos=kwargs.get("dup2_pos")), args[3],
-                     HEAD_DIM ** -0.5) for mod, args, kwargs in calls]
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    bound_terms = {"bytes": 0.0, "operations": 0.0}
-    max_err = 0.0
-    for q, k, v, allow, s in captured:
-        err, ok = kernel_err(ma.masked_mha(q, k, v, allow, s),
-                             ma.masked_mha_reference(q, k, v, allow, s))
-        if not ok:
-            fail(f"masked_mha disagrees with its plain version on main-path inputs {tuple(q.shape)}")
-        max_err = max(max_err, err)
-        kms = cuda_ms(lambda: ma.masked_mha(q, k, v, allow, s))
-        pms = cuda_ms(lambda: ma.masked_mha_reference(q, k, v, allow, s))
-        qt, kt, vt, mask = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), allow[:, None]
-        lms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=s))
-        bms, by = attention_bound_ms(q, k, v, allow)
-        bound_terms[by] += bms
-        density = float(allow.float().mean())
-        route = ma.fwd_route(q, k, v)
-        if route != "staged":
-            fail(f"the serving path's forward {tuple(q.shape)} took the {route} route")
-        log(f"masked_mha main path {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]}, "
-            f"route {route}: kernel {kms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), allowed pairs {density:.4f}, max_abs_err {err:.3e}")
-        for key, val in (("ms", kms), ("plain_ms", pms), ("bound_ms", bms), ("library_ms", lms)):
-            totals[key] += val
+    captured = capture_attention(models["bfloat16", True],
+                                 lambda: eval_step(models["bfloat16", True],
+                                                   batches["bfloat16"]))
+    totals = time_eval_calls(ma, captured, "staged", "masked_mha main path")
     log(f"masked_mha per forward (4 launches): kernel {totals['ms']:.4f} ms = "
         f"{totals['ms'] / step_ms['bfloat16', True] * 100:.1f}% of the bf16 eval step")
 
@@ -1609,34 +2264,16 @@ def main() -> None:
                   step_ms["bfloat16", True], "bf16 eval step")
 
     # ---- 5. the training path at full width ----
-    from nl_vsgg_tpu_torch.models.layers import MaskedBatchNorm
-    from nl_vsgg_tpu_torch.models.losses import sttran_losses
     from nl_vsgg_tpu_torch.train.state import create_train_state
     from nl_vsgg_tpu_torch.train.step import make_train_step
 
-    def train_grads(model, batch, seed):
-        """Parameter gradients of one train-mode forward and backward (the
-        train step's loss), BatchNorm updates dropped."""
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        model.zero_grad(set_to_none=True)
-        per_video = sttran_losses(model(batch, train=True, generator=gen), batch, gen)
-        w = batch.box_mask.any(-1).float()
-        (torch.where(w > 0, per_video["total"] * w, 0.0).sum() / w.sum().clamp(min=1.0)).backward()
-        for mod in model.modules():
-            if isinstance(mod, MaskedBatchNorm):
-                mod.discard()
-        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
-                 if p.grad is not None}
-        model.zero_grad(set_to_none=True)
-        return grads
-
     for dname in ("float32", "bfloat16"):
         ma.reset_launches()
-        ker = train_grads(models[dname, True], batches[dname], 7)
+        ker = train_grads(models[dname, True], batches[dname], 7, dev)
         torch.cuda.synchronize()
         got = dict(ma.LAUNCHES)
         ma.reset_launches()
-        pln = train_grads(models[dname, False], batches[dname], 7)
+        pln = train_grads(models[dname, False], batches[dname], 7, dev)
         if got != {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4} or any(ma.LAUNCHES.values()):
             fail(f"{dname} train forward/backward launched {got} (kernel path) and "
                  f"{dict(ma.LAUNCHES)} (plain path)")
@@ -1696,92 +2333,15 @@ def main() -> None:
 
     # ---- 6. train kernels timed on one train step's own inputs ----
     st, step, gen = steps[True]
-    records = []
-    orig = ma.masked_mha
+    holder = {}
 
-    def recording(q, k, v, allow, s, rate=0.0, seeds=None):
-        out = orig(q, k, v, allow, s, rate, seeds)
-        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "allow": allow, "s": s,
-               "rate": rate, "seeds": seeds}
-        records.append(rec)
-        out.register_hook(lambda gr, rec=rec: rec.__setitem__("g", gr.detach()))
-        return out
-
-    ma.masked_mha = recording
-    try:
-        st, _ = step(st, batch, gen)
-    finally:
-        ma.masked_mha = orig
+    def one_step():
+        holder["st"], _ = step(st, batch, gen)
+    records = record_train_attention(ma, one_step)
+    st = holder["st"]
     if len(records) != 4 or not all("g" in r for r in records):
         fail(f"recorded {len(records)} attention calls with gradients in one train step")
-
-    train_rows = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, max_abs_err=0.0,
-                          terms={"bytes": 0.0, "operations": 0.0})
-                  for n in ("fwd", "bwd_dq", "bwd_dkv")}
-
-    def add(row, err, kms, pms, bound, lms):
-        r = train_rows[row]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        for key, val in (("ms", kms), ("plain_ms", pms), ("library_ms", lms)):
-            r[key] += val
-        r["bound_ms"] += bound[0]
-        r["terms"][bound[1]] += bound[0]
-
-    for rec in records:
-        q, k, v, allow, s, rate, sd, gout = (rec[n] for n in
-                                             ("q", "k", "v", "allow", "s", "rate", "seeds", "g"))
-        allow_t = allow.transpose(1, 2).contiguous()
-        out, lse = ma.masked_mha_forward(q, k, v, allow, s, rate, sd)
-        dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, s, gout, lse, rate, sd)
-        dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow_t, s, gout, lse, r, rate, sd)
-        ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, s, gout, rate, sd)
-        ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, s, gout, ref_r, rate, sd)
-        errs = {}
-        for name, got, ref, tol in (
-                ("fwd", out, ma.masked_mha_reference(q, k, v, allow, s, rate, sd), KERNEL_TOL),
-                ("bwd_dq", dq, ref_dq, GRAD_TOL), ("bwd_dq r", r, ref_r, GRAD_TOL),
-                ("bwd_dkv", dk, ref_dk, GRAD_TOL), ("bwd_dkv v", dv, ref_dv, GRAD_TOL)):
-            err, ok = kernel_err(got, ref, tol)
-            if not ok:
-                fail(f"{name} disagrees with its plain version on train-path inputs "
-                     f"{tuple(q.shape)} x Lk={k.shape[1]} (max_abs_err {err:.3e})")
-            key = name.split()[0]
-            errs[key] = max(errs.get(key, 0.0), err)
-
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        gt, mask = gout.transpose(1, 2), allow[:, None]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=rate,
-                                                  scale=s)
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
-
-        lib_fwd = cuda_ms(sdpa)
-        lib_bwd = max(cuda_ms(sdpa_fwd_bwd) - lib_fwd, 0.0)  # dq, dk, dv in one call
-        fms = cuda_ms(lambda: ma.masked_mha_forward(q, k, v, allow, s, rate, sd))
-        fpl = cuda_ms(lambda: ma.masked_mha_reference(q, k, v, allow, s, rate, sd))
-        qms = cuda_ms(lambda: ma.masked_mha_bwd_dq(q, k, v, allow, s, gout, lse, rate, sd))
-        qpl = cuda_ms(lambda: ma.masked_mha_bwd_dq_reference(q, k, v, allow, s, gout, rate, sd))
-        kms = cuda_ms(lambda: ma.masked_mha_bwd_dkv(q, k, v, allow_t, s, gout, lse, r, rate, sd))
-        kpl = cuda_ms(lambda: ma.masked_mha_bwd_dkv_reference(q, k, v, allow, s, gout, ref_r,
-                                                              rate, sd))
-        add("fwd", errs["fwd"], fms, fpl, attention_bound_ms(q, k, v, allow, True), lib_fwd)
-        add("bwd_dq", errs["bwd_dq"], qms, qpl, attention_bwd_bound_ms(q, k, allow, "dq"),
-            lib_bwd)
-        add("bwd_dkv", errs["bwd_dkv"], kms, kpl, attention_bwd_bound_ms(q, k, allow, "dkv"),
-            lib_bwd)
-        routes = {"fwd": ma.fwd_route(q, k, v), "dQ": ma.dq_route(q, k, v, gout),
-                  "dK/dV": ma.dkv_route(q, k, v, gout)}
-        if set(routes.values()) != {"staged"}:
-            fail(f"the train path's attention {tuple(q.shape)} took the routes {routes}")
-        log(f"train path {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}, routes "
-            + ", ".join(f"{n} {rt}" for n, rt in routes.items()) + f": fwd {fms:.4f} "
-            f"(plain {fpl:.4f}, sdpa {lib_fwd:.4f}), bwd dQ {qms:.4f} (plain {qpl:.4f}), "
-            f"bwd dK/dV {kms:.4f} (plain {kpl:.4f}), sdpa backward {lib_bwd:.4f} ms; "
-            f"allowed pairs {float(allow.float().mean()):.4f}; max_abs_err "
-            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    train_rows = time_train_records(ma, records, "train path")
     for n, r in train_rows.items():
         log(f"{n} per train step (4 launches): kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
@@ -1801,27 +2361,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     eval_phases(dev, card, entries)
 
-    # ---- 12. result lines ----
-    by = max(bound_terms, key=bound_terms.get)
-    kernels = [{
-        "name": "masked_mha", "route": "cuda",
-        "source": "nl_vsgg_tpu_torch/csrc/masked_attention.cu",
-        "replaces": "nl_vsgg_tpu/ops/pallas_attention.py:143",
-        "launches": launches["fwd"], "max_abs_err": max_err,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"], "bound_by": by,
-        "library_ms": totals["library_ms"],
-    }]
-    for n, replaces in (("fwd", 143), ("bwd_dq", 157), ("bwd_dkv", 157)):
-        r = train_rows[n]
-        kernels.append({
-            "name": f"masked_mha_{n}_train" if n == "fwd" else f"masked_mha_{n}",
-            "route": "cuda", "source": "nl_vsgg_tpu_torch/csrc/masked_attention.cu",
-            "replaces": f"nl_vsgg_tpu/ops/pallas_attention.py:{replaces}",
-            "launches": train_launches[True][n], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": max(r["terms"], key=r["terms"].get), "library_ms": r["library_ms"]})
-    kernels += det_rows + probe_rows
+    # ---- 12. DSG-DETR ----
+    torch.cuda.empty_cache()
+    dsg_rows = dsg_detr_phases(dev, card, entries)
+
+    # ---- 13. result lines ----
+    kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
+               attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
+                             train_rows["fwd"]),
+               attention_row("masked_mha_bwd_dq", 157, train_launches[True]["bwd_dq"],
+                             train_rows["bwd_dq"]),
+               attention_row("masked_mha_bwd_dkv", 157, train_launches[True]["bwd_dkv"],
+                             train_rows["bwd_dkv"])]
+    kernels += det_rows + probe_rows + dsg_rows
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

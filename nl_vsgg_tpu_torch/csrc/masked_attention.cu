@@ -28,7 +28,10 @@
 // which would cost one more read and write of q, k, v and g; the staged
 // routes copy whole token rows, or the 16-byte window around a group of 2
 // heads' slice of them, which do line up, and read a head's bf16 pairs
-// from shared memory with 32-bit loads. Any D <= 256.
+// from shared memory with 32-bit loads. The staged routes take D <= 256;
+// the per-element routes D <= 320: their kernels are instantiated for the
+// dims a lane holds, 8 (D <= 256) or 10 (D <= 320, DSG-DETR's tracklet
+// encoder: 2376 / 8 = 297), the launch picking the smaller that fits.
 //
 // Dropout bits. A stateless counter hash of (video seed, head, query, key):
 // three rounds of murmur3's 32-bit finalizer over the key mixed in one
@@ -129,8 +132,8 @@ namespace {
 
 constexpr int WARPS = 8;             // (row, head) pairs per block
 constexpr int THREADS = WARPS * 32;
-constexpr int DMAX = 256;            // largest head dim
-constexpr int SLOTS = DMAX / 32;     // dims per lane
+constexpr int DMAX = 320;            // largest head dim (per-element routes)
+constexpr int STAGED_DMAX = 256;     // largest head dim of the staged routes
 constexpr float LSE_EMPTY = -1e30f;  // lse of a row with no allowed key
 // Resident blocks per SM asked of the compiler (it caps registers to fit).
 // On an H100 at the training shapes the train forward (dropout + lse) at 6
@@ -142,8 +145,17 @@ constexpr int DKV_MIN_BLOCKS = 4;
 constexpr int KC = 2;                // keys a cp.async chunk of the staged dQ route (warp_sum4)
 constexpr int STAGES = 2;            // chunks in its ring
 constexpr int DQ_MIN_BLOCKS = 3;     // its blocks an SM asked of the compiler (<= 85 registers)
-constexpr int PAIRS = DMAX / 64;     // bf16 dim pairs a lane in the staged dQ route
+constexpr int PAIRS = STAGED_DMAX / 64;  // bf16 dim pairs a lane in the staged dQ route
 constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use on sm_90
+
+// The per-element kernels hold SLOTS dims a lane (8 up to D = 256, 10 up to
+// 320). The 10-dim instantiations ask for fewer resident blocks in the
+// same proportion, so the compiler's register cap grows with the dims; the
+// 8-dim ones keep the counts above.
+constexpr int slots_for(int D) { return D <= 256 ? 8 : 10; }
+constexpr int min_blocks_for(int blocks, int slots) {
+  return blocks * 8 / slots > 1 ? blocks * 8 / slots : 1;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -189,8 +201,9 @@ struct Args {
 };
 
 // ---------------------------------------------------------------- forward
-template <typename T, bool DROP, bool LSE>
-__global__ void __launch_bounds__(THREADS, DROP && LSE ? TRAIN_FWD_MIN_BLOCKS : 1)
+template <typename T, int SLOTS, bool DROP, bool LSE>
+__global__ void __launch_bounds__(THREADS,
+                                  DROP && LSE ? min_blocks_for(TRAIN_FWD_MIN_BLOCKS, SLOTS) : 1)
 masked_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const unsigned char* __restrict__ allow,
                       const int* __restrict__ seeds, T* __restrict__ out,
@@ -259,7 +272,7 @@ masked_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------ backward: dQ
-template <typename T, bool DROP>
+template <typename T, int SLOTS, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 masked_mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
@@ -1104,8 +1117,8 @@ masked_mha_bwd_dkv_staged_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------- backward: dK, dV
-template <typename T, bool DROP>
-__global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS)
+template <typename T, int SLOTS, bool DROP>
+__global__ void __launch_bounds__(THREADS, min_blocks_for(DKV_MIN_BLOCKS, SLOTS))
 masked_mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ g,
                           const unsigned char* __restrict__ allow_t,
@@ -1202,8 +1215,9 @@ Args make_args(int B, int Lq, int Lk, int H, int D, long long q_sb, long long q_
 template <typename T, bool DROP, bool LSE>
 int fwd(const void* q, const void* k, const void* v, const void* allow, const void* seeds,
         void* out, void* lse, const Args& a, cudaStream_t s) {
-  masked_mha_fwd_kernel<T, DROP, LSE><<<blocks_for((long long)a.B * a.Lq * a.H), THREADS, 0,
-                                        s>>>(
+  auto kernel = slots_for(a.D) == 8 ? masked_mha_fwd_kernel<T, 8, DROP, LSE>
+                                    : masked_mha_fwd_kernel<T, 10, DROP, LSE>;
+  kernel<<<blocks_for((long long)a.B * a.Lq * a.H), THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const unsigned char*>(allow), static_cast<const int*>(seeds),
       static_cast<T*>(out), static_cast<float*>(lse), a);
@@ -1224,7 +1238,9 @@ template <typename T, bool DROP>
 int bwd_dq(const void* q, const void* k, const void* v, const void* g, const void* allow,
            const void* lse, const void* seeds, void* dq, void* r, const Args& a,
            cudaStream_t s) {
-  masked_mha_bwd_dq_kernel<T, DROP><<<blocks_for((long long)a.B * a.Lq * a.H), THREADS, 0, s>>>(
+  auto kernel = slots_for(a.D) == 8 ? masked_mha_bwd_dq_kernel<T, 8, DROP>
+                                    : masked_mha_bwd_dq_kernel<T, 10, DROP>;
+  kernel<<<blocks_for((long long)a.B * a.Lq * a.H), THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const unsigned char*>(allow),
       static_cast<const float*>(lse), static_cast<const int*>(seeds), static_cast<T*>(dq),
@@ -1253,7 +1269,9 @@ template <typename T, bool DROP>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const void* allow_t,
             const void* lse, const void* r, const void* seeds, void* dk, void* dv,
             const Args& a, cudaStream_t s) {
-  masked_mha_bwd_dkv_kernel<T, DROP><<<blocks_for((long long)a.B * a.Lk * a.H), THREADS, 0, s>>>(
+  auto kernel = slots_for(a.D) == 8 ? masked_mha_bwd_dkv_kernel<T, 8, DROP>
+                                    : masked_mha_bwd_dkv_kernel<T, 10, DROP>;
+  kernel<<<blocks_for((long long)a.B * a.Lk * a.H), THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const unsigned char*>(allow_t),
       static_cast<const float*>(lse), static_cast<const float*>(r),
@@ -1262,14 +1280,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* g, const vo
 }
 
 // True for what the staged routes cannot take: not bf16, more heads than
-// WARPS, an odd head dim, rows that are not whole 16-byte pieces, pointers
+// WARPS, a head dim that is odd or above STAGED_DMAX, rows that are not
+// whole 16-byte pieces, pointers
 // or token and batch strides (or-ed together) off 16-byte alignment.
 bool staged_refuses(int dtype, int B, int Lq, int Lk, int H, int D,
                     std::initializer_list<const void*> ptrs, long long strides) {
   bool off = false;
   for (const void* p : ptrs) off |= reinterpret_cast<uintptr_t>(p) % 16 != 0;
-  return dtype != 1 || bad_shape(B, Lq, Lk, H, D) || H > WARPS || D % 2 || (H * D) % 8 || off ||
-         strides % 8 != 0;
+  return dtype != 1 || bad_shape(B, Lq, Lk, H, D) || D > STAGED_DMAX || H > WARPS || D % 2 ||
+         (H * D) % 8 || off || strides % 8 != 0;
 }
 
 template <bool DROP, bool LSE>
@@ -1354,7 +1373,7 @@ extern "C" int masked_mha_bwd_dq(int dtype, const void* q, const void* k, const 
 }
 
 // The staged dQ route (bf16 only): the same arguments and outputs as
-// masked_mha_bwd_dq. It refuses (cudaErrorInvalidValue) H > 8, odd D, rows that
+// masked_mha_bwd_dq. It refuses (cudaErrorInvalidValue) H > 8, odd D or D > 256, rows that
 // are not whole 16-byte pieces, pointers or token strides off 16-byte
 // alignment, and shared memory past a block's limit; the wrapper checks
 // the same before choosing it.

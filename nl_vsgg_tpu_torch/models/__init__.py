@@ -1,2 +1,2 @@
-"""Relation models (STTran), their training losses and the JAX -> port
-weight converter."""
+"""Relation models (STTran, DSG-DETR), their training losses, the DSG-DETR
+tracker and matcher, and the JAX -> port weight converter."""

@@ -1,6 +1,7 @@
-"""JAX (flax) STTran params -> the port's state_dict.
+"""JAX (flax) STTran and DSG-DETR params -> the port's state_dict.
 
-The inverse of nl_vsgg_tpu/models/convert_ref.py::convert_sttran, written
+The inverses of nl_vsgg_tpu/models/convert_ref.py::convert_sttran and
+::convert_dsg_detr (DSG-DETR's sgcls tracklet head included), written
 against plain nested dicts of numpy arrays (no JAX import): this is how
 weights trained by the JAX package cross to the port. The port's names and
 layouts are the torch reference's, so the same state_dict loads a
@@ -55,11 +56,20 @@ def _mha(sd: dict, p: str, d: Mapping) -> None:
     _lin(sd, p + ".out_proj", d["out_proj"])
 
 
-def sttran_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """flax STTran `params` / `batch_stats` trees -> port state_dict."""
-    sd: dict[str, torch.Tensor] = {}
-    if "object_classifier" in params:
-        oc, ocs = params["object_classifier"], batch_stats["object_classifier"]
+def _encoder_layer(sd: dict, p: str, lay: Mapping) -> None:
+    _mha(sd, p + ".self_attn", lay["self_attn"])
+    for n in ("linear1", "linear2"):
+        _lin(sd, f"{p}.{n}", lay[n])
+    for n in ("norm1", "norm2"):
+        _ln(sd, f"{p}.{n}", lay[n])
+
+
+def _common_head(sd: dict, params: Mapping, batch_stats: Mapping) -> None:
+    """What STTran and DSG-DETR share: the weak-supervision object
+    classifier (when the tree has one), the fusion layers and the heads."""
+    oc = params.get("object_classifier")
+    if oc is not None and "enc_0" not in oc:
+        ocs = batch_stats["object_classifier"]
         p = "object_classifier"
         sd[p + ".obj_embed.weight"] = _t(oc["obj_embed"])
         _bn(sd, p + ".pos_embed.0", oc["pos_bn"], ocs["pos_bn"])
@@ -83,18 +93,20 @@ def sttran_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Te
     sd["vr_fc.bias"] = _t(params["vr_fc"]["bias"])
     sd["obj_embed.weight"] = _t(params["obj_embed"])
     sd["obj_embed2.weight"] = _t(params["obj_embed2"])
+    for n in ("a_rel_compress", "s_rel_compress", "c_rel_compress"):
+        _lin(sd, n, params[n])
 
+
+def sttran_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """flax STTran `params` / `batch_stats` trees -> port state_dict."""
+    sd: dict[str, torch.Tensor] = {}
+    _common_head(sd, params, batch_stats)
     tr = params["glocal_transformer"]
     g = "glocal_transformer"
     sd[g + ".position_embedding.weight"] = _t(tr["position_embedding"])
     i = 0
     while f"enc_{i}" in tr:
-        p, lay = f"{g}.local_attention.layers.{i}", tr[f"enc_{i}"]
-        _mha(sd, p + ".self_attn", lay["self_attn"])
-        for n in ("linear1", "linear2"):
-            _lin(sd, f"{p}.{n}", lay[n])
-        for n in ("norm1", "norm2"):
-            _ln(sd, f"{p}.{n}", lay[n])
+        _encoder_layer(sd, f"{g}.local_attention.layers.{i}", tr[f"enc_{i}"])
         i += 1
     i = 0
     while f"dec_{i}" in tr:
@@ -104,6 +116,34 @@ def sttran_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Te
             _lin(sd, f"{p}.{n}", lay[n])
         _ln(sd, p + ".norm3", lay["norm3"])
         i += 1
-    for n in ("a_rel_compress", "s_rel_compress", "c_rel_compress"):
-        _lin(sd, n, params[n])
+    return sd
+
+
+def dsg_detr_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """flax DSGDETR `params` / `batch_stats` trees -> port state_dict: the
+    reference's keys for the shared head and `local_transformer.layers.{i}`
+    / `global_transformer.layers.{i}`; the sgcls tracklet head (which has no
+    reference layout) under the JAX module's names, `object_classifier.`
+    `obj_embed`, `pos_bn`, `pos_fc`, `enc_{i}`, `decoder_fc1`, `decoder_bn`,
+    `decoder_fc2`."""
+    sd: dict[str, torch.Tensor] = {}
+    _common_head(sd, params, batch_stats)
+    oc = params.get("object_classifier")
+    if oc is not None and "enc_0" in oc:
+        ocs, p = batch_stats["object_classifier"], "object_classifier"
+        sd[p + ".obj_embed"] = _t(oc["obj_embed"])
+        _bn(sd, p + ".pos_bn", oc["pos_bn"], ocs["pos_bn"])
+        _lin(sd, p + ".pos_fc", oc["pos_fc"])
+        i = 0
+        while f"enc_{i}" in oc:
+            _encoder_layer(sd, f"{p}.enc_{i}", oc[f"enc_{i}"])
+            i += 1
+        _lin(sd, p + ".decoder_fc1", oc["decoder_fc1"])
+        _bn(sd, p + ".decoder_bn", oc["decoder_bn"], ocs["decoder_bn"])
+        _lin(sd, p + ".decoder_fc2", oc["decoder_fc2"])
+    for stack, name in (("local", "local_transformer"), ("global", "global_transformer")):
+        i = 0
+        while f"{stack}_{i}" in params:
+            _encoder_layer(sd, f"{name}.layers.{i}", params[f"{stack}_{i}"])
+            i += 1
     return sd

@@ -30,12 +30,14 @@ validity-weighted mean (`commit`) or drops them (`discard`).
 from __future__ import annotations
 
 import math
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import masked_attention
+
 
 def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
@@ -159,6 +161,13 @@ class MaskedEncoderLayer(nn.Module):
         h = dropout(torch.relu(linear(x, self.linear1, dt)), rate, g)
         h = linear(h, self.linear2, dt)
         return layer_norm(x + dropout(h, rate, g), self.norm2, dt)
+
+
+# torch.nn.TransformerEncoderLayer (post-norm, ReLU) with an allow mask, the
+# building block of DSG-DETR (nl_vsgg_tpu/models/layers.py::TorchEncoderLayer):
+# the JAX package's two classes are the same computation with the same
+# submodule names, so the port keeps one.
+TorchEncoderLayer = MaskedEncoderLayer
 
 
 class MaskedDecoderLayer(nn.Module):
@@ -338,3 +347,28 @@ class MaskedBatchNorm(nn.Module):
 
     def discard(self) -> None:
         self.pending = None
+
+
+def sinusoidal_position_table(max_len: int, d_model: int) -> torch.Tensor:
+    """DETR-style (max_len, d_model) float32 table: sin on even dims, cos on
+    odd ones, frequencies 10000^(-2i / d_model) (reference lib/dsg_detr.py)."""
+    position = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                    * (-torch.log(torch.tensor(10000.0)) / d_model))
+    pe = torch.zeros(max_len, d_model)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div)
+    return pe
+
+
+def mlp(in_features: int, features: Sequence[int],
+        activation: Callable[[], nn.Module] = nn.ReLU) -> nn.Sequential:
+    """Linear layers of widths `features` from `in_features`, `activation`
+    between them (not after the last): the reference's DSG-DETR MLP."""
+    layers: list[nn.Module] = []
+    for i, f in enumerate(features):
+        layers.append(nn.Linear(in_features, f))
+        if i < len(features) - 1:
+            layers.append(activation())
+        in_features = f
+    return nn.Sequential(*layers)

@@ -242,21 +242,12 @@ class STTran(nn.Module):
         num_classes = max(len(obj_classes), 37)
         if mode != "predcls":
             self.object_classifier = ObjectClassifierWK(num_classes, feat_dim, dropout)
-        self.union_func1 = nn.Conv2d(feat_dim, 256, 1, 1)
-        self.conv = SpatialMaskConv(dtype)
-        self.subj_fc = nn.Linear(feat_dim, 512)
-        self.obj_fc = nn.Linear(feat_dim, 512)
-        self.vr_fc = nn.Linear(256 * 7 * 7, 512)
-        self.obj_embed = nn.Embedding(num_classes, 200)
-        self.obj_embed2 = nn.Embedding(num_classes, 200)
-        embed_dim = 3 * 512 + 2 * 200
+        add_fusion_layers(self, feat_dim, num_classes)
         self.glocal_transformer = STTranTransformer(
-            embed_dim=embed_dim, enc_layers=enc_layer_num, dec_layers=dec_layer_num,
+            embed_dim=REL_DIM, enc_layers=enc_layer_num, dec_layers=dec_layer_num,
             mode=transformer_fusion, variant=transformer_variant, dtype=dtype, fused=fused,
             dropout=dropout)
-        self.a_rel_compress = nn.Linear(embed_dim, attention_class_num)
-        self.s_rel_compress = nn.Linear(embed_dim, spatial_class_num)
-        self.c_rel_compress = nn.Linear(embed_dim, contact_class_num)
+        add_relation_heads(self, attention_class_num, spatial_class_num, contact_class_num)
         init_weights(self, generator or torch.Generator().manual_seed(0))
         self.to(device)
         self.eval()
@@ -269,43 +260,77 @@ class STTran(nn.Module):
         if train and generator is None:
             raise ValueError("train mode draws its dropout from a generator: pass one")
         g = generator if train else None
-        dt = self.dtype
-        B, R = entry.pair_idx.shape[:2]
         out: dict[str, torch.Tensor] = {}
         if self.mode != "predcls":
             out["distribution"] = self.object_classifier(entry, train, g)
-        pred_labels = entry.labels
-        out["pred_labels"] = pred_labels
+        out["pred_labels"] = entry.labels
         out["pred_scores"] = entry.scores
-
-        # ---- visual part (lib/sttran.py:380-388) ----
-        subj, obj = entry.pair_idx[..., 0], entry.pair_idx[..., 1]
-        subj_rep = linear(_take(entry.features, subj), self.subj_fc, dt)
-        obj_rep = linear(_take(entry.features, obj), self.obj_fc, dt)
-        masks = spatial_mask_input(entry)                   # (B, R, 27, 27, 2)
-        masks = masks.reshape(B * R, *masks.shape[2:]).permute(0, 3, 1, 2)
-        vr = (union_projection(entry.union_feat, self.union_func1, dt)
-              + self.conv(masks, entry.rel_mask, train))    # (B*R, 256, 7, 7)
-        vr = linear(vr.reshape(B, R, -1), self.vr_fc, dt)   # (C, 7, 7) order
-        x_visual = torch.cat([subj_rep, obj_rep, vr], dim=-1)
-
-        # ---- semantic part (lib/sttran.py:350-355, 391-396) ----
-        x_semantic = torch.cat([self.obj_embed.weight[_take(pred_labels, subj).long()],
-                                self.obj_embed2.weight[_take(pred_labels, obj).long()]],
-                               dim=-1)
-        rel_features = torch.cat([x_visual, x_semantic], dim=-1)  # (B, R, 1936)
-
+        rel_features = relation_features(self, entry, entry.labels, train)
         glob = self.glocal_transformer(rel_features, entry.im_idx, entry.rel_mask,
                                        generator=g).float()
-        out["global_output"] = glob
-        out["attention_distribution"] = self.a_rel_compress(glob)
-        s_logits = self.s_rel_compress(glob)
-        c_logits = self.c_rel_compress(glob)
-        out["spatial_logits"] = s_logits
-        out["contacting_logits"] = c_logits
-        out["spatial_distribution"] = torch.sigmoid(s_logits)
-        out["contacting_distribution"] = torch.sigmoid(c_logits)
-        return out
+        return relation_heads(self, glob, out)
+
+
+REL_DIM = 3 * 512 + 2 * 200  # relation features: subject, object, union; two class embeddings
+
+
+def add_fusion_layers(model: nn.Module, feat_dim: int, num_classes: int) -> None:
+    """Register the relation models' shared front end on `model`, under the
+    reference's names (lib/sttran.py:335-355): the union projection
+    `union_func1`, the mask conv tower `conv`, `subj_fc`, `obj_fc`, `vr_fc`
+    and the two class embeddings."""
+    model.union_func1 = nn.Conv2d(feat_dim, 256, 1, 1)
+    model.conv = SpatialMaskConv(model.dtype)
+    model.subj_fc = nn.Linear(feat_dim, 512)
+    model.obj_fc = nn.Linear(feat_dim, 512)
+    model.vr_fc = nn.Linear(256 * 7 * 7, 512)
+    model.obj_embed = nn.Embedding(num_classes, 200)
+    model.obj_embed2 = nn.Embedding(num_classes, 200)
+
+
+def add_relation_heads(model: nn.Module, attention: int, spatial: int, contact: int) -> None:
+    model.a_rel_compress = nn.Linear(REL_DIM, attention)
+    model.s_rel_compress = nn.Linear(REL_DIM, spatial)
+    model.c_rel_compress = nn.Linear(REL_DIM, contact)
+
+
+def relation_features(model: nn.Module, entry: Entry, pred_labels: torch.Tensor,
+                      train: bool) -> torch.Tensor:
+    """(B, R, REL_DIM) relation features from the layers `add_fusion_layers`
+    put on `model`: the subject's and object's projected RoI features, the
+    union projection plus the mask conv tower through `vr_fc` (the visual
+    part, lib/sttran.py:380-388, in the model's compute dtype), and the
+    subject's and object's class embeddings (the semantic part, :391-396)."""
+    dt = model.dtype
+    B, R = entry.pair_idx.shape[:2]
+    subj, obj = entry.pair_idx[..., 0], entry.pair_idx[..., 1]
+    subj_rep = linear(_take(entry.features, subj), model.subj_fc, dt)
+    obj_rep = linear(_take(entry.features, obj), model.obj_fc, dt)
+    masks = spatial_mask_input(entry)                   # (B, R, 27, 27, 2)
+    masks = masks.reshape(B * R, *masks.shape[2:]).permute(0, 3, 1, 2)
+    vr = (union_projection(entry.union_feat, model.union_func1, dt)
+          + model.conv(masks, entry.rel_mask, train))   # (B*R, 256, 7, 7)
+    vr = linear(vr.reshape(B, R, -1), model.vr_fc, dt)  # (C, 7, 7) order
+    x_visual = torch.cat([subj_rep, obj_rep, vr], dim=-1)
+    x_semantic = torch.cat([model.obj_embed.weight[_take(pred_labels, subj).long()],
+                            model.obj_embed2.weight[_take(pred_labels, obj).long()]], dim=-1)
+    return torch.cat([x_visual, x_semantic], dim=-1)
+
+
+def relation_heads(model: nn.Module, glob: torch.Tensor,
+                   out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The three predicate heads over the float32 transformer output, into
+    `out`: attention logits, spatial and contacting logits and their
+    sigmoids, and `global_output` itself."""
+    out["global_output"] = glob
+    out["attention_distribution"] = model.a_rel_compress(glob)
+    s_logits = model.s_rel_compress(glob)
+    c_logits = model.c_rel_compress(glob)
+    out["spatial_logits"] = s_logits
+    out["contacting_logits"] = c_logits
+    out["spatial_distribution"] = torch.sigmoid(s_logits)
+    out["contacting_distribution"] = torch.sigmoid(c_logits)
+    return out
 
 
 @torch.no_grad()

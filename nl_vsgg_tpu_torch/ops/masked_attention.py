@@ -10,7 +10,9 @@ allowed key outputs 0.
 
 Layout: q (B, Lq, H, D), k/v (B, Lk, H, D), allow (B, Lq, Lk) bool, seeds
 (B,) int32 (one dropout seed per video). The head dim is not padded
-(STTran's is 242); the kernels handle the tail.
+(STTran's and DSG-DETR's relation layers' is 242, DSG-DETR's tracklet
+encoder's 297); the kernels handle the tail. D <= 320 (`_MAX_HEAD_DIM`);
+the staged routes take D <= 256.
 
 Dropout keeps p[b, h, q, k] where `dropout_bits` >= rate * 2^32 and scales
 the kept probabilities by 1 / (1 - rate), after the softmax, as the JAX
@@ -32,10 +34,10 @@ gradients and at rate 0 it is the eval forward: no lse, no hashing.
 Each kernel has two routes, one launch either way, picked before the
 launch from dtype, shapes and alignment alone (`fwd_route`, `dq_route`,
 `dkv_route`, all on one rule, `staged_layout`: bf16, at most 8 heads, an
-even head dim, q/k/v/g rows and batch and token strides on 16-byte
-boundaries, H * D * 2 bytes a multiple of 16; the serving and training
-paths' column blocks of the fused projection). "staged" brings token rows in
-by 16-byte copies:
+even head dim of at most 256, q/k/v/g rows and batch and token strides on
+16-byte boundaries, H * D * 2 bytes a multiple of 16; the serving and
+training paths' column blocks of the fused projection). "staged" brings
+token rows in by 16-byte copies:
   - the forward and dK/dV: one block a (video, tile of 16 query or key
     rows, 2 heads; `fwd_plan`, `dkv_plan`); the block lists the union of
     its rows' allowed keys (queries), copies their rows' slices once a tile
@@ -43,8 +45,9 @@ by 16-byte copies:
     a head (`FWD_PARTS`, `DKV_PARTS`) splitting S's k-steps;
   - dQ: one block a query row, its allowed keys walked once, summing dQ as
     scale (sum p dP k - r sum p k).
-"per-element" (fp32, odd D, other views) runs one warp a (row, head) and
-loads a head's dims one by one.
+"per-element" (fp32, odd D, D above 256, other views) runs one warp a
+(row, head) and loads a head's dims one by one, 8 a lane up to D = 256 and
+10 up to 320.
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 256
+_MAX_HEAD_DIM = 320              # the per-element kernels: 10 dims a lane
+STAGED_MAX_HEAD_DIM = 256        # the staged kernels: 16 k-steps of 16 dims
 LSE_EMPTY = -1e30  # lse of a query row with no allowed key (the JAX NEG_INF)
 _M32 = 0xFFFFFFFF
 
@@ -306,14 +310,14 @@ def _bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale):
 
 def staged_layout(tensors) -> bool:
     """Whether the staged routes can take these (B, L, H, D) tensors: bf16,
-    at most 8 heads, an even head dim (a head's slice starts on 4 bytes:
-    its bf16 pairs), rows of whole 16-byte pieces, and every tensor's
+    at most 8 heads, an even head dim of at most 256 (a head's slice starts
+    on 4 bytes: its bf16 pairs), rows of whole 16-byte pieces, and every tensor's
     pointer and batch and token strides on 16 bytes (the 16-byte copies of
     whole token rows). The one rule of `dq_route`, `fwd_route` and
     `dkv_route`."""
     _, _, H, D = tensors[0].shape
     return (tensors[0].dtype == torch.bfloat16 and H <= STAGED_MAX_HEADS and D % 2 == 0
-            and (H * D) % 8 == 0
+            and D <= STAGED_MAX_HEAD_DIM and (H * D) % 8 == 0
             and all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
                     for t in tensors))
 

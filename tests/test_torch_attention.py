@@ -110,7 +110,7 @@ def test_wrapper_rejects_bad_inputs(bad):
     elif bad == "head_stride":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     elif bad == "head_dim":
-        q, k, v = (torch.randn(2, n, 1, 300) for n in (5, 6, 6))
+        q, k, v = (torch.randn(2, n, 1, 321) for n in (5, 6, 6))  # D > 320
     with pytest.raises((ValueError, TypeError)):
         ma.masked_mha(q, k, v, allow, 1.0)
 

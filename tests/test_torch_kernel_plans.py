@@ -106,11 +106,13 @@ def test_staged_routes_on_the_path_column_blocks(kind, lq, lk):
 
 @pytest.mark.parametrize("kind", ["fwd", "dkv"])
 @pytest.mark.parametrize("case", ["offset-view", "odd-D", "odd-D-odd-row", "fp32", "16-heads",
-                                  "odd-row", "3-heads"])
+                                  "odd-row", "3-heads", "tracklet-297", "even-298"])
 def test_staged_routes_per_element(kind, case):
     """The forward and dK/dV routes refuse what the dQ route refuses (one
     rule, `staged_layout`): offset views, odd D, rows that are not whole
-    16-byte pieces, fp32, more than 8 heads."""
+    16-byte pieces, fp32, more than 8 heads, D above 256 (DSG-DETR's
+    tracklet heads of 297; 298 is even but past the staged kernels' 16
+    k-steps)."""
     H, D, dtype, pad = 8, 242, torch.bfloat16, 0
     if case == "offset-view":
         pad = 1
@@ -124,6 +126,10 @@ def test_staged_routes_per_element(kind, case):
         H, D = 16, 64
     elif case in ("odd-row", "3-heads"):
         H = 3
+    elif case == "tracklet-297":
+        D = 297
+    elif case == "even-298":
+        D = 298
     q, k, v = _fused(2, 96, H, D, dtype, pad)
     g = torch.zeros(q.shape, dtype=dtype)
     assert _ROUTES[kind](q, k, v, g) == "per-element"
@@ -176,3 +182,29 @@ def test_plans_at_the_path_shapes_and_overflow():
     assert not ma.dkv_plan(8192, 96, 8, 242)["fits"]      # the per-query stats overflow
     q, k, v = _fused(1, 8192, 8, 242)
     assert ma.dkv_route(q, k, v, torch.zeros(q.shape, dtype=torch.bfloat16)) == "per-element"
+
+
+@pytest.mark.parametrize("density", ["same-class", "all"])
+def test_plans_hold_a_dense_union(density):
+    """DSG-DETR's global layers at 96x96: every 16-row tile's union of
+    allowed keys (queries) is the whole 96 (a key of each class lies in
+    every tile), and about 32 keys a row. The plans reserve a list slot and
+    a 16-bit row word for each of the Lk keys (Lq queries) whatever the
+    density, so a dense union is listed whole, and chunks of CHUNK_ROWS
+    walk it in ceil(96 / 8) steps."""
+    L, H, D = 96, 8, 242
+    cls = torch.arange(L) % 3
+    allow = cls[:, None] == cls[None, :]
+    if density == "all":
+        allow = torch.ones(L, L, dtype=torch.bool)
+    tiles = allow.unflatten(0, (L // ma.TILE_ROWS, ma.TILE_ROWS))
+    unions = tiles.any(1).sum(-1)
+    assert (unions == L).all() and ma.TILE_ROWS <= 16
+    eg = ma._shared_row(H, D)
+    for plan, ring in ((ma.fwd_plan(L, L, H, D), ma.TILE_ROWS + 2 * ma.FWD_CHUNKS * ma.CHUNK_ROWS),
+                       (ma.dkv_plan(L, L, H, D),
+                        2 * ma.TILE_ROWS + 2 * ma.DKV_CHUNKS * ma.CHUNK_ROWS)):
+        assert plan["fits"]
+        rest = plan["smem"] - ring * eg * 2     # what is left past the staged rows
+        assert rest >= L * (4 + 2)              # an int32 slot and a row word a key
+    assert ma.dq_staged_smem_bytes(L, H, D) >= L * 4

@@ -189,7 +189,10 @@ def test_roi_align_edges_match_plain_on_gpu(gpu, case):
     ("8-heads-of-240", 96, 8, 240, 0, "staged"),
     ("odd-D-4-heads", 96, 4, 241, 0, "per-element"),
     ("3-heads-of-242", 96, 3, 242, 0, "per-element"),
-    ("3-heads-of-64", 96, 3, 64, 0, "staged")])
+    ("3-heads-of-64", 96, 3, 64, 0, "staged"),
+    ("tracklet-heads-of-297", 128, 8, 297, 0, "per-element"),
+    ("8-heads-of-298", 96, 8, 298, 0, "per-element"),
+    ("2-heads-of-320", 96, 2, 320, 0, "per-element")])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_dq_routes_match_plain_on_gpu(gpu, case, L, H, D, pad, route, rate):
     """The dQ kernel on column blocks of a fused bf16 projection, 3% of
@@ -230,8 +233,11 @@ def path_mask(B, lq, lk, device):
 def _attention_case(gen, lq, lk, H, D, pad, mask, rate):
     """q from a fused (B, lq, 3 H D + pad) bf16 projection, k and v from a
     (B, lk, ...) one (column blocks, `pad` elements off 16 bytes), g, the
-    mask ("frames": `path_mask`; "random": 3% with some query rows fully
-    allowed, some empty, and some key columns empty) and the seeds."""
+    mask ("frames": `path_mask`; "classes": token i of class i mod 3, the
+    same class allowed, a third of the pairs, as DSG-DETR's global layers
+    on a clip that follows three objects; "random": 3% with some query rows
+    fully allowed, some empty, and some key columns empty) and the
+    seeds."""
     B, E = 4, H * D
     xq = torch.randn(B, lq, 3 * E + pad, device="cuda", generator=gen).bfloat16()[..., pad:]
     xk = torch.randn(B, lk, 3 * E + pad, device="cuda", generator=gen).bfloat16()[..., pad:]
@@ -240,6 +246,9 @@ def _attention_case(gen, lq, lk, H, D, pad, mask, rate):
     gout = torch.randn(B, lq, H, D, device="cuda", generator=gen).bfloat16()
     if mask == "frames":
         allow = path_mask(B, lq, lk, "cuda")
+    elif mask == "classes":
+        cq, ck = torch.arange(lq, device="cuda") % 3, torch.arange(lk, device="cuda") % 3
+        allow = (cq[:, None] == ck[None, :]).expand(B, lq, lk).clone()
     else:
         allow = torch.rand(B, lq, lk, device="cuda", generator=gen) < 0.03
         allow[:, ::9] = True
@@ -260,7 +269,12 @@ _ROUTE_CASES = [
     ("3-heads-of-64", 96, 96, 3, 64, 0, "random", "staged"),
     ("misaligned-view", 96, 96, 8, 242, 1, "random", "per-element"),
     ("odd-D", 97, 96, 8, 241, 0, "random", "per-element"),
-    ("3-heads-of-242", 96, 96, 3, 242, 0, "random", "per-element")]
+    ("3-heads-of-242", 96, 96, 3, 242, 0, "random", "per-element"),
+    ("same-class-96x96", 96, 96, 8, 242, 0, "classes", "staged"),
+    ("same-class-heads-of-297", 128, 128, 8, 297, 0, "classes", "per-element"),
+    ("random-heads-of-297", 128, 128, 8, 297, 0, "random", "per-element"),
+    ("8-heads-of-298", 96, 96, 8, 298, 0, "random", "per-element"),
+    ("2-heads-of-320", 96, 96, 2, 320, 0, "classes", "per-element")]
 
 
 @pytest.mark.parametrize("case,lq,lk,H,D,pad,mask,route", _ROUTE_CASES)
@@ -471,3 +485,72 @@ def test_probe_kernels_refuse_misaligned_storage_on_gpu(gpu):
         pm.probe_matmul(flat[1:1 + 64 * 128].view(64, 128), w[0, 0])
     with pytest.raises(ValueError, match="aligned"):
         pc.probe_copy(flat[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tracklet_head_dim_297_on_gpu(gpu, dtype, rate):
+    """DSG-DETR's tracklet encoder: 8 heads of 297 (per-element route, 10
+    dims a lane) on a same-class mask with a few rows allowed nothing;
+    the forward (with and without lse), dQ and dK/dV against their plain
+    versions (float32 1e-4 on out, 2e-4 + 1e-5 |ref| on lse and gradients;
+    bfloat16 one bf16 ulp), empty rows exactly 0, and D = 321 refused."""
+    B, L, H, D = 3, 128, 8, 297
+    q, k, v, gout = (torch.randn(B, L, H, D, device="cuda", generator=gpu).to(dtype)
+                     for _ in range(4))
+    cls = torch.arange(L, device="cuda") % 5
+    allow = (cls[:, None] == cls[None, :]).expand(B, L, L).clone()
+    allow[:, 7::31] = False
+    seeds = torch.tensor([3, -4, 9], dtype=torch.int32, device="cuda") if rate else None
+    assert ma.fwd_route(q, k, v) == ma.dq_route(q, k, v, gout) == "per-element"
+    scale = D ** -0.5
+    f32 = dtype == torch.float32
+    out_tol = dict(rtol=0, atol=1e-4) if f32 else dict(rtol=2 ** -7, atol=1e-3)
+    grad_tol = dict(rtol=1e-5, atol=2e-4) if f32 else dict(rtol=2 ** -7, atol=1e-3)
+    ref = ma.masked_mha_reference(q, k, v, allow, scale, rate, seeds)
+    for with_lse in (False, True):
+        out, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, seeds, with_lse)
+        torch.testing.assert_close(out.float(), ref.float(), **out_tol)
+        assert (out[:, 7::31] == 0).all()
+    torch.testing.assert_close(lse, ma.masked_mha_lse_reference(q, k, allow, scale), **grad_tol)
+    dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, seeds)
+    dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow.transpose(1, 2).contiguous(), scale, gout,
+                                   lse, r, rate, seeds)
+    torch.cuda.synchronize()
+    ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, scale, gout, rate, seeds)
+    ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, scale, gout, ref_r, rate,
+                                                     seeds)
+    for got, want in ((dq, ref_dq), (r, ref_r), (dk, ref_dk), (dv, ref_dv)):
+        torch.testing.assert_close(got.float(), want.float(), **grad_tol)
+    assert (dq[:, 7::31] == 0).all()
+    with pytest.raises(ValueError):
+        x = torch.zeros(1, 4, 1, 321, device="cuda", dtype=dtype)
+        ma.masked_mha(x, x, x, torch.ones(1, 4, 4, dtype=torch.bool, device="cuda"), 1.0)
+
+
+def test_dsg_detr_train_steps_on_gpu(gpu):
+    """Two bf16 DSG-DETR sgdet train steps and one sgcls forward through
+    the kernels (4 + 4 + 4 launches a step; the tracklet head's 3 on the
+    per-element route), finite losses, no skip."""
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.serve import place_batch
+
+    rng = np.random.default_rng(0)
+    entries = [make_synthetic_entry(rng, n_frames=6, objs_per_frame=3, bucket_boxes=32,
+                                    bucket_rels=24) for _ in range(4)]
+    batch = place_batch(entries, "cuda", torch.bfloat16)
+    model = DSGDETR(mode="sgdet", dtype=torch.bfloat16, device="cuda")
+    st = create_train_state(model, lr=1e-5)
+    step = make_train_step(model, st.optimizer)
+    ma.reset_launches()
+    for _ in range(2):
+        st, met = step(st, batch, gpu)
+        assert torch.isfinite(met["total"])
+    assert st.skipped == 0
+    assert dict(ma.LAUNCHES) == {"fwd": 8, "bwd_dq": 8, "bwd_dkv": 8}
+    sg = DSGDETR(mode="sgcls", dtype=torch.bfloat16, device="cuda")
+    ma.reset_launches()
+    with torch.inference_mode():
+        out = sg(batch)
+    assert dict(ma.LAUNCHES) == {"fwd": 7, "bwd_dq": 0, "bwd_dkv": 0}
+    assert out["distribution"].isfinite().all()
