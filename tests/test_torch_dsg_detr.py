@@ -8,11 +8,12 @@ same weights.
   layer's LayerNorm eps is set to flax's 1e-6 here, the port keeping
   torch's 1e-5); the whole table adds its float32 conditioning at large
   positions (see its test).
-* The whole model's eval forward in sgdet (weights drawn by the port,
-  carried by convert_ref.convert_dsg_detr), sgcls (tracker group ids) and
-  predcls (weights drawn by flax, carried by models/convert.dsg_detr_from_jax)
-  at 2e-4 on every output, as tests/test_torch_sttran.py: float32 on both
-  sides, sums in another order through 4 layers (7 in sgcls).
+* The whole model's eval forward in sgdet, sgcls (tracker group ids) and
+  predcls on weights drawn by flax and carried by
+  models/convert.dsg_detr_from_jax, and in sgdet also on weights drawn by
+  the port and carried by convert_ref.convert_dsg_detr, at 2e-4 on every
+  output, as tests/test_torch_sttran.py: float32 on both sides, sums in
+  another order through 4 layers (7 in sgcls).
 * The sgdet train-mode forward with dropout off on both sides (the two
   packages draw different random streams), heads at 2e-4 and every
   BatchNorm's running update at 1e-5 relative.
@@ -219,8 +220,8 @@ def test_sgdet_eval_matches_jax():
     assert allow_t[1].float().mean() > allow_t[0].float().mean()
 
 
-@pytest.mark.parametrize("mode", ["sgcls", "predcls"])
-def test_sgcls_predcls_eval_match_jax(mode):
+@pytest.mark.parametrize("mode", ["sgdet", "sgcls", "predcls"])
+def test_eval_on_jax_weights_matches_jax(mode):
     entries = batch_entries(seed=4)
     sample = jax.tree.map(jnp.asarray, to_jax_entry(entries[0]))
     jm = jd.DSGDETR(mode=mode, feat_dim=FEAT)
@@ -234,7 +235,7 @@ def test_sgcls_predcls_eval_match_jax(mode):
     ref = jax_eval(jm, params, stats, entries, gid)
     with torch.inference_mode():
         ours = model(stack_entries(entries), group_id=gid)
-    check(ours, ref, HEADS + (("distribution",) if mode == "sgcls" else ()))
+    check(ours, ref, HEADS + (("distribution",) if mode != "predcls" else ()))
     if mode == "sgcls":  # the tracker joined each slot's boxes across frames
         assert len(set(gid[1, :int(entries[1].box_mask.sum())].tolist())) < int(
             entries[1].box_mask.sum())
