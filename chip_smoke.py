@@ -1467,6 +1467,8 @@ IM_SIZE = (600.0, 1000.0)        # the synthetic frames' (height, width), the tr
 # non-degenerate when scipy's optimum beats every other assignment by more
 # than rows * eps
 AUCTION_EPS, AUCTION_MATRICES = 0.02, 8
+TRACKLET_D = (FEAT + 200 + 128) // 8  # the sgcls tracklet encoder's head dim, 297
+TRACKLET_ROUTE = "tiled"              # its float32 calls' route
 
 
 def tracklet_entries(entries, rng) -> list:
@@ -1571,12 +1573,87 @@ def _add(row, err, kms, pms, bound, lms, pairs):
     row["terms"][bound[1]] += bound[0]
 
 
+def per_element_calls(ma, q, k, v, allow, s, rate, sd, gout=None, lse=None, r=None) -> dict:
+    """Callables that launch the per-element C entries directly on these
+    inputs, bypassing the wrappers' route choice (the route the tiled one
+    replaced, timed beside it): "fwd eval" (no dropout, no lse) always;
+    with `gout`, `lse` and `r` also "fwd" (dropout at `rate`, lse), "bwd_dq"
+    and "bwd_dkv". Not counted in LAUNCHES."""
+    import torch
+    Bq, Lq, Hh, D = q.shape
+    dt, dev = ma._DTYPES[q.dtype], q.device
+    thr, keep = (ma.drop_threshold(rate), 1.0 / (1.0 - rate)) if rate else (0, 1.0)
+    sdp = sd.data_ptr() if rate else None
+    out = torch.empty(Bq, Lq, Hh, D, dtype=q.dtype, device=dev)
+    lse_o = torch.empty(Bq, Hh, Lq, device=dev)
+    dims = (Bq, Lq, k.shape[1], Hh, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1))
+
+    def launch(name, *args):
+        if ma._fn(name)(*args, torch.cuda.current_stream().cuda_stream):
+            fail(f"the per-element entry {name} failed to launch on {tuple(q.shape)}")
+
+    calls = {"fwd eval": lambda: launch("masked_mha_fwd", dt, q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), allow.data_ptr(), None, out.data_ptr(),
+                                        None, *dims, s, 0, 1.0)}
+    if gout is None:
+        return calls
+    g = gout.contiguous()
+    allow_t = allow.transpose(1, 2).contiguous()
+    dq, r_o = torch.empty_like(out), torch.empty_like(lse_o)
+    dk = torch.empty(Bq, k.shape[1], Hh, D, dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    bdims = (*dims, g.stride(0), g.stride(1), s, thr, keep)
+    calls["fwd"] = lambda: launch("masked_mha_fwd", dt, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  allow.data_ptr(), sdp, out.data_ptr(), lse_o.data_ptr(), *dims,
+                                  s, thr, keep)
+    calls["bwd_dq"] = lambda: launch("masked_mha_bwd_dq", dt, q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), g.data_ptr(), allow.data_ptr(), lse.data_ptr(),
+                                     sdp, dq.data_ptr(), r_o.data_ptr(), *bdims)
+    calls["bwd_dkv"] = lambda: launch("masked_mha_bwd_dkv", dt, q.data_ptr(), k.data_ptr(),
+                                      v.data_ptr(), g.data_ptr(), allow_t.data_ptr(),
+                                      lse.data_ptr(), r.data_ptr(), sdp, dk.data_ptr(),
+                                      dv.data_ptr(), *bdims)
+    return calls
+
+
+def launches_by_head_dim(ma, run) -> dict:
+    """The kernel launches one `run()` makes, by the head dim of the call
+    that made them: {D: {"fwd": n, "bwd_dq": n, "bwd_dkv": n}}, read from
+    LAUNCHES around each call of the three wrappers the autograd function
+    calls."""
+    counts = {}
+    names = {"masked_mha_forward": "fwd", "masked_mha_bwd_dq": "bwd_dq",
+             "masked_mha_bwd_dkv": "bwd_dkv"}
+    orig = {n: getattr(ma, n) for n in names}
+
+    def counting(n):
+        def call(q, *args, **kw):
+            before = ma.LAUNCHES[names[n]]
+            res = orig[n](q, *args, **kw)
+            by = counts.setdefault(q.shape[-1], {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0})
+            by[names[n]] += ma.LAUNCHES[names[n]] - before
+            return res
+        return call
+
+    for n in names:
+        setattr(ma, n, counting(n))
+    try:
+        run()
+    finally:
+        for n, fn in orig.items():
+            setattr(ma, n, fn)
+    return counts
+
+
 def time_eval_calls(ma, calls, want_route: str, what: str) -> dict:
     """Each captured eval forward against its plain version (KERNEL_TOL),
     on `want_route` or the run fails; kernel, plain, SDPA and bound times
-    summed over the calls."""
+    summed over the calls. On the tiled route the per-element entry is
+    timed beside it on the same inputs (`per_element_ms`)."""
     import torch.nn.functional as F
     row = _row_sums()
+    row["per_element_ms"] = 0.0
     for q, k, v, allow, s in calls:
         route = ma.fwd_route(q, k, v)
         if route != want_route:
@@ -1594,28 +1671,38 @@ def time_eval_calls(ma, calls, want_route: str, what: str) -> dict:
         bound = attention_bound_ms(q, k, v, allow)
         pairs = float(allow.sum())
         _add(row, err, kms, pms, bound, lms, pairs)
+        extra = ""
+        if route == "tiled":
+            pe = cuda_ms(per_element_calls(ma, q, k, v, allow, s, 0.0, None)["fwd eval"])
+            row["per_element_ms"] += pe
+            extra = f", per-element {pe:.4f} ms"
         log(f"{what} {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]}, route {route}: "
-            f"kernel {kms:.4f} ms, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound {bound[0]:.4f} "
-            f"ms ({bound[1]}), allowed pairs {pairs / allow.numel():.4f} "
+            f"kernel {kms:.4f} ms{extra}, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), allowed pairs {pairs / allow.numel():.4f} "
             f"({kms * 1e6 / pairs:.3f} ns a pair), max_abs_err {err:.3e}")
     return row
 
 
-def time_train_records(ma, records, what: str) -> dict:
+def time_train_records(ma, records, what: str, want_route: str) -> dict:
     """Each recorded train call's forward and both backward kernels against
-    their plain versions (KERNEL_TOL / GRAD_TOL) on the staged route (or
-    the run fails), timed beside the plain versions, SDPA and the bounds."""
+    their plain versions (KERNEL_TOL / GRAD_TOL) on `want_route` (or the
+    run fails), timed beside the plain versions, SDPA and the bounds; on
+    the tiled route also beside the per-element entries on the same inputs
+    (`per_element_ms`)."""
     import torch
     import torch.nn.functional as F
     rows = {n: _row_sums() for n in ("fwd", "bwd_dq", "bwd_dkv")}
+    for row in rows.values():
+        row["per_element_ms"] = 0.0
     for rec in records:
         q, k, v, allow, s, rate, sd, gout = (rec[n] for n in
                                              ("q", "k", "v", "allow", "s", "rate", "seeds", "g"))
         allow_t = allow.transpose(1, 2).contiguous()
         routes = {"fwd": ma.fwd_route(q, k, v), "dQ": ma.dq_route(q, k, v, gout),
                   "dK/dV": ma.dkv_route(q, k, v, gout)}
-        if set(routes.values()) != {"staged"}:
-            fail(f"{what}: the attention {tuple(q.shape)} took the routes {routes}")
+        if set(routes.values()) != {want_route}:
+            fail(f"{what}: the attention {tuple(q.shape)} took the routes {routes}, not "
+                 f"{want_route}")
         out, lse = ma.masked_mha_forward(q, k, v, allow, s, rate, sd)
         dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, s, gout, lse, rate, sd)
         dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow_t, s, gout, lse, r, rate, sd)
@@ -1657,34 +1744,45 @@ def time_train_records(ma, records, what: str) -> dict:
         pairs = float(allow.sum())
         for n, (kms, pms, bound, lms) in t.items():
             _add(rows[n], errs[n], kms, pms, bound, lms, pairs)
-        log(f"{what} {tuple(q.shape)} x Lk={k.shape[1]} bf16 rate {rate}, routes staged: fwd "
-            f"{t['fwd'][0]:.4f} (plain {t['fwd'][1]:.4f}, sdpa {lib_fwd:.4f}), bwd dQ "
-            f"{t['bwd_dq'][0]:.4f} (plain {t['bwd_dq'][1]:.4f}), bwd dK/dV {t['bwd_dkv'][0]:.4f} "
-            f"(plain {t['bwd_dkv'][1]:.4f}), sdpa backward {lib_bwd:.4f} ms; allowed pairs "
-            f"{pairs / allow.numel():.4f}; max_abs_err "
+        pe = {}
+        if want_route == "tiled":
+            calls = per_element_calls(ma, q, k, v, allow, s, rate, sd, gout, lse, r)
+            for n in rows:
+                pe[n] = cuda_ms(calls[n])
+                rows[n]["per_element_ms"] += pe[n]
+        beside = {n: f", per-element {pe[n]:.4f}" if n in pe else "" for n in rows}
+        log(f"{what} {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]} rate {rate}, routes "
+            f"{want_route}: fwd {t['fwd'][0]:.4f} (plain {t['fwd'][1]:.4f}, sdpa {lib_fwd:.4f}"
+            f"{beside['fwd']}), bwd dQ {t['bwd_dq'][0]:.4f} (plain {t['bwd_dq'][1]:.4f}"
+            f"{beside['bwd_dq']}), bwd dK/dV {t['bwd_dkv'][0]:.4f} (plain {t['bwd_dkv'][1]:.4f}"
+            f"{beside['bwd_dkv']}), sdpa backward {lib_bwd:.4f} ms; bounds fwd "
+            f"{t['fwd'][2][0]:.4f}, dQ {t['bwd_dq'][2][0]:.4f}, dK/dV {t['bwd_dkv'][2][0]:.4f} ms; "
+            f"allowed pairs {pairs / allow.numel():.4f}; max_abs_err "
             + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
     return rows
 
 
 def tracklet_kernel_checks(ma, calls, g, dev) -> None:
-    """The per-element route at the tracklet encoder's D = 297 on its own
-    inputs (set (b) boxes grouped by class), float32 and bfloat16: the
-    forward with and without dropout and lse, dQ and dK/dV against their
-    plain versions (KERNEL_TOL / GRAD_TOL) on the first call, the eval
-    forward on the others; every 17th query row given no allowed key,
-    whose outputs and dQ must be exactly 0."""
+    """The tracklet encoder's D = 297 on its own inputs (set (b) boxes
+    grouped by class): float32 (the encoder's type) on TRACKLET_ROUTE,
+    bfloat16 on the per-element route; the forward with and without
+    dropout and lse, dQ and dK/dV against their plain versions (KERNEL_TOL
+    / GRAD_TOL) on the first call, the eval forward on the others; every
+    17th query row given no allowed key, whose outputs and dQ must be
+    exactly 0."""
     import torch
     seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
     for i, (q0, k0, v0, allow0, s) in enumerate(calls):
         allow = allow0.clone()
         allow[:, ::17] = False
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (t.to(dtype) for t in (q0, k0, v0))
+        for dtype, route in ((torch.float32, TRACKLET_ROUTE), (torch.bfloat16, "per-element")):
+            q, k, v = (t.to(dtype) for t in (q0, k0, v0))  # float32: the encoder's own views
             gout = torch.randn(q.shape, device=dev, generator=g).to(dtype)
             routes = (ma.fwd_route(q, k, v), ma.dq_route(q, k, v, gout),
                       ma.dkv_route(q, k, v, gout))
-            if set(routes) != {"per-element"} or q.shape[-1] != (FEAT + 200 + 128) // 8:
-                fail(f"tracklet attention {tuple(q.shape)} {dtype}: routes {routes}")
+            if set(routes) != {route} or q.shape[-1] != TRACKLET_D:
+                fail(f"tracklet attention {tuple(q.shape)} {dtype}: routes {routes}, "
+                     f"expected {route}")
             errs = {}
             for rate in ((0.0, RATE) if i == 0 else (0.0,)):
                 sd = seeds if rate else None
@@ -1722,7 +1820,7 @@ def tracklet_kernel_checks(ma, calls, g, dev) -> None:
                 if float(dq[:, ::17].float().abs().max()) != 0.0:
                     fail(f"tracklet dQ {dtype}: rows with no allowed key are not 0")
             log(f"tracklet attention call {i} {tuple(q.shape)} {str(dtype)[6:]}, routes "
-                f"per-element: max_abs_err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                f"{route}: max_abs_err " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                 + "; empty rows exactly 0")
 
 
@@ -1930,7 +2028,7 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
         st = holder["st"]
         if len(records) != 4 or not all("g" in r for r in records):
             fail(f"recorded {len(records)} DSG-DETR attention calls with gradients in one step")
-        train_rows[n] = time_train_records(ma, records, f"DSG-DETR train set ({n})")
+        train_rows[n] = time_train_records(ma, records, f"DSG-DETR train set ({n})", "staged")
         del records
     for n in sets:
         e, t = eval_rows[n], train_rows[n]
@@ -1966,24 +2064,46 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
     if len(calls) != 3:
         fail(f"the tracklet encoder made {len(calls)} attention calls, expected 3")
     tracklet_kernel_checks(ma, calls, torch.Generator(device=dev).manual_seed(5), dev)
-    d297 = time_eval_calls(ma, calls, "per-element", "tracklet encoder eval")
+    d297 = time_eval_calls(ma, calls, TRACKLET_ROUTE, "tracklet encoder eval")
     del calls
     # boxes grouped by their labels, as training groups them: the tracker's
     # ids serve evaluation only (tools/train_DSG_DETR.py:5-9)
     ma.reset_launches()
-    ker = train_grads(sg[True], batch_b, 7, dev)
+    held = {}
+    by_dim = launches_by_head_dim(
+        ma, lambda: held.update(ker=train_grads(sg[True], batch_b, 7, dev)))
     torch.cuda.synchronize()
-    got = dict(ma.LAUNCHES)
+    got, ker = dict(ma.LAUNCHES), held.pop("ker")
     pln = train_grads(sg[False], batch_b, 7, dev)
-    if got != {"fwd": 7, "bwd_dq": 7, "bwd_dkv": 7}:
-        fail(f"the sgcls train forward/backward launched {got}, expected 7 of each")
+    enc_train = by_dim.get(TRACKLET_D)
+    if got != {"fwd": 7, "bwd_dq": 7, "bwd_dkv": 7} or enc_train != {"fwd": 3, "bwd_dq": 3,
+                                                                     "bwd_dkv": 3}:
+        fail(f"the sgcls train forward/backward launched {got}, {enc_train} of them at "
+             f"D = {TRACKLET_D}; expected 7 of each, 3 at D = {TRACKLET_D}")
     worst, name, floored = compare_grads(ker, pln, "DSG-DETR sgcls bf16 train gradients",
                                          TRAIN_GRAD_TOL["bfloat16"])
     log(f"DSG-DETR sgcls train grads set (b), boxes grouped by label, kernel vs plain "
         f"attention: {len(pln)} tensors, worst ||dg||/||g|| {worst:.3e} at {name} "
         f"(tol {TRAIN_GRAD_TOL['bfloat16']}); {floored} denominators under the floor; "
-        f"launches {got}")
+        f"launches {got}, {enc_train} of them in the tracklet encoder")
     del ker, pln, sg[False]
+    # the tracklet encoder's train calls (D = 297, float32, dropout 0.1) on
+    # their own inputs and output gradients
+    records = [rec for rec in record_train_attention(
+        ma, lambda: train_grads(sg[True], batch_b, 7, dev)) if rec["q"].shape[-1] == TRACKLET_D]
+    if len(records) != 3 or not all("g" in rec for rec in records):
+        fail(f"recorded {len(records)} tracklet-encoder attention calls with gradients")
+    d297_train = time_train_records(ma, records, "tracklet encoder train", TRACKLET_ROUTE)
+    del records
+    log("tracklet encoder per sgcls train step (3 + 3 + 3 launches, D = "
+        f"{TRACKLET_D}, route {TRACKLET_ROUTE}): " + "; ".join(
+            f"{n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}"
+            + (f", per-element {r['per_element_ms']:.4f}" if r["per_element_ms"] else "") + ")"
+            for n, r in d297_train.items())
+        + f"; eval forward {d297['ms']:.4f} ms"
+        + (f" (per-element {d297['per_element_ms']:.4f})" if d297["per_element_ms"] else "")
+        + f"; card {card}")
 
     # ---- evaluation: evaluate_epoch with its promotion, set (b) ----
     # the host evaluator scores the eval step's outputs on the batches the
@@ -2097,7 +2217,13 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
                           tb["bwd_dq"]),
             attention_row("masked_mha_bwd_dkv_dsg_detr", 157, train_launches[True]["bwd_dkv"],
                           tb["bwd_dkv"]),
-            attention_row("masked_mha_d297_tracklet", 143, enc["fwd"], d297)]
+            attention_row("masked_mha_d297_tracklet", 143, enc["fwd"], d297),
+            attention_row("masked_mha_fwd_train_d297_tracklet", 143, enc_train["fwd"],
+                          d297_train["fwd"]),
+            attention_row("masked_mha_bwd_dq_d297_tracklet", 157, enc_train["bwd_dq"],
+                          d297_train["bwd_dq"]),
+            attention_row("masked_mha_bwd_dkv_d297_tracklet", 157, enc_train["bwd_dkv"],
+                          d297_train["bwd_dkv"])]
 
 
 def main() -> None:
@@ -2355,7 +2481,7 @@ def main() -> None:
     st = holder["st"]
     if len(records) != 4 or not all("g" in r for r in records):
         fail(f"recorded {len(records)} attention calls with gradients in one train step")
-    train_rows = time_train_records(ma, records, "train path")
+    train_rows = time_train_records(ma, records, "train path", "staged")
     for n, r in train_rows.items():
         log(f"{n} per train step (4 launches): kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "

@@ -29,9 +29,11 @@
 // routes copy whole token rows, or the 16-byte window around a group of 2
 // heads' slice of them, which do line up, and read a head's bf16 pairs
 // from shared memory with 32-bit loads. The staged routes take D <= 256;
-// the per-element routes D <= 320: their kernels are instantiated for the
-// dims a lane holds, 8 (D <= 256) or 10 (D <= 320, DSG-DETR's tracklet
-// encoder: 2376 / 8 = 297), the launch picking the smaller that fits.
+// the tiled and per-element routes D <= 320: their kernels are
+// instantiated for the dims a lane holds, 8 (D <= 256) or 10 (D <= 320,
+// DSG-DETR's tracklet encoder: 2376 / 8 = 297), the launch picking the
+// smaller that fits; the tiled routes copy the 16-byte window around a
+// head's float32 slice.
 //
 // Dropout bits. A stateless counter hash of (video seed, head, query, key):
 // three rounds of murmur3's 32-bit finalizer over the key mixed in one
@@ -51,15 +53,21 @@
 // few GFLOP against about 0.6 GB (forward) to 1 GB (backward) of q, k, v,
 // g and outputs to move once.
 //
-// Routes. Each kernel has two, one launch either way, chosen by the wrapper
+// Routes. Each kernel has three, one launch each, chosen by the wrapper
 // from dtype, shapes and alignment before the launch (ops/masked_attention
-// .py: fwd_route, dq_route, dkv_route, one rule, staged_layout):
+// .py: fwd_route, dq_route, dkv_route, on two rules, staged_layout and
+// tiled_layout):
 //   - staged (bf16, H <= 8, D even, 16-byte aligned rows and token strides,
 //     H * D * 2 a multiple of 16; the serving and training paths' column
 //     blocks of the fused projection);
-//   - per element (fp32, odd D, other views): one warp per (video, row,
-//     head), the heads of a row in neighbouring warps of one block (they
-//     share the mask row). A warp scans its mask row 32 entries at a time,
+//   - tiled (fp32, H <= 8, D <= 320, odd D too, 16-byte aligned rows and
+//     token strides, H * D a multiple of 4; DSG-DETR's tracklet encoder):
+//     a block a (video, tile of 16 rows taken in the wrapper's row order,
+//     head), the tile's union of allowed columns staged once; see "tiled
+//     routes" below;
+//   - per element (bf16 with odd D or D > 256, other views, H > 8): one
+//     warp per (video, row, head), the heads of a row in neighbouring warps
+//     of one block (they share the mask row). A warp scans its mask row 32 entries at a time,
 //     takes the allowed ones from a warp ballot and visits only those, so
 //     the work follows the allowed pairs, not Lq x Lk; lane i holds dims i,
 //     i+32, ... of its rows, a dot product is a warp shuffle reduction.
@@ -1198,6 +1206,549 @@ masked_mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ tiled routes (float32)
+// The float32 routes up to D = DMAX (DSG-DETR's tracklet encoder: 8 heads
+// of 297 over 128 boxes, each box allowed the boxes of its tracklet). One
+// block takes (video, tile of TT rows, head): the forward and dQ a tile of
+// query rows, dK/dV a tile of key rows. The wrapper hands each kernel an
+// order of its rows (ops/masked_attention.py::row_order: by the first
+// allowed column, empty rows last) and tile t takes the rows at places TT t
+// .. TT t + TT - 1 of it, so the rows of one tracklet share a tile and the
+// union of their allowed columns is that tracklet (in any order the result
+// is the same, with less reuse: each row writes its own slot). The block
+// lists the union once (a TT-bit word a column) and brings the listed
+// columns' slices of its head through a ring of TSTAGES chunks of TCK
+// columns by 16-byte cp.async: the 16-byte window around the slice, which
+// starts h D floats into a row (1188 h bytes at D = 297, off 16 for odd h).
+// Every row of the tile reads them from shared memory, so a column crosses
+// from L2 once a tile, not once a row as on the per-element route.
+// Lanes split the head dim as on the per-element route (lane i holds dims i,
+// i + 32, ..., SLOTS of them); the rows' own vectors (q; q and g for dQ; k
+// and v for dK/dV) and the fp32 sums stay in registers.
+//   - forward: FWD_ROWS rows a warp. A chunk's TCK x FWD_ROWS dot products
+//     are summed across the warp in one 5-round exchange (scatter_sum32) that
+//     leaves lane l the score of (row l / 8, column l % 8); it runs the online
+//     softmax and draws the dropout bit, and P~ V takes each probability by
+//     a shuffle.
+//   - dQ: BWD_ROWS rows a warp, one listed key at a time: s and dP~ of both
+//     rows in one exchange, then, as the staged dQ, r = sum p dP, sum p dP k
+//     and sum p k in the same walk, dQ = scale (sum p dP k - r sum p k).
+//   - dK/dV: BWD_ROWS key rows a warp, one listed query at a time (its q and
+//     g slices staged, its lse, r and dropout row key copied once): dV +=
+//     p~ g, dK += dS q. No atomics: deterministic.
+// Full float32 on the CUDA cores from shared memory: TF32 keeps about three
+// digits, short of the 1e-4 gate. Bound: at the tracklet shapes 0.31 GB of
+// compulsory traffic (0.093 ms) against 2.5 GFLOP (0.037 ms at 67 TFLOP/s);
+// the per-element route re-reads each allowed key's k and v slices once a
+// query row (about 5 GB through L1 / L2), the tiled one once a tile.
+constexpr int TT = 16;               // rows a tile
+constexpr int TCK = 8;               // columns a cp.async chunk
+constexpr int TSTAGES = 2;           // chunks in the ring
+constexpr int FWD_ROWS = 4;          // forward: tile rows a warp
+constexpr int BWD_ROWS = 2;          // dQ, dK/dV: tile rows a warp
+constexpr int FWD_TILED_THREADS = TT / FWD_ROWS * 32;
+constexpr int BWD_TILED_THREADS = TT / BWD_ROWS * 32;
+constexpr int FWD_TILED_BLOCKS = 3;  // blocks an SM asked of the compiler
+constexpr int BWD_TILED_BLOCKS = 2;
+static_assert(FWD_ROWS * TCK == 32, "the forward's exchange leaves one score a lane");
+static_assert(BWD_ROWS == 2, "the backward's exchange splits the warp by row");
+
+// Floats a staged row: the widest window of a head's slice (D + 6 floats
+// rounded down to 16 bytes).
+__host__ __device__ constexpr int tiled_row(int D) { return (D + 6) & ~3; }
+
+// Shared memory of one tiled block over `n` columns: the ring of TSTAGES
+// chunks of TCK rows of two tensors' windows, with `stats` (dK/dV) each
+// listed query's lse, r and dropout row key, the column list and its row
+// bits. The wrapper's tiled_smem_bytes is the same sum.
+size_t tiled_smem(int n, int D, bool stats) {
+  return (size_t)TSTAGES * 2 * TCK * tiled_row(D) * sizeof(float) +
+         (stats ? (size_t)n * 3 * sizeof(float) : 0) + (size_t)n * (sizeof(int) + sizeof(uint16_t));
+}
+
+// A tiled kernel's own shared memory: a count a warp and the tile's rows.
+constexpr size_t tiled_static_smem(int threads) { return (size_t)threads / 32 * 4 + TT * 4; }
+
+// A head's window of a float row: its slice [h D, (h + 1) D) widened to
+// 16-byte bounds, inside the row (rows are whole 16-byte pieces); the slice
+// starts `shift` floats into it.
+__device__ __forceinline__ Window head_window(int h, int D) {
+  const int start = (h * D) & ~3, end = ((h + 1) * D + 3) & ~3;
+  return Window{start, end - start, h * D - start};
+}
+
+// Bit t: tile row t (token rows[t] of the video's mask mb, n columns) allows
+// column j.
+__device__ __forceinline__ unsigned tile_bits(const unsigned char* mb, const int* rows, int n,
+                                              int j) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int t = 0; t < TT; ++t)
+    if (rows[t] >= 0) bits |= (mb[(long long)rows[t] * n + j] ? 1u : 0u) << t;
+  return bits;
+}
+
+// The tile's rows: the tokens at places TT tile .. TT tile + TT - 1 of the
+// video's order (L of them), -1 past L. Every thread calls it.
+__device__ __forceinline__ void tile_rows(int* rows, const long long* order, int b, int L,
+                                          int tile) {
+  if (threadIdx.x < TT) {
+    const int at = tile * TT + threadIdx.x;
+    rows[threadIdx.x] = at < L ? (int)order[(long long)b * L + at] : -1;
+  }
+  __syncthreads();
+}
+
+// The listed columns c0 .. c0 + TCK - 1 (list[] tokens, n of them left) of
+// two float tensors' windows (`len` floats, a multiple of 4) into two
+// TCK-row blocks of dst (row stride ld) by 16-byte cp.async, a warp a row,
+// zero-filled past n.
+template <int NT>
+__device__ __forceinline__ void gather_windows(float* dst, int ld, const int* list, int n,
+                                               const float* x, long long x_sl, const float* y,
+                                               long long y_sl, int len) {
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < 2 * TCK; j += NT / 32) {
+    const int col = j % TCK;
+    const bool in = col < n;
+    const long long tok = in ? list[col] : 0;
+    const float* src = j < TCK ? x + tok * x_sl : y + tok * y_sl;
+    for (int e = 4 * lane; e < len; e += 128) cp_async16(dst + j * ld + e, src + e, in);
+  }
+}
+
+// One round of scatter_sum32 on the first N values, with lanes O apart: a
+// lane keeps the half whose index has its lane bit O and adds the partner's
+// copy of that half.
+template <int N, int O>
+__device__ __forceinline__ void scatter_round(float (&v)[32]) {
+  const bool hi = threadIdx.x & O;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = hi ? v[i] : v[i + N / 2];
+    v[i] = (hi ? v[i + N / 2] : v[i]) + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// 32 values a lane summed across the warp: lane l ends with the sum of
+// every lane's v[l], in five rounds that halve the values a lane holds.
+__device__ __forceinline__ float scatter_sum32(float (&v)[32]) {
+  scatter_round<32, 16>(v);
+  scatter_round<16, 8>(v);
+  scatter_round<8, 4>(v);
+  scatter_round<4, 2>(v);
+  scatter_round<2, 1>(v);
+  return v[0];
+}
+
+// Two rows' values x0, x1 and y0, y1 summed across the warp: lanes 0-15 end
+// with row 0's sums, lanes 16-31 with row 1's (one split round, four
+// butterfly rounds of two values).
+__device__ __forceinline__ void row_sums2(float (&sv)[4], float& x, float& y) {
+  const bool hi = threadIdx.x & 16;
+  x = (hi ? sv[1] : sv[0]) + __shfl_xor_sync(0xffffffffu, hi ? sv[0] : sv[1], 16);
+  y = (hi ? sv[3] : sv[2]) + __shfl_xor_sync(0xffffffffu, hi ? sv[2] : sv[3], 16);
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+    y += __shfl_xor_sync(0xffffffffu, y, o);
+  }
+}
+
+// ------------------------------------------------ forward, tiled route
+template <int SLOTS, bool DROP, bool LSE>
+__global__ void __launch_bounds__(FWD_TILED_THREADS, FWD_TILED_BLOCKS)
+masked_mha_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const unsigned char* __restrict__ allow,
+                            const long long* __restrict__ order, const int* __restrict__ seeds,
+                            float* __restrict__ out, float* __restrict__ lse, Args a) {
+  constexpr int NT = FWD_TILED_THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[NT / 32];
+  __shared__ int rows[TT];
+  const int D = a.D, EW = tiled_row(D);
+  float* ring = reinterpret_cast<float*>(smem);  // stage: TCK k windows, then TCK v windows
+  int* keys = reinterpret_cast<int*>(ring + TSTAGES * 2 * TCK * EW);
+  uint16_t* kbits = reinterpret_cast<uint16_t*>(keys + a.Lk);
+
+  const int tiles = (a.Lq + TT - 1) / TT;
+  const int h = blockIdx.x % a.H, tile = (blockIdx.x / a.H) % tiles;
+  const int b = blockIdx.x / (a.H * tiles);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  tile_rows(rows, order, b, a.Lq, tile);
+  const unsigned char* mb = allow + (long long)b * a.Lq * a.Lk;
+  const int nk = compact_list<NT>(
+      a.Lk, [&](int kj) { return tile_bits(mb, rows, a.Lk, kj); }, keys, kbits, counts);
+  const int chunks = (nk + TCK - 1) / TCK;
+  const Window win = head_window(h, D);
+  const float* kb = k + b * a.k_sb + win.start;
+  const float* vb = v + b * a.v_sb + win.start;
+  auto stage = [&](int c) {
+    if (c * TCK < nk)
+      gather_windows<NT>(ring + (c % TSTAGES) * 2 * TCK * EW, EW, keys + c * TCK, nk - c * TCK,
+                         kb, a.k_sl, vb, a.v_sl, win.len);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < TSTAGES - 1; ++c) stage(c);
+
+  // this warp's rows FWD_ROWS warp + r: q and the output sums in registers
+  float qv[FWD_ROWS][SLOTS], acc[FWD_ROWS][SLOTS];
+#pragma unroll
+  for (int r = 0; r < FWD_ROWS; ++r) {
+    const int row = rows[FWD_ROWS * warp + r];
+    const float* qp = q + b * a.q_sb + (long long)max(row, 0) * a.q_sl + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      qv[r][j] = row >= 0 && d < D ? qp[d] : 0.f;
+      acc[r][j] = 0.f;
+    }
+  }
+  // the score this lane takes after each exchange: tile row my_t, column
+  // lane % 8 of the chunk; the row's running max (the same in its 8 lanes)
+  // and this lane's part of its sum
+  const int my_t = FWD_ROWS * warp + (lane >> 3), my_row = rows[my_t];
+  const uint32_t rkey = DROP && my_row >= 0 ? row_key(seeds[b], h, my_row) : 0u;
+  float m = -INFINITY, l = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + TSTAGES - 1);
+    cp_async_wait<TSTAGES - 1>();
+    __syncthreads();
+    const float* kr = ring + (c % TSTAGES) * 2 * TCK * EW + win.shift;
+    const float* vr = kr + TCK * EW;
+    float s[FWD_ROWS * TCK];  // [r * TCK + column]: this lane's dims' part
+#pragma unroll
+    for (int i = 0; i < FWD_ROWS * TCK; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) {
+#pragma unroll
+        for (int col = 0; col < TCK; ++col) {
+          const float x = kr[col * EW + d];
+#pragma unroll
+          for (int r = 0; r < FWD_ROWS; ++r) s[r * TCK + col] += qv[r][j] * x;
+        }
+      }
+    }
+    const float sc = scatter_sum32(s) * a.scale;
+    const int slot = c * TCK + (lane & 7);
+    const bool on = slot < nk && ((kbits[slot] >> my_t) & 1u);
+    const float x = on ? sc : -INFINITY;
+    float mx = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = m_new == -INFINITY ? 1.f : __expf(m - m_new);
+    float p = on ? __expf(x - m_new) : 0.f;
+    l = l * alpha + p;
+    m = m_new;
+    // dropout acts on the normalized p: the sum l stays undropped
+    if (DROP && on) p = drop_bits(rkey, keys[slot]) >= a.threshold ? p * a.keep_scale : 0.f;
+#pragma unroll
+    for (int r = 0; r < FWD_ROWS; ++r) {
+      const float f = __shfl_sync(0xffffffffu, alpha, 8 * r);
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) acc[r][j] *= f;
+    }
+#pragma unroll
+    for (int col = 0; col < TCK; ++col) {
+      float pc[FWD_ROWS];
+#pragma unroll
+      for (int r = 0; r < FWD_ROWS; ++r) pc[r] = __shfl_sync(0xffffffffu, p, 8 * r + col);
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) {
+          const float y = vr[col * EW + d];
+#pragma unroll
+          for (int r = 0; r < FWD_ROWS; ++r) acc[r][j] += pc[r] * y;
+        }
+      }
+    }
+    __syncthreads();  // stage c % TSTAGES is refilled next
+  }
+  cp_async_wait<0>();
+
+  float sum = l + __shfl_xor_sync(0xffffffffu, l, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+  const float inv = sum > 0.f ? 1.f / sum : 0.f;  // no allowed key -> 0
+#pragma unroll
+  for (int r = 0; r < FWD_ROWS; ++r) {
+    const float f = __shfl_sync(0xffffffffu, inv, 8 * r);
+    const int row = rows[FWD_ROWS * warp + r];
+    if (row < 0) continue;  // warp-uniform
+    float* o = out + (((long long)b * a.Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) o[d] = acc[r][j] * f;
+    }
+  }
+  if (LSE && (lane & 7) == 0 && my_row >= 0)
+    lse[((long long)b * a.H + h) * a.Lq + my_row] = sum > 0.f ? m + logf(sum) : LSE_EMPTY;
+}
+
+// ------------------------------------------------------ dQ, tiled route
+template <int SLOTS, bool DROP>
+__global__ void __launch_bounds__(BWD_TILED_THREADS, BWD_TILED_BLOCKS)
+masked_mha_bwd_dq_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ g,
+                               const unsigned char* __restrict__ allow,
+                               const long long* __restrict__ order,
+                               const float* __restrict__ lse, const int* __restrict__ seeds,
+                               float* __restrict__ dq, float* __restrict__ r_out, Args a) {
+  constexpr int NT = BWD_TILED_THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[NT / 32];
+  __shared__ int rows[TT];
+  const int D = a.D, EW = tiled_row(D);
+  float* ring = reinterpret_cast<float*>(smem);  // stage: TCK k windows, then TCK v windows
+  int* keys = reinterpret_cast<int*>(ring + TSTAGES * 2 * TCK * EW);
+  uint16_t* kbits = reinterpret_cast<uint16_t*>(keys + a.Lk);
+
+  const int tiles = (a.Lq + TT - 1) / TT;
+  const int h = blockIdx.x % a.H, tile = (blockIdx.x / a.H) % tiles;
+  const int b = blockIdx.x / (a.H * tiles);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  tile_rows(rows, order, b, a.Lq, tile);
+  const unsigned char* mb = allow + (long long)b * a.Lq * a.Lk;
+  const int nk = compact_list<NT>(
+      a.Lk, [&](int kj) { return tile_bits(mb, rows, a.Lk, kj); }, keys, kbits, counts);
+  const int chunks = (nk + TCK - 1) / TCK;
+  const Window win = head_window(h, D);
+  const float* kb = k + b * a.k_sb + win.start;
+  const float* vb = v + b * a.v_sb + win.start;
+  auto stage = [&](int c) {
+    if (c * TCK < nk)
+      gather_windows<NT>(ring + (c % TSTAGES) * 2 * TCK * EW, EW, keys + c * TCK, nk - c * TCK,
+                         kb, a.k_sl, vb, a.v_sl, win.len);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < TSTAGES - 1; ++c) stage(c);
+
+  // this warp's rows BWD_ROWS warp + r: q and g, and the sums of p dP k and
+  // p k, in registers
+  float qv[BWD_ROWS][SLOTS], gv[BWD_ROWS][SLOTS], pdk[BWD_ROWS][SLOTS], pk[BWD_ROWS][SLOTS];
+#pragma unroll
+  for (int r = 0; r < BWD_ROWS; ++r) {
+    const int row = rows[BWD_ROWS * warp + r];
+    const float* qp = q + b * a.q_sb + (long long)max(row, 0) * a.q_sl + (long long)h * D;
+    const float* gp = g + b * a.g_sb + (long long)max(row, 0) * a.g_sl + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      const bool in = row >= 0 && d < D;
+      qv[r][j] = in ? qp[d] : 0.f;
+      gv[r][j] = in ? gp[d] : 0.f;
+      pdk[r][j] = pk[r][j] = 0.f;
+    }
+  }
+  // lanes 0-15 take row 0's scores, lanes 16-31 row 1's
+  const bool hi = lane & 16;
+  const int my_t = BWD_ROWS * warp + hi, my_row = rows[my_t];
+  const float L = my_row >= 0 ? lse[((long long)b * a.H + h) * a.Lq + my_row] : 0.f;
+  const uint32_t rkey = DROP && my_row >= 0 ? row_key(seeds[b], h, my_row) : 0u;
+  float rsum[BWD_ROWS] = {0.f, 0.f};
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + TSTAGES - 1);
+    cp_async_wait<TSTAGES - 1>();
+    __syncthreads();
+    const float* kr = ring + (c % TSTAGES) * 2 * TCK * EW + win.shift;
+    const float* vr = kr + TCK * EW;
+    const int n = min(TCK, nk - c * TCK);
+    for (int col = 0; col < n; ++col) {
+      float kx[SLOTS], sv[4] = {0.f, 0.f, 0.f, 0.f};  // q0.k, q1.k, g0.v, g1.v parts
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        const int d = lane + 32 * j;
+        kx[j] = 0.f;
+        if (d < D) {
+          kx[j] = kr[col * EW + d];
+          const float y = vr[col * EW + d];
+          sv[0] += qv[0][j] * kx[j];
+          sv[1] += qv[1][j] * kx[j];
+          sv[2] += gv[0][j] * y;
+          sv[3] += gv[1][j] * y;
+        }
+      }
+      float s, dp;
+      row_sums2(sv, s, dp);
+      const int slot = c * TCK + col;
+      const bool on = (kbits[slot] >> my_t) & 1u;
+      const float p = on ? __expf(s * a.scale - L) : 0.f;
+      if (DROP) dp = drop_bits(rkey, keys[slot]) >= a.threshold ? dp * a.keep_scale : 0.f;
+      const float w = p * dp;  // this row's p dP; the other row's from lane ^ 16
+      const float w_o = __shfl_xor_sync(0xffffffffu, w, 16);
+      const float p_o = __shfl_xor_sync(0xffffffffu, p, 16);
+      const float w0 = hi ? w_o : w, w1 = hi ? w : w_o, p0 = hi ? p_o : p, p1 = hi ? p : p_o;
+      rsum[0] += w0;
+      rsum[1] += w1;
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        pdk[0][j] += w0 * kx[j];
+        pdk[1][j] += w1 * kx[j];
+        pk[0][j] += p0 * kx[j];
+        pk[1][j] += p1 * kx[j];
+      }
+    }
+    __syncthreads();  // stage c % TSTAGES is refilled next
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < BWD_ROWS; ++r) {
+    const int row = rows[BWD_ROWS * warp + r];
+    if (row < 0) continue;  // warp-uniform
+    float* o = dq + (((long long)b * a.Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) o[d] = (pdk[r][j] - rsum[r] * pk[r][j]) * a.scale;
+    }
+  }
+  if ((lane & 15) == 0 && my_row >= 0)
+    r_out[((long long)b * a.H + h) * a.Lq + my_row] = hi ? rsum[1] : rsum[0];
+}
+
+// --------------------------------------------------- dK/dV, tiled route
+template <int SLOTS, bool DROP>
+__global__ void __launch_bounds__(BWD_TILED_THREADS, BWD_TILED_BLOCKS)
+masked_mha_bwd_dkv_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ g,
+                                const unsigned char* __restrict__ allow_t,
+                                const long long* __restrict__ order,
+                                const float* __restrict__ lse, const float* __restrict__ r_in,
+                                const int* __restrict__ seeds, float* __restrict__ dk,
+                                float* __restrict__ dv, Args a) {
+  constexpr int NT = BWD_TILED_THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int counts[NT / 32];
+  __shared__ int rows[TT];
+  const int D = a.D, EW = tiled_row(D);
+  float* ring = reinterpret_cast<float*>(smem);  // stage: TCK q windows, then TCK g windows
+  float* lses = ring + TSTAGES * 2 * TCK * EW;
+  float* rs = lses + a.Lq;
+  uint32_t* rks = reinterpret_cast<uint32_t*>(rs + a.Lq);
+  int* qlist = reinterpret_cast<int*>(rks + a.Lq);
+  uint16_t* qbits = reinterpret_cast<uint16_t*>(qlist + a.Lq);
+
+  const int tiles = (a.Lk + TT - 1) / TT;
+  const int h = blockIdx.x % a.H, tile = (blockIdx.x / a.H) % tiles;
+  const int b = blockIdx.x / (a.H * tiles);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  tile_rows(rows, order, b, a.Lk, tile);
+  const unsigned char* mb = allow_t + (long long)b * a.Lk * a.Lq;
+  const int nq = compact_list<NT>(
+      a.Lq, [&](int qj) { return tile_bits(mb, rows, a.Lq, qj); }, qlist, qbits, counts);
+  // each listed query's lse, r and dropout row key, once (an allowed pair
+  // means the query row has a key: its lse is real)
+  for (int i = threadIdx.x; i < nq; i += NT) {
+    const int qi = qlist[i];
+    const long long at = ((long long)b * a.H + h) * a.Lq + qi;
+    lses[i] = lse[at];
+    rs[i] = r_in[at];
+    if (DROP) rks[i] = row_key(seeds[b], h, qi);
+  }
+  const int chunks = (nq + TCK - 1) / TCK;
+  const Window win = head_window(h, D);
+  const float* qb = q + b * a.q_sb + win.start;
+  const float* gb = g + b * a.g_sb + win.start;
+  auto stage = [&](int c) {
+    if (c * TCK < nq)
+      gather_windows<NT>(ring + (c % TSTAGES) * 2 * TCK * EW, EW, qlist + c * TCK,
+                         nq - c * TCK, qb, a.q_sl, gb, a.g_sl, win.len);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < TSTAGES - 1; ++c) stage(c);
+
+  // this warp's key rows BWD_ROWS warp + r: k and v, and the dK and dV
+  // sums, in registers
+  float kv[BWD_ROWS][SLOTS], vv[BWD_ROWS][SLOTS], dka[BWD_ROWS][SLOTS], dva[BWD_ROWS][SLOTS];
+#pragma unroll
+  for (int r = 0; r < BWD_ROWS; ++r) {
+    const int row = rows[BWD_ROWS * warp + r];
+    const float* kp = k + b * a.k_sb + (long long)max(row, 0) * a.k_sl + (long long)h * D;
+    const float* vp = v + b * a.v_sb + (long long)max(row, 0) * a.v_sl + (long long)h * D;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      const bool in = row >= 0 && d < D;
+      kv[r][j] = in ? kp[d] : 0.f;
+      vv[r][j] = in ? vp[d] : 0.f;
+      dka[r][j] = dva[r][j] = 0.f;
+    }
+  }
+  // lanes 0-15 take key row 0's scores, lanes 16-31 key row 1's
+  const bool hi = lane & 16;
+  const int my_t = BWD_ROWS * warp + hi, my_key = rows[my_t];
+  for (int c = 0; c < chunks; ++c) {
+    stage(c + TSTAGES - 1);
+    cp_async_wait<TSTAGES - 1>();
+    __syncthreads();
+    const float* qr = ring + (c % TSTAGES) * 2 * TCK * EW + win.shift;
+    const float* gr = qr + TCK * EW;
+    const int n = min(TCK, nq - c * TCK);
+    for (int col = 0; col < n; ++col) {
+      float qx[SLOTS], gx[SLOTS], sv[4] = {0.f, 0.f, 0.f, 0.f};  // k0.q, k1.q, v0.g, v1.g parts
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        const int d = lane + 32 * j;
+        qx[j] = gx[j] = 0.f;
+        if (d < D) {
+          qx[j] = qr[col * EW + d];
+          gx[j] = gr[col * EW + d];
+          sv[0] += kv[0][j] * qx[j];
+          sv[1] += kv[1][j] * qx[j];
+          sv[2] += vv[0][j] * gx[j];
+          sv[3] += vv[1][j] * gx[j];
+        }
+      }
+      float s, dpt;
+      row_sums2(sv, s, dpt);
+      const int slot = c * TCK + col;
+      const bool on = (qbits[slot] >> my_t) & 1u;
+      const float p = on ? __expf(s * a.scale - lses[slot]) : 0.f;
+      const bool keep = !DROP || drop_bits(rks[slot], my_key) >= a.threshold;
+      const float ks = DROP ? a.keep_scale : 1.f;
+      const float pt = keep ? p * ks : 0.f;
+      const float ds = p * ((keep ? dpt * ks : 0.f) - rs[slot]) * a.scale;
+      const float pt_o = __shfl_xor_sync(0xffffffffu, pt, 16);
+      const float ds_o = __shfl_xor_sync(0xffffffffu, ds, 16);
+      const float pt0 = hi ? pt_o : pt, pt1 = hi ? pt : pt_o;
+      const float ds0 = hi ? ds_o : ds, ds1 = hi ? ds : ds_o;
+#pragma unroll
+      for (int j = 0; j < SLOTS; ++j) {
+        dva[0][j] += pt0 * gx[j];
+        dva[1][j] += pt1 * gx[j];
+        dka[0][j] += ds0 * qx[j];
+        dka[1][j] += ds1 * qx[j];
+      }
+    }
+    __syncthreads();  // stage c % TSTAGES is refilled next
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < BWD_ROWS; ++r) {
+    const int row = rows[BWD_ROWS * warp + r];
+    if (row < 0) continue;  // warp-uniform
+    const long long o = (((long long)b * a.Lk + row) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < SLOTS; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) {
+        dk[o + d] = dka[r][j];
+        dv[o + d] = dva[r][j];
+      }
+    }
+  }
+}
+
 unsigned blocks_for(long long warps) { return (unsigned)((warps + WARPS - 1) / WARPS); }
 
 bool bad_shape(int B, int Lq, int Lk, int H, int D) {
@@ -1327,6 +1878,100 @@ int bwd_dkv_staged(const void* q, const void* k, const void* v, const void* g,
       static_cast<const float*>(r), static_cast<const int*>(seeds),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a);
   return (int)cudaGetLastError();
+}
+
+// True for what the tiled routes cannot take: not float32, more heads than
+// WARPS, a head dim past DMAX, rows that are not whole 16-byte pieces (H D
+// a multiple of 4), pointers or token and batch strides (or-ed together)
+// off 16-byte alignment.
+bool tiled_refuses(int dtype, int B, int Lq, int Lk, int H, int D,
+                   std::initializer_list<const void*> ptrs, long long strides) {
+  bool off = false;
+  for (const void* p : ptrs) off |= reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  return dtype != 0 || bad_shape(B, Lq, Lk, H, D) || H > WARPS || (H * D) % 4 || off ||
+         strides % 4 != 0;
+}
+
+unsigned tiled_blocks(const Args& a, int rows) {
+  return (unsigned)((long long)a.B * ((rows + TT - 1) / TT) * a.H);
+}
+
+template <int SLOTS, bool DROP, bool LSE>
+int fwd_tiled_slots(const void* q, const void* k, const void* v, const void* allow,
+                    const void* order, const void* seeds, void* out, void* lse, const Args& a,
+                    cudaStream_t s) {
+  auto kernel = masked_mha_fwd_tiled_kernel<SLOTS, DROP, LSE>;
+  const size_t smem = tiled_smem(a.Lk, a.D, false);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tiled_blocks(a, a.Lq), FWD_TILED_THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const unsigned char*>(allow), static_cast<const long long*>(order),
+      static_cast<const int*>(seeds), static_cast<float*>(out), static_cast<float*>(lse), a);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP, bool LSE>
+int fwd_tiled(const void* q, const void* k, const void* v, const void* allow, const void* order,
+              const void* seeds, void* out, void* lse, const Args& a, cudaStream_t s) {
+  return slots_for(a.D) == 8
+             ? fwd_tiled_slots<8, DROP, LSE>(q, k, v, allow, order, seeds, out, lse, a, s)
+             : fwd_tiled_slots<10, DROP, LSE>(q, k, v, allow, order, seeds, out, lse, a, s);
+}
+
+template <int SLOTS, bool DROP>
+int bwd_dq_tiled_slots(const void* q, const void* k, const void* v, const void* g,
+                       const void* allow, const void* order, const void* lse, const void* seeds,
+                       void* dq, void* r, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_bwd_dq_tiled_kernel<SLOTS, DROP>;
+  const size_t smem = tiled_smem(a.Lk, a.D, false);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tiled_blocks(a, a.Lq), BWD_TILED_THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const unsigned char*>(allow),
+      static_cast<const long long*>(order), static_cast<const float*>(lse),
+      static_cast<const int*>(seeds), static_cast<float*>(dq), static_cast<float*>(r), a);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int bwd_dq_tiled(const void* q, const void* k, const void* v, const void* g, const void* allow,
+                 const void* order, const void* lse, const void* seeds, void* dq, void* r,
+                 const Args& a, cudaStream_t s) {
+  return slots_for(a.D) == 8
+             ? bwd_dq_tiled_slots<8, DROP>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s)
+             : bwd_dq_tiled_slots<10, DROP>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s);
+}
+
+template <int SLOTS, bool DROP>
+int bwd_dkv_tiled_slots(const void* q, const void* k, const void* v, const void* g,
+                        const void* allow_t, const void* order, const void* lse, const void* r,
+                        const void* seeds, void* dk, void* dv, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_bwd_dkv_tiled_kernel<SLOTS, DROP>;
+  const size_t smem = tiled_smem(a.Lq, a.D, true);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<tiled_blocks(a, a.Lk), BWD_TILED_THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const unsigned char*>(allow_t),
+      static_cast<const long long*>(order), static_cast<const float*>(lse),
+      static_cast<const float*>(r), static_cast<const int*>(seeds), static_cast<float*>(dk),
+      static_cast<float*>(dv), a);
+  return (int)cudaGetLastError();
+}
+
+template <bool DROP>
+int bwd_dkv_tiled(const void* q, const void* k, const void* v, const void* g,
+                  const void* allow_t, const void* order, const void* lse, const void* r,
+                  const void* seeds, void* dk, void* dv, const Args& a, cudaStream_t s) {
+  return slots_for(a.D) == 8 ? bwd_dkv_tiled_slots<8, DROP>(q, k, v, g, allow_t, order, lse, r,
+                                                           seeds, dk, dv, a, s)
+                             : bwd_dkv_tiled_slots<10, DROP>(q, k, v, g, allow_t, order, lse,
+                                                            r, seeds, dk, dv, a, s);
 }
 
 }  // namespace
@@ -1465,4 +2110,70 @@ extern "C" int masked_mha_bwd_dkv_staged(int dtype, const void* q, const void* k
   return seeds != nullptr
              ? bwd_dkv_staged<true>(q, k, v, g, allow_t, lse, r, seeds, dk, dv, a, s)
              : bwd_dkv_staged<false>(q, k, v, g, allow_t, lse, r, seeds, dk, dv, a, s);
+}
+
+// The tiled routes (float32 only): the arguments and outputs of
+// masked_mha_fwd, masked_mha_bwd_dq and masked_mha_bwd_dkv, with `order`
+// after the mask: (B, Lq) int64 (the forward and dQ) or (B, Lk) int64
+// (dK/dV), each video's rows in the order its tiles take them
+// (ops/masked_attention.py::row_order). They refuse (cudaErrorInvalidValue)
+// what tiled_refuses names and shared memory past a block's limit; the
+// wrapper's tiled_layout and tiled_plan check the same first.
+extern "C" int masked_mha_fwd_tiled(int dtype, const void* q, const void* k, const void* v,
+                                    const void* allow, const void* order, const void* seeds,
+                                    void* out, void* lse, int B, int Lq, int Lk, int H, int D,
+                                    long long q_sb, long long q_sl, long long k_sb,
+                                    long long k_sl, long long v_sb, long long v_sl, float scale,
+                                    unsigned threshold, float keep_scale, void* stream) {
+  if (tiled_refuses(dtype, B, Lq, Lk, H, D, {q, k, v}, q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) ||
+      tiled_smem(Lk, D, false) + tiled_static_smem(FWD_TILED_THREADS) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, 0, 0,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seeds == nullptr)
+    return lse == nullptr ? fwd_tiled<false, false>(q, k, v, allow, order, seeds, out, lse, a, s)
+                          : fwd_tiled<false, true>(q, k, v, allow, order, seeds, out, lse, a, s);
+  return lse == nullptr ? fwd_tiled<true, false>(q, k, v, allow, order, seeds, out, lse, a, s)
+                        : fwd_tiled<true, true>(q, k, v, allow, order, seeds, out, lse, a, s);
+}
+
+extern "C" int masked_mha_bwd_dq_tiled(int dtype, const void* q, const void* k, const void* v,
+                                       const void* g, const void* allow, const void* order,
+                                       const void* lse, const void* seeds, void* dq, void* r,
+                                       int B, int Lq, int Lk, int H, int D, long long q_sb,
+                                       long long q_sl, long long k_sb, long long k_sl,
+                                       long long v_sb, long long v_sl, long long g_sb,
+                                       long long g_sl, float scale, unsigned threshold,
+                                       float keep_scale, void* stream) {
+  if (tiled_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, g},
+                    q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) ||
+      tiled_smem(Lk, D, false) + tiled_static_smem(BWD_TILED_THREADS) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return seeds != nullptr
+             ? bwd_dq_tiled<true>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s)
+             : bwd_dq_tiled<false>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s);
+}
+
+extern "C" int masked_mha_bwd_dkv_tiled(int dtype, const void* q, const void* k, const void* v,
+                                        const void* g, const void* allow_t, const void* order,
+                                        const void* lse, const void* r, const void* seeds,
+                                        void* dk, void* dv, int B, int Lq, int Lk, int H, int D,
+                                        long long q_sb, long long q_sl, long long k_sb,
+                                        long long k_sl, long long v_sb, long long v_sl,
+                                        long long g_sb, long long g_sl, float scale,
+                                        unsigned threshold, float keep_scale, void* stream) {
+  if (tiled_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, g},
+                    q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) ||
+      tiled_smem(Lq, D, true) + tiled_static_smem(BWD_TILED_THREADS) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return seeds != nullptr
+             ? bwd_dkv_tiled<true>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s)
+             : bwd_dkv_tiled<false>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s);
 }

@@ -20,7 +20,7 @@ encoder layers (FFN 1024, d_model feat + 200 + 128 = 2376, head dim 297)
 over the boxes of each tracklet, the tracklets given as per-box group ids
 (`group_id`, from `models/track.py`; by default the box labels). It runs
 in float32, as the JAX module does, through the port's attention kernels
-(the per-element route: D = 297 is odd).
+(the tiled route: float32, D = 297).
 
 Every grouping is an allow mask over the flat relation (or box) array, as
 in STTran. Train mode draws every dropout from the `generator` passed to

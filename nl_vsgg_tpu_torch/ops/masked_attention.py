@@ -31,13 +31,13 @@ gradients and at rate 0 it is the eval forward: no lse, no hashing.
 `LAUNCHES` counts kernel launches by kernel ("fwd", "bwd_dq", "bwd_dkv");
 `reset_launches()` sets them to 0.
 
-Each kernel has two routes, one launch either way, picked before the
-launch from dtype, shapes and alignment alone (`fwd_route`, `dq_route`,
-`dkv_route`, all on one rule, `staged_layout`: bf16, at most 8 heads, an
+Each kernel has three routes, one launch each, picked before the launch
+from dtype, shapes and alignment alone (`fwd_route`, `dq_route`,
+`dkv_route`). "staged" (rule `staged_layout`: bf16, at most 8 heads, an
 even head dim of at most 256, q/k/v/g rows and batch and token strides on
 16-byte boundaries, H * D * 2 bytes a multiple of 16; the serving and
-training paths' column blocks of the fused projection). "staged" brings
-token rows in by 16-byte copies:
+training paths' column blocks of the fused projection) brings token rows
+in by 16-byte copies:
   - the forward and dK/dV: one block a (video, tile of 16 query or key
     rows, 2 heads; `fwd_plan`, `dkv_plan`); the block lists the union of
     its rows' allowed keys (queries), copies their rows' slices once a tile
@@ -45,9 +45,19 @@ token rows in by 16-byte copies:
     a head (`FWD_PARTS`, `DKV_PARTS`) splitting S's k-steps;
   - dQ: one block a query row, its allowed keys walked once, summing dQ as
     scale (sum p dP k - r sum p k).
-"per-element" (fp32, odd D, D above 256, other views) runs one warp a
-(row, head) and loads a head's dims one by one, 8 a lane up to D = 256 and
-10 up to 320.
+"tiled" (rule `tiled_layout`: float32, at most 8 heads, D <= 320, odd D
+too, rows of whole 16-byte pieces, pointers and batch and token strides on
+16 bytes; DSG-DETR's tracklet encoder, 8 heads of 297) runs one block a
+(video, tile of 16 rows, head) for all three kernels (`tiled_plan`), the
+rows of a tile taken in `row_order`: each video's rows by their first
+allowed column, so that rows with the same allowed keys share a tile. The
+block lists the union of its rows' allowed columns once and stages their
+slices once a tile (8 columns a cp.async chunk, the 16-byte window around
+a head's slice); the sums run in fp32 on the CUDA cores, dQ in one walk as
+on the staged route.
+"per-element" (bf16 with odd D or D above 256, other views, more than 8
+heads) runs one warp a (row, head) and loads a head's dims one by one, 8 a
+lane up to D = 256 and 10 up to 320.
 """
 
 from __future__ import annotations
@@ -78,9 +88,19 @@ HEAD_GROUP = 2                   # forward / dK/dV: heads a block
 CHUNK_ROWS = 8                   # forward / dK/dV: keys / queries a cp.async chunk
 FWD_CHUNKS = DKV_CHUNKS = 2      # forward / dK/dV: chunks in the ring
 FWD_PARTS, DKV_PARTS = 4, 2      # forward / dK/dV: warps a head
-_DQ_ENTRY = {"staged": "masked_mha_bwd_dq_staged", "per-element": "masked_mha_bwd_dq"}
-_FWD_ENTRY = {"staged": "masked_mha_fwd_staged", "per-element": "masked_mha_fwd"}
-_DKV_ENTRY = {"staged": "masked_mha_bwd_dkv_staged", "per-element": "masked_mha_bwd_dkv"}
+# the tiled routes (csrc/masked_attention.cu TT, TCK, TSTAGES, FWD_ROWS,
+# BWD_ROWS and tiled_smem)
+TILED_MAX_HEADS = 8
+TILED_ROWS = 16                  # rows a tile (query rows: forward, dQ; key rows: dK/dV)
+TILED_CHUNK = 8                  # columns a cp.async chunk
+TILED_CHUNKS = 2                 # chunks in the ring
+TILED_WARP_ROWS = {"fwd": 4, "bwd": 2}   # tile rows a warp
+_DQ_ENTRY = {"staged": "masked_mha_bwd_dq_staged", "tiled": "masked_mha_bwd_dq_tiled",
+             "per-element": "masked_mha_bwd_dq"}
+_FWD_ENTRY = {"staged": "masked_mha_fwd_staged", "tiled": "masked_mha_fwd_tiled",
+              "per-element": "masked_mha_fwd"}
+_DKV_ENTRY = {"staged": "masked_mha_bwd_dkv_staged", "tiled": "masked_mha_bwd_dkv_tiled",
+              "per-element": "masked_mha_bwd_dkv"}
 
 
 def reset_launches() -> None:
@@ -276,11 +296,12 @@ def _forward_cuda(q, k, v, allow, sm_scale, dropout_rate, seeds, with_lse):
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if with_lse else None
     route = fwd_route(q, k, v)
+    order = _order(route, allow)
     with torch.cuda.device(q.device):
         rc = _fn(_FWD_ENTRY[route])(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), allow.data_ptr(),
-            _ptr(seeds), out.data_ptr(), _ptr(lse), B, Lq, k.shape[1], H, D,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            *map(_ptr, order), _ptr(seeds), out.data_ptr(), _ptr(lse), B, Lq, k.shape[1], H,
+            D, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             float(sm_scale), threshold, keep_scale, torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "forward")
     LAUNCHES["fwd"] += 1
@@ -320,6 +341,67 @@ def staged_layout(tensors) -> bool:
             and D <= STAGED_MAX_HEAD_DIM and (H * D) % 8 == 0
             and all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
                     for t in tensors))
+
+
+def tiled_layout(tensors) -> bool:
+    """Whether the tiled routes can take these (B, L, H, D) tensors:
+    float32, at most 8 heads, a head dim of at most 320 (odd too: a head's
+    slice is copied with the 16-byte window around it), rows of whole
+    16-byte pieces, and every tensor's pointer and batch and token strides
+    on 16 bytes (the 16-byte copies). The one rule of the three routes'
+    tiled choice; `tiled_refuses` in csrc/masked_attention.cu is the same."""
+    _, _, H, D = tensors[0].shape
+    return (tensors[0].dtype == torch.float32 and H <= TILED_MAX_HEADS
+            and D <= _MAX_HEAD_DIM and (H * D) % 4 == 0
+            and all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+                    for t in tensors))
+
+
+def tiled_smem_bytes(columns: int, head_dim: int, stats: bool = False) -> int:
+    """Shared memory of one tiled block over `columns` columns (keys, or
+    queries for dK/dV): a ring of TILED_CHUNKS chunks of TILED_CHUNK rows of
+    two tensors' windows (float32, `(D + 6) & ~3` floats a row), with
+    `stats` (dK/dV) each listed query's lse, r and dropout row key, the
+    column list (int32) and its row bits (16 bits a column)."""
+    row = (head_dim + 6) & ~3
+    return (TILED_CHUNKS * 2 * TILED_CHUNK * row * 4 + (columns * 12 if stats else 0)
+            + columns * 6)
+
+
+def tiled_plan(kind: str, lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
+    """A tiled launch of `kind` ("fwd", "dq" or "dkv"): one block a (video,
+    tile, head); tile t takes the rows at places [t * TILED_ROWS, (t + 1) *
+    TILED_ROWS) of `row_order`'s order (query rows, key rows for dK/dV), so
+    `tiles` of them take every row once. `static_smem` is the kernel's own:
+    a count a warp and the tile's rows."""
+    rows, cols = (lk, lq) if kind == "dkv" else (lq, lk)
+    threads = 32 * TILED_ROWS // TILED_WARP_ROWS["fwd" if kind == "fwd" else "bwd"]
+    smem = tiled_smem_bytes(cols, head_dim, kind == "dkv")
+    static = threads // 32 * 4 + TILED_ROWS * 4
+    return {"rows": TILED_ROWS, "tiles": -(-rows // TILED_ROWS), "heads": num_heads,
+            "threads": threads, "smem": smem, "static_smem": static,
+            "fits": smem + static <= BLOCK_SMEM_MAX}
+
+
+def row_order(allow: torch.Tensor) -> torch.Tensor:
+    """(B, L) int64: each video's rows of a (B, L, N) bool mask in the order
+    the tiled kernels take them: by the first allowed column (a stable
+    sort, so rows that allow the same columns first keep their order), the
+    rows that allow none last. On same-group masks every 16 rows of the
+    order then share their allowed columns. A plan, not a product: any
+    order gives the same outputs, each row written to its own slot."""
+    n = allow.shape[-1]
+    some, first = allow.view(torch.uint8).max(-1)  # the first maximum: the first allowed
+    first = torch.where(some.bool(), first, n)
+    # 16-bit keys sort in fewer passes than the indices' int64
+    return torch.sort(first.to(torch.int16) if n < 2 ** 15 else first, dim=-1,
+                      stable=True).indices
+
+
+def _order(route: str, mask: torch.Tensor) -> list:
+    """The tiled entries' order tensor, passed after the mask (the caller
+    holds it until the launch is queued); none on the other routes."""
+    return [row_order(mask)] if route == "tiled" else []
 
 
 def dq_staged_smem_bytes(lk: int, num_heads: int, head_dim: int) -> int:
@@ -384,29 +466,39 @@ def dkv_plan(lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
     return _plan(lk, num_heads, DKV_PARTS, 2, dkv_staged_smem_bytes(lq, num_heads, head_dim))
 
 
+def _tiled(kind, tensors) -> bool:
+    _, Lq, H, D = tensors[0].shape
+    return tiled_layout(tensors) and tiled_plan(kind, Lq, tensors[1].shape[1], H, D)["fits"]
+
+
 def dq_route(q, k, v, g) -> str:
-    """The dQ kernel's route for these inputs, "staged" or "per-element",
-    from dtype, shapes and 16-byte alignment alone."""
+    """The dQ kernel's route for these inputs, "staged", "tiled" or
+    "per-element", from dtype, shapes and 16-byte alignment alone."""
     _, _, H, D = q.shape
-    staged = (staged_layout((q, k, v, g))
-              and dq_staged_smem_bytes(k.shape[1], H, D) <= STAGED_SMEM_MAX)
-    return "staged" if staged else "per-element"
+    if (staged_layout((q, k, v, g))
+            and dq_staged_smem_bytes(k.shape[1], H, D) <= STAGED_SMEM_MAX):
+        return "staged"
+    return "tiled" if _tiled("dq", (q, k, v, g)) else "per-element"
 
 
 def fwd_route(q, k, v) -> str:
-    """The forward kernel's route, "staged" (query tiles, `fwd_plan`) or
-    "per-element", from dtype, shapes and 16-byte alignment alone."""
+    """The forward kernel's route, "staged" (query tiles, `fwd_plan`),
+    "tiled" (`tiled_plan`) or "per-element", from dtype, shapes and 16-byte
+    alignment alone."""
     _, Lq, H, D = q.shape
-    staged = staged_layout((q, k, v)) and fwd_plan(Lq, k.shape[1], H, D)["fits"]
-    return "staged" if staged else "per-element"
+    if staged_layout((q, k, v)) and fwd_plan(Lq, k.shape[1], H, D)["fits"]:
+        return "staged"
+    return "tiled" if _tiled("fwd", (q, k, v)) else "per-element"
 
 
 def dkv_route(q, k, v, g) -> str:
-    """The dK/dV kernel's route, "staged" (key tiles, `dkv_plan`) or
-    "per-element", from dtype, shapes and 16-byte alignment alone."""
+    """The dK/dV kernel's route, "staged" (key tiles, `dkv_plan`), "tiled"
+    (`tiled_plan`) or "per-element", from dtype, shapes and 16-byte
+    alignment alone."""
     _, Lq, H, D = q.shape
-    staged = staged_layout((q, k, v, g)) and dkv_plan(Lq, k.shape[1], H, D)["fits"]
-    return "staged" if staged else "per-element"
+    if staged_layout((q, k, v, g)) and dkv_plan(Lq, k.shape[1], H, D)["fits"]:
+        return "staged"
+    return "tiled" if _tiled("dkv", (q, k, v, g)) else "per-element"
 
 
 def masked_mha_bwd_dq(q, k, v, allow, sm_scale: float, g, lse, dropout_rate: float = 0.0,
@@ -422,10 +514,13 @@ def masked_mha_bwd_dq(q, k, v, allow, sm_scale: float, g, lse, dropout_rate: flo
     B, Lq, H, D = q.shape
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     r = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    route = dq_route(q, k, v, g)
+    order = _order(route, allow)
     with torch.cuda.device(q.device):
-        rc = _fn(_DQ_ENTRY[dq_route(q, k, v, g)])(
+        rc = _fn(_DQ_ENTRY[route])(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            allow.data_ptr(), lse.data_ptr(), _ptr(seeds), dq.data_ptr(), r.data_ptr(),
+            allow.data_ptr(), *map(_ptr, order), lse.data_ptr(), _ptr(seeds), dq.data_ptr(),
+            r.data_ptr(),
             *_bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "backward dQ")
@@ -451,11 +546,12 @@ def masked_mha_bwd_dkv(q, k, v, allow_t, sm_scale: float, g, lse, r,
     dk = torch.empty((B, k.shape[1], H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     route = dkv_route(q, k, v, g)
+    order = _order(route, allow_t)
     with torch.cuda.device(q.device):
         rc = _fn(_DKV_ENTRY[route])(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            allow_t.data_ptr(), lse.data_ptr(), r.data_ptr(), _ptr(seeds), dk.data_ptr(),
-            dv.data_ptr(), *_bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale),
+            allow_t.data_ptr(), *map(_ptr, order), lse.data_ptr(), r.data_ptr(), _ptr(seeds),
+            dk.data_ptr(), dv.data_ptr(), *_bwd_dims(q, k, v, g, sm_scale, threshold, keep_scale),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "backward dK/dV")
     LAUNCHES["bwd_dkv"] += 1
@@ -515,8 +611,9 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 _ARGTYPES = {  # pointers after dtype; then sizes, strides, scale, threshold, keep scale, stream
-    "masked_mha_fwd": 7, "masked_mha_fwd_staged": 7, "masked_mha_bwd_dq": 9,
-    "masked_mha_bwd_dq_staged": 9, "masked_mha_bwd_dkv": 10, "masked_mha_bwd_dkv_staged": 10}
+    "masked_mha_fwd": 7, "masked_mha_fwd_staged": 7, "masked_mha_fwd_tiled": 8,
+    "masked_mha_bwd_dq": 9, "masked_mha_bwd_dq_staged": 9, "masked_mha_bwd_dq_tiled": 10,
+    "masked_mha_bwd_dkv": 10, "masked_mha_bwd_dkv_staged": 10, "masked_mha_bwd_dkv_tiled": 11}
 
 
 def entry_argtypes(name: str) -> list:

@@ -85,6 +85,22 @@ that leaves out work computes a wrong result and is timed only:
     no-mask         dQ: no key allowed (the mask read, no key copied)
     no-second-walk  the per-element dQ route without its second walk (the
                     dQ sum; r only): what the two-walk design paid
+  and the tiled route at the sgcls tracklet encoder's shapes (64 x 128
+  boxes, 8 float32 heads of 297, 4 tracklets a video; `tracklet_inputs`):
+  the forward (train and eval), dQ and dK/dV, each variant's C entry on a
+  row order made once, the committed kernel also on the per-element
+  entries, then the wrappers (their row order included) and `row_order`
+  alone:
+    tiled-stages-1       the ring one chunk deep
+    tiled-stages-3       the ring three chunks deep
+    tiled-no-load        the staged columns' copies zero-filled, not read
+    tiled-no-walk        the walks over the staged columns left out
+    tiled-no-list        nothing listed (the mask read, rows loaded, zeros
+                         stored)
+    tiled-fewer-blocks   2 forward and 1 backward blocks an SM asked of the
+                         compiler in place of 3 and 2
+    tiled-more-blocks    4 forward blocks an SM in place of 3
+    tiled-unroll-2       the backward walks unrolled by two columns
 
 Each row prints device us (or ms) a call, two-point differenced with the
 card kept busy while the host queues the calls (`tools.timing`), beside
@@ -230,6 +246,25 @@ VARIANTS = {
                            "[&](int kj) { return (unsigned)(arow[kj] == 7); }")),
         "no-second-walk": _edits(("for (int pass = 0; pass < 2; ++pass)",
                                   "for (int pass = 0; pass < 1; ++pass)")),
+        "tiled-stages-1": _edits(("constexpr int TSTAGES = 2;", "constexpr int TSTAGES = 1;")),
+        "tiled-stages-3": _edits(("constexpr int TSTAGES = 2;", "constexpr int TSTAGES = 3;")),
+        "tiled-no-load": _edits(   # the staged columns' copies zero-filled, not read
+            ("cp_async16(dst + j * ld + e, src + e, in);",
+             "cp_async16(dst + j * ld + e, src + e, false);")),
+        "tiled-no-walk": _edits(   # the walks over the staged columns left out
+            ("      if (d < D) {\n#pragma unroll\n        for (int col = 0; col < TCK; ++col) {",
+             "      if (d < 0) {\n#pragma unroll\n        for (int col = 0; col < TCK; ++col) {"),
+            ("        if (d < D) {\n          const float y = vr[col * EW + d];",
+             "        if (d < 0) {\n          const float y = vr[col * EW + d];"),
+            ("    for (int col = 0; col < n; ++col) {", "    for (int col = 0; col < 0; ++col) {")),
+        "tiled-no-list": _edits(   # nothing listed: the mask read, the rows loaded and stored
+            ("    if (rows[t] >= 0) bits |= (mb", "    if (rows[t] < -1) bits |= (mb")),
+        "tiled-fewer-blocks": _edits(("FWD_TILED_BLOCKS = 3;", "FWD_TILED_BLOCKS = 2;"),
+                                     ("BWD_TILED_BLOCKS = 2;", "BWD_TILED_BLOCKS = 1;")),
+        "tiled-more-blocks": _edits(("FWD_TILED_BLOCKS = 3;", "FWD_TILED_BLOCKS = 4;")),
+        "tiled-unroll-2": _edits(   # the backward walks two columns an iteration
+            ("    for (int col = 0; col < n; ++col) {",
+             "#pragma unroll 2\n    for (int col = 0; col < n; ++col) {")),
     },
 }
 # the attention kernels each masked_attention variant is timed on, and the
@@ -241,7 +276,11 @@ ATTENTION_KINDS = {"kernel": ("dq", "fwd", "dkv"), "no-kv-load": ("dq",),
                    "stages-3": ("fwd", "dkv"), "stages-4": ("fwd", "dkv"),
                    "heads-4": ("fwd", "dkv"), "parts-swap": ("fwd", "dkv"),
                    "no-walk": ("dq", "fwd", "dkv"), "no-mask": ("dq",), "no-list": ("fwd", "dkv"),
-                   "no-second-walk": ("dq",)}
+                   "no-second-walk": ("dq",), "tiled-stages-1": ("tiled",),
+                   "tiled-stages-3": ("tiled",), "tiled-no-load": ("tiled",),
+                   "tiled-no-walk": ("tiled",), "tiled-no-list": ("tiled",),
+                   "tiled-fewer-blocks": ("tiled",), "tiled-more-blocks": ("tiled",),
+                   "tiled-unroll-2": ("tiled",)}
 DQ_ROUTES = {"kernel": ("staged", "per-element"), "no-second-walk": ("per-element",)}
 ROI_MAP, ROIS_PER_FRAME, ROI_OUT = (32, 38, 64, 1024), 300, (14, 14)
 DQ_SHAPES = ((96, 96), (192, 192), (192, 192), (96, 192))   # (Lq, Lk), one train step
@@ -321,6 +360,7 @@ def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> lis
         libs = build("masked_attention")
         _run_dq(libs, add, dev, iters, clock, stream)
         _run_fwd_dkv(libs, add, log, dev, iters, clock, stream)
+        _run_tiled(libs, add, dev, iters, clock, stream)
     return rows
 
 
@@ -636,6 +676,92 @@ def _run_fwd_dkv(libs, add, log, dev, iters, clock, stream):
                 totals[kind, key] = totals.get((kind, key), 0.0) + t
         for (kind, key), t in totals.items():
             add(f"{kind}, the 4 calls of a step, {masks}", key, t, "ms")
+
+
+TRACKLET_B, TRACKLET_L, TRACKLET_H, TRACKLET_D, TRACKLET_GROUPS = 64, 128, 8, 297, 4
+
+
+def tracklet_inputs(dev, seed=0):
+    """The sgcls tracklet encoder's attention at full size: 64 videos of 128
+    boxes, 8 float32 heads of 297, q, k, v column blocks of a fused (B, L,
+    3 x 2376) projection, box i of tracklet i mod 4 (a person and 3 objects
+    in each of 32 frames, slots frame-major, as `chip_smoke.py` phase 12's
+    boxes), g, seeds, and the forward's lse and dQ's r (dropout 0.1)."""
+    from ..ops import masked_attention as ma
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, L, H, D = TRACKLET_B, TRACKLET_L, TRACKLET_H, TRACKLET_D
+    E = H * D
+    x = torch.randn(B, L, 3 * E, device=dev, generator=g)
+    q, k, v = (x[..., i * E:(i + 1) * E].unflatten(-1, (H, D)) for i in range(3))
+    gout = torch.randn(B, L, H, D, device=dev, generator=g)
+    grp = torch.arange(L, device=dev) % TRACKLET_GROUPS
+    allow = (grp[:, None] == grp[None, :]).expand(B, L, L).contiguous()
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
+    scale = D ** -0.5
+    _, lse = ma.masked_mha_forward(q, k, v, allow, scale, DQ_RATE, seeds)
+    _, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, DQ_RATE, seeds)
+    return q, k, v, gout, allow, seeds, lse, r, scale
+
+
+def _run_tiled(libs, add, dev, iters, clock, stream):
+    """The tiled forward (train: dropout 0.1 and lse; eval), dQ and dK/dV at
+    the tracklet encoder's shapes (`tracklet_inputs`), each variant's C
+    entry on orders made once; the committed kernel also on the per-element
+    entries, and the wrappers (row order included) and `row_order` alone."""
+    from ..ops import masked_attention as ma
+    q, k, v, gout, allow, seeds, lse, r, scale = tracklet_inputs(dev)
+    B, L, H, D = q.shape
+    if {ma.fwd_route(q, k, v), ma.dq_route(q, k, v, gout), ma.dkv_route(q, k, v, gout)} != {
+            "tiled"}:
+        raise RuntimeError("the tracklet shapes no longer take the tiled routes")
+    allow_t = allow.transpose(1, 2).contiguous()
+    order, order_t = ma.row_order(allow), ma.row_order(allow_t)
+    out, lse_o = torch.empty_like(q, memory_format=torch.contiguous_format), torch.empty_like(lse)
+    dq, r_o, dk = torch.empty_like(out), torch.empty_like(r), torch.empty_like(out)
+    dv = torch.empty_like(out)
+    thr, keep = ma.drop_threshold(DQ_RATE), 1.0 / (1.0 - DQ_RATE)
+    dims = (B, L, L, H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1))
+    bdims = (*dims, gout.stride(0), gout.stride(1), scale, thr, keep)
+    base = (0, q.data_ptr(), k.data_ptr(), v.data_ptr())
+    args = {  # kernel: (its arguments after the order, with the order)
+        "fwd": lambda o: (*base, allow.data_ptr(), *o, seeds.data_ptr(), out.data_ptr(),
+                          lse_o.data_ptr(), *dims, scale, thr, keep),
+        "fwd eval": lambda o: (*base, allow.data_ptr(), *o, None, out.data_ptr(), None, *dims,
+                               scale, 0, 1.0),
+        "dq": lambda o: (*base, gout.data_ptr(), allow.data_ptr(), *o, lse.data_ptr(),
+                         seeds.data_ptr(), dq.data_ptr(), r_o.data_ptr(), *bdims),
+        "dkv": lambda o: (*base, gout.data_ptr(), allow_t.data_ptr(), *o, lse.data_ptr(),
+                          r.data_ptr(), seeds.data_ptr(), dk.data_ptr(), dv.data_ptr(), *bdims)}
+    entries = {"fwd": "masked_mha_fwd", "fwd eval": "masked_mha_fwd", "dq": "masked_mha_bwd_dq",
+               "dkv": "masked_mha_bwd_dkv"}
+    orders = {"fwd": order, "fwd eval": order, "dq": order, "dkv": order_t}
+    runs = []
+    for key, lib in libs.items():
+        if key != "kernel" and "tiled" not in ATTENTION_KINDS[key]:
+            continue
+        for kind, entry in entries.items():
+            runs.append((kind, f"{key} tiled", getattr(lib, entry + "_tiled"),
+                         args[kind]((orders[kind].data_ptr(),))))
+            if key == "kernel":
+                runs.append((kind, "kernel per-element", getattr(lib, entry), args[kind](())))
+    for kind, key, fn, a in runs:
+        fn.argtypes, fn.restype = ma.entry_argtypes(fn.__name__), I
+
+        def call(fn=fn, a=(*a, stream), key=key):
+            if fn(*a):
+                raise RuntimeError(f"{fn.__name__} variant {key} failed to launch")
+        add(f"tracklet {kind}", key, timing.timed_delta(call, iters, clock).device_s, "ms")
+    wrappers = {
+        "fwd": lambda: ma.masked_mha_forward(q, k, v, allow, scale, DQ_RATE, seeds),
+        "fwd eval": lambda: ma.masked_mha_forward(q, k, v, allow, scale, with_lse=False),
+        "dq": lambda: ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, DQ_RATE, seeds),
+        "dkv": lambda: ma.masked_mha_bwd_dkv(q, k, v, allow_t, scale, gout, lse, r, DQ_RATE,
+                                             seeds),
+        "row_order": lambda: ma.row_order(allow)}
+    for kind, fn in wrappers.items():
+        add(f"tracklet {kind}", "wrapper (order included)" if kind != "row_order" else "alone",
+            timing.timed_delta(fn, iters, clock).device_s, "ms")
 
 
 def main(argv=None) -> None:

@@ -16,7 +16,10 @@ same weights.
   another order through 4 layers (7 in sgcls).
 * The sgdet train-mode forward with dropout off on both sides (the two
   packages draw different random streams), heads at 2e-4 and every
-  BatchNorm's running update at 1e-5 relative.
+  BatchNorm's running update at 1e-5 relative; the sgcls train-mode
+  forward (tracker group ids) likewise, and the gradients of a fixed
+  scalar loss of its outputs for the tracklet head's parameters (the
+  float32 encoder whose attention runs on the tiled route on a card).
 * Weight round trips through both converters, exact.
 
 feat_dim 2048 at small R, a few frames. The batch holds a video with a
@@ -284,6 +287,57 @@ def test_sgdet_train_forward_matches_jax(no_flax_dropout):
         expect = np.where(wb > 0, leaf * wb, 0).sum(0) / w.sum()
         np.testing.assert_allclose(node, expect, rtol=1e-5, atol=1e-6,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+# a gradient of the sgcls loss, port against JAX, per tensor: float32 sums in
+# another order through 7 layers and their backward: |dg| <= 1e-3 |g| + 1e-5
+# of the largest gradient magnitude of the head (a bias whose output a
+# train-mode BatchNorm re-centres has an exact gradient of 0: noise on both
+# sides)
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-5
+
+
+def test_sgcls_train_forward_matches_jax(no_flax_dropout):
+    """sgcls in train mode, dropout off, tracker group ids, on weights drawn
+    by flax: the outputs at 2e-4, and the gradients of a fixed weighted sum
+    of the outputs with respect to the tracklet head's parameters
+    (`object_classifier.*`, carried through `dsg_detr_from_jax` like the
+    weights: the converter only transposes and stacks)."""
+    entries = batch_entries(seed=12)
+    gid = group_ids(entries)
+    sample = jax.tree.map(jnp.asarray, to_jax_entry(entries[0]))
+    jm = jd.DSGDETR(mode="sgcls", feat_dim=FEAT)
+    variables = jax.jit(lambda key, e, g: jm.init(key, e, train=False, group_id=g))(
+        jax.random.key(1), sample, jnp.asarray(gid[0].numpy()))
+    variables = perturbed(variables, 9)
+    params, stats = jax.tree.map(jnp.asarray, (variables["params"], variables["batch_stats"]))
+    keys = HEADS + ("distribution",)
+    batch = stack_entries(entries)
+    model = td.DSGDETR(mode="sgcls", feat_dim=FEAT, dropout=0.0, device="cpu")
+    model.load_state_dict(dsg_detr_from_jax(params, stats))
+    ours = model(batch, train=True, group_id=gid, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(13)
+    weights = {k: rng.standard_normal(ours[k].shape).astype(np.float32) for k in keys}
+    sum(((ours[k] * torch.from_numpy(weights[k])).sum() for k in keys)).backward()
+
+    def loss(p):
+        def per_video(entry, g):
+            return jm.apply({"params": p, "batch_stats": stats}, entry, train=True, group_id=g,
+                            mutable=["batch_stats"], rngs={"dropout": jax.random.key(0)})[0]
+        pred = jax.vmap(per_video)(jbatch(entries), jnp.asarray(gid.numpy()))
+        return sum((pred[k] * weights[k]).sum() for k in keys), pred
+
+    grads, ref = jax.device_get(jax.jit(jax.grad(loss, has_aux=True))(params))
+    check(ours, ref, keys)
+    ref_grads = {n: g.numpy() for n, g in dsg_detr_from_jax(grads, stats).items()
+                 if n.startswith("object_classifier.") and g.is_floating_point()}
+    got = {n: p.grad for n, p in model.named_parameters() if n.startswith("object_classifier.")}
+    assert got.keys() <= ref_grads.keys() and len(got) == 5 + 3 * 12 + 6
+    scale = max(float(np.abs(g).max()) for g in ref_grads.values())
+    assert scale > 0
+    for n, g in got.items():
+        np.testing.assert_allclose(g.numpy(), ref_grads[n], rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL * scale, err_msg=n)
 
 
 def test_weight_round_trips():

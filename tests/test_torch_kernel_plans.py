@@ -3,14 +3,21 @@ RoIAlign's kernel plan (`ops.roi_align.kernel_plan`: its route and the
 shared memory a block takes, which holds the roi's axis samples and not its
 map window, so the worst window, a roi over the whole 38 x 64 C4 map, takes
 no more than any other), the attention kernels' routes (`dq_route`,
-`fwd_route`, `dkv_route` on one rule, `staged_layout`: the staged routes
-for the serving and training paths' 16-byte aligned column blocks of the
-fused projection, the per-element routes for offset views, odd head dims,
-rows that are not whole 16-byte pieces, fp32 and more than 8 heads) and the
-staged forward's and dK/dV's block plans (`fwd_plan`, `dkv_plan`: shared
-memory within a block's limit, 16-row tiles and head groups covering every
-row and head once)."""
+`fwd_route`, `dkv_route` on two rules: `staged_layout`, the staged routes
+for the serving and training paths' 16-byte aligned bf16 column blocks of
+the fused projection; `tiled_layout`, the tiled routes for float32 ones
+up to D = 320, DSG-DETR's tracklet heads of 297; the per-element routes for
+offset views, bf16 odd head dims, rows that are not whole 16-byte pieces
+and more than 8 heads), the tiled rule against the one the CUDA source
+states, the staged forward's and dK/dV's block plans (`fwd_plan`,
+`dkv_plan`: shared memory within a block's limit, 16-row tiles and head
+groups covering every row and head once), the tiled plans, and the tiled
+kernels' row order (`row_order`)."""
 
+import os
+import re
+
+import numpy as np
 import pytest
 import torch
 
@@ -80,7 +87,8 @@ def test_dq_route_per_element(case):
         lk = 32768                    # the key list overflows two blocks an SM
     q, k, v = _fused(2, lk, H, D, dtype, pad)
     g = torch.zeros(q.shape, dtype=dtype)
-    assert ma.dq_route(q, k, v, g) == "per-element"
+    # the staged route refuses each; float32 column blocks go to the tiled one
+    assert ma.dq_route(q, k, v, g) == ("tiled" if case == "fp32" else "per-element")
 
 
 @pytest.mark.parametrize("H,D", [(3, 64), (8, 240), (5, 80)])
@@ -108,11 +116,11 @@ def test_staged_routes_on_the_path_column_blocks(kind, lq, lk):
 @pytest.mark.parametrize("case", ["offset-view", "odd-D", "odd-D-odd-row", "fp32", "16-heads",
                                   "odd-row", "3-heads", "tracklet-297", "even-298"])
 def test_staged_routes_per_element(kind, case):
-    """The forward and dK/dV routes refuse what the dQ route refuses (one
-    rule, `staged_layout`): offset views, odd D, rows that are not whole
-    16-byte pieces, fp32, more than 8 heads, D above 256 (DSG-DETR's
-    tracklet heads of 297; 298 is even but past the staged kernels' 16
-    k-steps)."""
+    """The forward and dK/dV staged routes refuse what the dQ one refuses
+    (one rule, `staged_layout`): offset views, odd D, rows that are not
+    whole 16-byte pieces, fp32 (which the tiled routes take), more than 8
+    heads, D above 256 (DSG-DETR's tracklet heads of 297; 298 is even but
+    past the staged kernels' 16 k-steps)."""
     H, D, dtype, pad = 8, 242, torch.bfloat16, 0
     if case == "offset-view":
         pad = 1
@@ -132,8 +140,9 @@ def test_staged_routes_per_element(kind, case):
         D = 298
     q, k, v = _fused(2, 96, H, D, dtype, pad)
     g = torch.zeros(q.shape, dtype=dtype)
-    assert _ROUTES[kind](q, k, v, g) == "per-element"
-    assert ma.dq_route(q, k, v, g) == "per-element"
+    want = "tiled" if case == "fp32" else "per-element"
+    assert _ROUTES[kind](q, k, v, g) == want
+    assert ma.dq_route(q, k, v, g) == want
 
 
 @pytest.mark.parametrize("kind", ["fwd", "dkv"])
@@ -208,3 +217,192 @@ def test_plans_hold_a_dense_union(density):
         rest = plan["smem"] - ring * eg * 2     # what is left past the staged rows
         assert rest >= L * (4 + 2)              # an int32 slot and a row word a key
     assert ma.dq_staged_smem_bytes(L, H, D) >= L * 4
+
+
+# ------------------------------------------------------------ tiled routes
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("case,H,D,dtype,pad,L,route", [
+    ("tracklet-8-heads-of-297", 8, 297, torch.float32, 0, 128, "tiled"),
+    ("2-heads-of-320", 2, 320, torch.float32, 0, 96, "tiled"),
+    ("odd-D-8-heads-of-241", 8, 241, torch.float32, 0, 97, "tiled"),
+    ("fp32-path-heads-of-242", 8, 242, torch.float32, 0, 192, "tiled"),
+    ("one-row", 8, 297, torch.float32, 0, 1, "tiled"),
+    ("bf16-297", 8, 297, torch.bfloat16, 0, 128, "per-element"),
+    ("misaligned-view", 8, 297, torch.float32, 1, 128, "per-element"),
+    ("16-heads", 16, 64, torch.float32, 0, 96, "per-element"),
+    ("odd-row-3-heads-of-297", 3, 297, torch.float32, 0, 96, "per-element"),
+    ("long-L", 8, 297, torch.float32, 0, 32768, "per-element")])
+def test_tiled_route_choices(kind, case, H, D, dtype, pad, L, route):
+    """The tiled routes take float32 column blocks of a fused projection up
+    to D = 320, odd D too (the tracklet encoder's: a token stride of 3 x
+    2376 floats, blocks 9504 bytes apart); not bfloat16 (the staged or
+    per-element route), a view 4 bytes off 16, rows that are not whole
+    16-byte pieces, more than 8 heads, or a column list past a block's
+    shared memory."""
+    q, k, v = _fused(2, L, H, D, dtype, pad)
+    g = torch.zeros(q.shape, dtype=dtype)
+    assert _ROUTES[kind](q, k, v, g) == route
+    if case.startswith("tracklet"):
+        assert q.stride(1) == 3 * 2376 and (k.data_ptr() - q.data_ptr()) == 9504
+
+
+def _cu_source():
+    with open(os.path.join(os.path.dirname(ma._build.CSRC), "csrc", "masked_attention.cu")) as f:
+        return f.read()
+
+
+def _cu_int(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_tiled_constants_match_the_kernel():
+    """The wrapper's tiled constants are the CUDA source's."""
+    src = _cu_source()
+    assert _cu_int(src, "TT") == ma.TILED_ROWS
+    assert _cu_int(src, "TCK") == ma.TILED_CHUNK
+    assert _cu_int(src, "TSTAGES") == ma.TILED_CHUNKS
+    assert _cu_int(src, "FWD_ROWS") == ma.TILED_WARP_ROWS["fwd"]
+    assert _cu_int(src, "BWD_ROWS") == ma.TILED_WARP_ROWS["bwd"]
+    assert _cu_int(src, "WARPS") == ma.TILED_MAX_HEADS
+    assert _cu_int(src, "DMAX") == ma._MAX_HEAD_DIM
+    assert "return (D + 6) & ~3;" in src            # a staged row, as tiled_smem_bytes
+
+
+def _kernel_refuses(src):
+    """`tiled_refuses` of the CUDA source as a Python function of (dtype
+    code, B, Lq, Lk, H, D, pointer offsets, or-ed strides): its return
+    expression evaluated with the source's `bad_shape` and DMAX."""
+    body = re.search(r"bool tiled_refuses\(.*?\{(.*?)\n\}", src, re.S).group(1)
+    expr = re.search(r"return (.*?);", body, re.S).group(1)
+    expr = " ".join(expr.split()).replace("||", " or ").replace("!=", " != ")
+    bad = re.search(r"bool bad_shape\(.*?\{\s*return (.*?);", src, re.S).group(1)
+    bad = " ".join(bad.split()).replace("||", " or ")
+    dmax, warps = _cu_int(src, "DMAX"), _cu_int(src, "WARPS")
+
+    def refuses(dtype, B, Lq, Lk, H, D, ptrs, strides):
+        env = dict(dtype=dtype, B=B, Lq=Lq, Lk=Lk, H=H, D=D, DMAX=dmax, WARPS=warps,
+                   strides=strides, off=any(p % 16 for p in ptrs))
+        env["bad_shape"] = lambda B, Lq, Lk, H, D: eval(bad, {}, dict(env, B=B, Lq=Lq, Lk=Lk,
+                                                                      H=H, D=D))
+        return bool(eval(expr, {}, env))
+    return refuses
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad", [0, 1, 4])
+def test_tiled_rule_agrees_with_the_kernel(dtype, pad):
+    """`tiled_layout` takes exactly what the kernel's `tiled_refuses` does
+    not, over head counts, head dims (odd, up to 320) and views: the rule
+    in Python and the one the CUDA entries apply are the same."""
+    refuses = _kernel_refuses(_cu_source())
+    checked = 0
+    for H in (1, 2, 3, 4, 8, 9, 16):
+        for D in (1, 2, 63, 64, 241, 242, 255, 297, 298, 320):
+            q, k, v = _fused(2, 5, H, D, dtype, pad)
+            tensors = (q, k, v)
+            strides = 0
+            for t in tensors:
+                strides |= t.stride(0) | t.stride(1)
+            code = ma._DTYPES[dtype]
+            # strides in elements on both sides: the kernel's % 4 is on float offsets
+            kernel_takes = not refuses(code, 2, 5, 5, H, D, [t.data_ptr() for t in tensors],
+                                       strides)
+            assert ma.tiled_layout(tensors) == kernel_takes, (H, D, pad, dtype)
+            checked += kernel_takes
+    assert (checked > 0) == (dtype == torch.float32 and pad % 4 == 0)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("L", [1, 96, 97, 128, 256])
+@pytest.mark.parametrize("D", [64, 241, 297, 320])
+def test_tiled_plans_fit_and_cover(kind, L, D):
+    """Each tiled plan fits a block's shared memory at L in {1, 96, 97,
+    128, 256}, with room for its forward's (3) and backward's (2) resident
+    blocks an SM at the tracklet shapes, and its tiles take every place of
+    the row order exactly once, the last one short where 16 does not
+    divide L."""
+    for other in (1, 96, 97, 128, 256):
+        lq, lk = (L, other) if kind != "dkv" else (other, L)
+        p = ma.tiled_plan(kind, lq, lk, 8, D)
+        assert p["fits"] and p["smem"] + p["static_smem"] <= ma.BLOCK_SMEM_MAX
+        assert p["threads"] == (128 if kind == "fwd" else 256)
+        covered = [0] * L
+        for t in range(p["tiles"]):
+            for place in range(t * p["rows"], min(L, (t + 1) * p["rows"])):
+                covered[place] += 1
+        assert covered == [1] * L
+    p = ma.tiled_plan(kind, 128, 128, 8, 297)
+    blocks = 3 if kind == "fwd" else 2
+    assert blocks * (p["smem"] + p["static_smem"] + BLOCK_RESERVED) <= SM_SHARED
+    ring = 2 * 8 * 300 * 4 * 2                       # 2 stages of 8 columns' two 300-float rows
+    assert p["smem"] == ring + 128 * 6 + (128 * 12 if kind == "dkv" else 0)
+
+
+def test_tiled_plans_refuse_an_overflowing_list():
+    assert not ma.tiled_plan("fwd", 96, 65536, 8, 297)["fits"]
+    assert not ma.tiled_plan("dq", 96, 65536, 8, 297)["fits"]
+    assert not ma.tiled_plan("dkv", 16384, 96, 8, 297)["fits"]     # the per-query stats
+    assert ma.tiled_plan("dkv", 96, 16384, 8, 297)["fits"]         # key rows are tiles
+
+
+def _tracklet_mask(rng, B, L, groups):
+    """Same-group masks: each valid row of a video in one of `groups`
+    groups, drawn at random places (rows of a group are not neighbours),
+    some rows padding (allowed nothing)."""
+    gid = rng.integers(0, groups, (B, L))
+    valid = rng.random((B, L)) < 0.9
+    allow = (gid[:, :, None] == gid[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+    return torch.from_numpy(allow), gid, valid
+
+
+@pytest.mark.parametrize("L,groups", [(128, 4), (97, 3), (16, 1), (40, 40)])
+def test_row_order_groups_rows(L, groups):
+    """`row_order` is a permutation of each video's rows; rows with the
+    same first allowed column are neighbours, in their own order (stable);
+    rows that allow nothing come last; the tiles of 16 places take every
+    row once, and on same-group masks every tile's union of allowed columns
+    is at most its rows' groups: a tile of one group stages that group's
+    columns and nothing else."""
+    rng = np.random.default_rng(L + groups)
+    B = 3
+    allow, gid, valid = _tracklet_mask(rng, B, L, groups)
+    order = ma.row_order(allow)
+    assert order.shape == (B, L) and order.dtype == torch.int64
+    for b in range(B):
+        o = order[b].tolist()
+        assert sorted(o) == list(range(L))
+        a = allow[b].numpy()
+        first = [int(np.argmax(a[i])) if a[i].any() else L for i in o]
+        assert first == sorted(first)                        # grouped by first column
+        for i, j in zip(o, o[1:]):
+            if first[o.index(i)] == first[o.index(j)]:
+                assert i < j                                 # stable
+        n_empty = int((~a.any(1)).sum())
+        assert all(not a[i].any() for i in o[L - n_empty:])  # empty rows last
+        covered = [0] * L
+        for t in range(-(-L // ma.TILED_ROWS)):
+            rows = o[t * ma.TILED_ROWS:(t + 1) * ma.TILED_ROWS]
+            for i in rows:
+                covered[i] += 1
+            union = a[rows].any(0)
+            tile_groups = {gid[b, i] for i in rows if valid[b, i]}
+            members = valid[b] & np.isin(gid[b], list(tile_groups))
+            assert (union <= members).all() and (union == members).all()
+        assert covered == [1] * L
+
+
+def test_row_order_on_the_tracklet_masks_fills_tiles_with_one_tracklet():
+    """The tracklet encoder's masks (`chip_smoke.py` phase 12's shape: 128
+    boxes, a person and 3 objects in each of 32 frames, boxes of one slot
+    in one group): the order puts 16 rows of one group in each tile, so
+    each tile's union is exactly its group's 32 columns and every staged
+    column serves all 16 rows."""
+    L = 128
+    gid = torch.arange(L) % 4
+    allow = (gid[:, None] == gid[None, :]).expand(2, L, L).clone()
+    order = ma.row_order(allow)
+    for t in range(L // ma.TILED_ROWS):
+        rows = order[0, t * 16:(t + 1) * 16]
+        assert len(set(gid[rows].tolist())) == 1
+        assert int(allow[0, rows].any(0).sum()) == 32
+        assert bool(allow[0, rows][:, allow[0, rows].any(0)].all())

@@ -182,27 +182,39 @@ def test_roi_align_edges_match_plain_on_gpu(gpu, case):
         assert (out[2:6] == 0).all()
 
 
-@pytest.mark.parametrize("case,L,H,D,pad,route", [
-    ("full-and-empty-rows", 192, 8, 242, 0, "staged"),
-    ("misaligned-view", 96, 8, 242, 1, "per-element"),
-    ("odd-D-8-heads", 96, 8, 241, 0, "per-element"),
-    ("8-heads-of-240", 96, 8, 240, 0, "staged"),
-    ("odd-D-4-heads", 96, 4, 241, 0, "per-element"),
-    ("3-heads-of-242", 96, 3, 242, 0, "per-element"),
-    ("3-heads-of-64", 96, 3, 64, 0, "staged"),
-    ("tracklet-heads-of-297", 128, 8, 297, 0, "per-element"),
-    ("8-heads-of-298", 96, 8, 298, 0, "per-element"),
-    ("2-heads-of-320", 96, 2, 320, 0, "per-element")])
+_DTYPE = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# kernel against plain: out, and lse and gradients (rtol, atol)
+_OUT_TOL = {"bf16": dict(rtol=2 ** -7, atol=1e-3), "fp32": dict(rtol=0, atol=1e-4)}
+_GRAD_TOL = {"bf16": dict(rtol=2 ** -7, atol=1e-3), "fp32": dict(rtol=1e-5, atol=2e-4)}
+
+
+@pytest.mark.parametrize("case,L,H,D,pad,dtype,route", [
+    ("full-and-empty-rows", 192, 8, 242, 0, "bf16", "staged"),
+    ("misaligned-view", 96, 8, 242, 1, "bf16", "per-element"),
+    ("odd-D-8-heads", 96, 8, 241, 0, "bf16", "per-element"),
+    ("8-heads-of-240", 96, 8, 240, 0, "bf16", "staged"),
+    ("odd-D-4-heads", 96, 4, 241, 0, "bf16", "per-element"),
+    ("3-heads-of-242", 96, 3, 242, 0, "bf16", "per-element"),
+    ("3-heads-of-64", 96, 3, 64, 0, "bf16", "staged"),
+    ("tracklet-heads-of-297", 128, 8, 297, 0, "bf16", "per-element"),
+    ("8-heads-of-298", 96, 8, 298, 0, "bf16", "per-element"),
+    ("2-heads-of-320", 96, 2, 320, 0, "bf16", "per-element"),
+    ("fp32-full-and-empty-rows", 192, 8, 242, 0, "fp32", "tiled"),
+    ("fp32-tracklet-heads-of-297", 128, 8, 297, 0, "fp32", "tiled"),
+    ("fp32-2-heads-of-320", 96, 2, 320, 0, "fp32", "tiled"),
+    ("fp32-odd-D-8-heads", 96, 8, 241, 0, "fp32", "tiled"),
+    ("fp32-misaligned-view", 96, 8, 297, 1, "fp32", "per-element"),
+    ("fp32-odd-row", 96, 3, 297, 0, "fp32", "per-element")])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_dq_routes_match_plain_on_gpu(gpu, case, L, H, D, pad, route, rate):
-    """The dQ kernel on column blocks of a fused bf16 projection, 3% of
-    pairs allowed with some rows fully allowed (more keys than a cp.async
-    chunk) and some empty, on the route the wrapper picks; dq and r against
-    the plain version, empty rows exactly 0."""
+def test_dq_routes_match_plain_on_gpu(gpu, case, L, H, D, pad, dtype, route, rate):
+    """The dQ kernel on column blocks of a fused projection, 3% of pairs
+    allowed with some rows fully allowed (more keys than a cp.async chunk)
+    and some empty, on the route the wrapper picks; dq and r against the
+    plain version, empty rows exactly 0."""
     E = H * D
-    x = torch.randn(4, L, 3 * E + pad, device="cuda", generator=gpu).bfloat16()[..., pad:]
+    x = torch.randn(4, L, 3 * E + pad, device="cuda", generator=gpu).to(_DTYPE[dtype])[..., pad:]
     q, k, v = (x[..., i * E:(i + 1) * E].unflatten(-1, (H, D)) for i in range(3))
-    gout = torch.randn(4, L, H, D, device="cuda", generator=gpu).bfloat16()
+    gout = torch.randn(4, L, H, D, device="cuda", generator=gpu).to(_DTYPE[dtype])
     allow = torch.rand(4, L, L, device="cuda", generator=gpu) < 0.03
     allow[:, ::9] = True
     allow[:, 4::9] = False
@@ -215,8 +227,8 @@ def test_dq_routes_match_plain_on_gpu(gpu, case, L, H, D, pad, route, rate):
     torch.cuda.synchronize()
     assert ma.LAUNCHES["bwd_dq"] == 1
     ref_dq, ref_r = ma.masked_mha_bwd_dq_reference(q, k, v, allow, scale, gout, rate, seeds)
-    torch.testing.assert_close(dq.float(), ref_dq.float(), rtol=2 ** -7, atol=1e-3)
-    torch.testing.assert_close(r, ref_r, rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(dq.float(), ref_dq.float(), **_GRAD_TOL[dtype])
+    torch.testing.assert_close(r, ref_r, **_GRAD_TOL[dtype])
     assert (dq[:, 4::9] == 0).all()
 
 
@@ -230,25 +242,29 @@ def path_mask(B, lq, lk, device):
     return (fq[:, None] == fk[None, :]).expand(B, lq, lk).clone()
 
 
-def _attention_case(gen, lq, lk, H, D, pad, mask, rate):
-    """q from a fused (B, lq, 3 H D + pad) bf16 projection, k and v from a
-    (B, lk, ...) one (column blocks, `pad` elements off 16 bytes), g, the
-    mask ("frames": `path_mask`; "classes": token i of class i mod 3, the
-    same class allowed, a third of the pairs, as DSG-DETR's global layers
-    on a clip that follows three objects; "random": 3% with some query rows
-    fully allowed, some empty, and some key columns empty) and the
-    seeds."""
-    B, E = 4, H * D
-    xq = torch.randn(B, lq, 3 * E + pad, device="cuda", generator=gen).bfloat16()[..., pad:]
-    xk = torch.randn(B, lk, 3 * E + pad, device="cuda", generator=gen).bfloat16()[..., pad:]
+def _attention_case(gen, lq, lk, H, D, pad, mask, rate, dtype="bf16"):
+    """q from a fused (B, lq, 3 H D + pad) projection, k and v from a (B,
+    lk, ...) one (column blocks, `pad` elements off 16 bytes), g, the mask
+    ("frames": `path_mask`; "classes": token i of class i mod 3, the same
+    class allowed, a third of the pairs, as DSG-DETR's global layers on a
+    clip that follows three objects, a few rows and key columns allowed
+    nothing; "random": 3% with some query rows fully allowed, some empty,
+    and some key columns empty, so that a tile of the tiled route's row
+    order meets a large union of keys) and the seeds."""
+    B, E, dt = 4, H * D, _DTYPE[dtype]
+    xq = torch.randn(B, lq, 3 * E + pad, device="cuda", generator=gen).to(dt)[..., pad:]
+    xk = torch.randn(B, lk, 3 * E + pad, device="cuda", generator=gen).to(dt)[..., pad:]
     q = xq[..., :E].unflatten(-1, (H, D))
     k, v = (xk[..., i * E:(i + 1) * E].unflatten(-1, (H, D)) for i in (1, 2))
-    gout = torch.randn(B, lq, H, D, device="cuda", generator=gen).bfloat16()
+    gout = torch.randn(B, lq, H, D, device="cuda", generator=gen).to(dt)
     if mask == "frames":
         allow = path_mask(B, lq, lk, "cuda")
     elif mask == "classes":
         cq, ck = torch.arange(lq, device="cuda") % 3, torch.arange(lk, device="cuda") % 3
         allow = (cq[:, None] == ck[None, :]).expand(B, lq, lk).clone()
+        if dtype == "fp32":
+            allow[:, 7::31] = False
+            allow[:, :, 11::37] = False
     else:
         allow = torch.rand(B, lq, lk, device="cuda", generator=gen) < 0.03
         allow[:, ::9] = True
@@ -274,7 +290,19 @@ _ROUTE_CASES = [
     ("same-class-heads-of-297", 128, 128, 8, 297, 0, "classes", "per-element"),
     ("random-heads-of-297", 128, 128, 8, 297, 0, "random", "per-element"),
     ("8-heads-of-298", 96, 96, 8, 298, 0, "random", "per-element"),
-    ("2-heads-of-320", 96, 96, 2, 320, 0, "classes", "per-element")]
+    ("2-heads-of-320", 96, 96, 2, 320, 0, "classes", "per-element"),
+    ("fp32-same-class-heads-of-297", 128, 128, 8, 297, 0, "classes", "tiled"),
+    ("fp32-random-heads-of-297", 128, 128, 8, 297, 0, "random", "tiled"),
+    ("fp32-2-heads-of-320", 96, 96, 2, 320, 0, "classes", "tiled"),
+    ("fp32-odd-D", 97, 96, 8, 241, 0, "random", "tiled"),
+    ("fp32-frames-96x192", 96, 192, 8, 242, 0, "frames", "tiled"),
+    ("fp32-random-1x5", 1, 5, 8, 297, 0, "random", "tiled"),
+    ("fp32-misaligned-view", 96, 96, 8, 297, 1, "classes", "per-element"),
+    ("fp32-3-heads-of-297", 96, 96, 3, 297, 0, "classes", "per-element")]
+
+
+def _dtype_of(case):
+    return "fp32" if case.startswith("fp32-") else "bf16"
 
 
 @pytest.mark.parametrize("case,lq,lk,H,D,pad,mask,route", _ROUTE_CASES)
@@ -282,9 +310,11 @@ _ROUTE_CASES = [
 def test_fwd_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route, rate,
                                        with_lse):
     """The forward on the route the wrapper picks, eval (no lse) and train
-    (lse), dropout off and on: out to one bf16 ulp, lse to 2e-4 + 1e-5
-    |ref|, rows with no allowed key exactly 0 and LSE_EMPTY, one launch."""
-    q, k, v, _, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate)
+    (lse), dropout off and on: out to one bf16 ulp (float32: 1e-4), lse to
+    2e-4 + 1e-5 |ref|, rows with no allowed key exactly 0 and LSE_EMPTY,
+    one launch."""
+    dtype = _dtype_of(case)
+    q, k, v, _, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate, dtype)
     assert ma.fwd_route(q, k, v) == route
     scale = D ** -0.5
     ma.reset_launches()
@@ -292,7 +322,7 @@ def test_fwd_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route
     torch.cuda.synchronize()
     assert ma.LAUNCHES["fwd"] == 1
     ref = ma.masked_mha_reference(q, k, v, allow, scale, rate, seeds)
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(out.float(), ref.float(), **_OUT_TOL[dtype])
     empty = ~allow.any(-1)
     assert (out[empty] == 0).all()
     if with_lse:
@@ -307,9 +337,10 @@ def test_fwd_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_dkv_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route, rate):
     """The dK/dV kernel on the route the wrapper picks, dropout off and on,
-    from the dQ kernel's r: dk and dv to one bf16 ulp, key rows no query
-    may see exactly 0, one launch."""
-    q, k, v, gout, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate)
+    from the dQ kernel's r: dk and dv to one bf16 ulp (float32: 2e-4 +
+    1e-5 |ref|), key rows no query may see exactly 0, one launch."""
+    dtype = _dtype_of(case)
+    q, k, v, gout, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate, dtype)
     assert ma.dkv_route(q, k, v, gout) == route
     scale = D ** -0.5
     _, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, seeds)
@@ -321,10 +352,38 @@ def test_dkv_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route
     assert ma.LAUNCHES["bwd_dkv"] == 1
     ref_dk, ref_dv = ma.masked_mha_bwd_dkv_reference(q, k, v, allow, scale, gout, r, rate,
                                                      seeds)
-    torch.testing.assert_close(dk.float(), ref_dk.float(), rtol=2 ** -7, atol=1e-3)
-    torch.testing.assert_close(dv.float(), ref_dv.float(), rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(dk.float(), ref_dk.float(), **_GRAD_TOL[dtype])
+    torch.testing.assert_close(dv.float(), ref_dv.float(), **_GRAD_TOL[dtype])
     unseen = ~allow.any(1)
     assert (dk[unseen] == 0).all() and (dv[unseen] == 0).all()
+
+
+def test_tiled_entries_refuse_what_the_rule_refuses_on_gpu(gpu):
+    """The tiled C entries return cudaErrorInvalidValue, launching nothing,
+    for what `tiled_layout` refuses (bfloat16, a view 4 bytes off 16, rows
+    that are not whole 16-byte pieces, more than 8 heads) and launch on what
+    it takes, so the wrapper's rule and the kernel's agree."""
+    def launch(q, k, v, allow):
+        B, Lq, H, D = q.shape
+        out = torch.empty(B, Lq, H, D, dtype=q.dtype, device="cuda")
+        order = ma.row_order(allow)
+        fn = ma._fn("masked_mha_fwd_tiled")
+        return fn(ma._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  allow.data_ptr(), order.data_ptr(), None, out.data_ptr(), None, B, Lq,
+                  k.shape[1], H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                  v.stride(0), v.stride(1), D ** -0.5, 0, 1.0,
+                  torch.cuda.current_stream().cuda_stream)
+
+    allow = torch.ones(2, 16, 16, dtype=torch.bool, device="cuda")
+    for H, D, pad, dtype in ((8, 297, 0, torch.float32), (8, 297, 0, torch.bfloat16),
+                             (8, 297, 1, torch.float32), (3, 297, 0, torch.float32),
+                             (16, 64, 0, torch.float32), (2, 320, 0, torch.float32)):
+        x = torch.randn(2, 16, 3 * H * D + pad, device="cuda", generator=gpu).to(dtype)[..., pad:]
+        q, k, v = (x[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in range(3))
+        takes = ma.tiled_layout((q, k, v))
+        assert (launch(q, k, v, allow) == 0) == takes, (H, D, pad, dtype)
+        assert takes == (dtype == torch.float32 and pad == 0 and H * D % 4 == 0 and H <= 8)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("N,H,W,C", [(2, 152, 256, 256), (2, 76, 128, 512), (3, 38, 64, 1024),
@@ -490,11 +549,12 @@ def test_probe_kernels_refuse_misaligned_storage_on_gpu(gpu):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_tracklet_head_dim_297_on_gpu(gpu, dtype, rate):
-    """DSG-DETR's tracklet encoder: 8 heads of 297 (per-element route, 10
-    dims a lane) on a same-class mask with a few rows allowed nothing;
-    the forward (with and without lse), dQ and dK/dV against their plain
-    versions (float32 1e-4 on out, 2e-4 + 1e-5 |ref| on lse and gradients;
-    bfloat16 one bf16 ulp), empty rows exactly 0, and D = 321 refused."""
+    """DSG-DETR's tracklet encoder: 8 heads of 297 (float32 on the tiled
+    route, bfloat16 on the per-element route, 10 dims a lane) on a
+    same-class mask with a few rows allowed nothing; the forward (with and
+    without lse), dQ and dK/dV against their plain versions (float32 1e-4
+    on out, 2e-4 + 1e-5 |ref| on lse and gradients; bfloat16 one bf16
+    ulp), empty rows exactly 0, and D = 321 refused."""
     B, L, H, D = 3, 128, 8, 297
     q, k, v, gout = (torch.randn(B, L, H, D, device="cuda", generator=gpu).to(dtype)
                      for _ in range(4))
@@ -502,9 +562,10 @@ def test_tracklet_head_dim_297_on_gpu(gpu, dtype, rate):
     allow = (cls[:, None] == cls[None, :]).expand(B, L, L).clone()
     allow[:, 7::31] = False
     seeds = torch.tensor([3, -4, 9], dtype=torch.int32, device="cuda") if rate else None
-    assert ma.fwd_route(q, k, v) == ma.dq_route(q, k, v, gout) == "per-element"
-    scale = D ** -0.5
     f32 = dtype == torch.float32
+    assert (ma.fwd_route(q, k, v) == ma.dq_route(q, k, v, gout) == ma.dkv_route(q, k, v, gout)
+            == ("tiled" if f32 else "per-element"))
+    scale = D ** -0.5
     out_tol = dict(rtol=0, atol=1e-4) if f32 else dict(rtol=2 ** -7, atol=1e-3)
     grad_tol = dict(rtol=1e-5, atol=2e-4) if f32 else dict(rtol=2 ** -7, atol=1e-3)
     ref = ma.masked_mha_reference(q, k, v, allow, scale, rate, seeds)
@@ -530,8 +591,8 @@ def test_tracklet_head_dim_297_on_gpu(gpu, dtype, rate):
 
 def test_dsg_detr_train_steps_on_gpu(gpu):
     """Two bf16 DSG-DETR sgdet train steps and one sgcls forward through
-    the kernels (4 + 4 + 4 launches a step; the tracklet head's 3 on the
-    per-element route), finite losses, no skip."""
+    the kernels (4 + 4 + 4 launches a step; the float32 tracklet head's 3
+    on the tiled route), finite losses, no skip."""
     from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
     from nl_vsgg_tpu_torch.serve import place_batch
 
