@@ -120,11 +120,15 @@ Phases, in order; any failure exits non-zero before the result line:
      eval step and one train step on each set, each against its plain
      version on the staged route (or the run fails), timed beside SDPA and
      the bound, with the time per allowed pair; the sgcls tracklet
-     encoder's 8 heads of 297 on the per-element route (forward with and
-     without dropout and lse, dQ, dK/dV, float32 and bfloat16, rows with no
-     allowed key exactly 0) and an sgcls train forward and backward (boxes
-     grouped by label, as training groups them), kernel against plain
-     path; `evaluate_epoch` on set (b) with a `DeviceEvalPromotion`
+     encoder's 8 heads of 297, float32 on the tiled route and bfloat16 on
+     the per-element route (or the run fails; forward with and without
+     dropout and lse, dQ, dK/dV, rows with no allowed key exactly 0), an
+     sgcls train forward and backward (boxes grouped by label, as training
+     groups them), kernel against plain path, its launches counted by head
+     dim (3 + 3 + 3 at D = 297), and the encoder's 3 train calls' forward,
+     dQ and dK/dV timed on their own inputs beside the per-element entries
+     (called directly), their plain versions, SDPA and the bounds;
+     `evaluate_epoch` on set (b) with a `DeviceEvalPromotion`
      (promoted, score(20) equal to the host's); the
      sgcls two-stage flow on 8 videos with `sgcls_group_ids` from the
      tracker feeding both stages (3 tracklet-encoder launches a forward,
@@ -1872,8 +1876,9 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
     random classes) and the same videos with tracklets (set (b), one class
     a slot through every frame): serving, the kernel path against the
     plain path, training, the attention kernels on its own inputs (per
-    allowed pair), the tracklet encoder's D = 297 per-element route, the
-    epoch eval with its promotion, the sgcls two-stage flow with tracker
+    allowed pair), the tracklet encoder's D = 297 calls on the tiled route
+    (eval and train, timed beside the per-element entries), the epoch eval
+    with its promotion, the sgcls two-stage flow with tracker
     ids and the auction solver. Returns the phase's `kernels` rows."""
     import torch
 
@@ -2046,7 +2051,7 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
         m.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
 
-    # ---- the tracklet encoder: sgcls, D = 297 on the per-element route ----
+    # ---- the tracklet encoder: sgcls, D = 297 float32 on the tiled route ----
     # its box-position BatchNorm is given the running statistics of the
     # boxes it reads, as a trained head's would hold: drawn near (0, 1)
     # against pixel coordinates of ~400, it would give the first layer

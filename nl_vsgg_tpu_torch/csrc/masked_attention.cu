@@ -1216,58 +1216,98 @@ masked_mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // .. TT t + TT - 1 of it, so the rows of one tracklet share a tile and the
 // union of their allowed columns is that tracklet (in any order the result
 // is the same, with less reuse: each row writes its own slot). The block
-// lists the union once (a TT-bit word a column) and brings the listed
-// columns' slices of its head through a ring of TSTAGES chunks of TCK
-// columns by 16-byte cp.async: the 16-byte window around the slice, which
-// starts h D floats into a row (1188 h bytes at D = 297, off 16 for odd h).
-// Every row of the tile reads them from shared memory, so a column crosses
-// from L2 once a tile, not once a row as on the per-element route.
-// Lanes split the head dim as on the per-element route (lane i holds dims i,
-// i + 32, ..., SLOTS of them); the rows' own vectors (q; q and g for dQ; k
-// and v for dK/dV) and the fp32 sums stay in registers.
-//   - forward: FWD_ROWS rows a warp. A chunk's TCK x FWD_ROWS dot products
-//     are summed across the warp in one 5-round exchange (scatter_sum32) that
-//     leaves lane l the score of (row l / 8, column l % 8); it runs the online
-//     softmax and draws the dropout bit, and P~ V takes each probability by
-//     a shuffle.
-//   - dQ: BWD_ROWS rows a warp, one listed key at a time: s and dP~ of both
-//     rows in one exchange, then, as the staged dQ, r = sum p dP, sum p dP k
-//     and sum p k in the same walk, dQ = scale (sum p dP k - r sum p k).
-//   - dK/dV: BWD_ROWS key rows a warp, one listed query at a time (its q and
-//     g slices staged, its lse, r and dropout row key copied once): dV +=
-//     p~ g, dK += dS q. No atomics: deterministic.
-// Full float32 on the CUDA cores from shared memory: TF32 keeps about three
-// digits, short of the 1e-4 gate. Bound: at the tracklet shapes 0.31 GB of
-// compulsory traffic (0.093 ms) against 2.5 GFLOP (0.037 ms at 67 TFLOP/s);
-// the per-element route re-reads each allowed key's k and v slices once a
-// query row (about 5 GB through L1 / L2), the tiled one once a tile.
-constexpr int TT = 16;               // rows a tile
-constexpr int TCK = 8;               // columns a cp.async chunk
-constexpr int TSTAGES = 2;           // chunks in the ring
-constexpr int FWD_ROWS = 4;          // forward: tile rows a warp
-constexpr int BWD_ROWS = 2;          // dQ, dK/dV: tile rows a warp
-constexpr int FWD_TILED_THREADS = TT / FWD_ROWS * 32;
-constexpr int BWD_TILED_THREADS = TT / BWD_ROWS * 32;
-constexpr int FWD_TILED_BLOCKS = 3;  // blocks an SM asked of the compiler
-constexpr int BWD_TILED_BLOCKS = 2;
-static_assert(FWD_ROWS * TCK == 32, "the forward's exchange leaves one score a lane");
-static_assert(BWD_ROWS == 2, "the backward's exchange splits the warp by row");
+// copies its rows' windows of the head's slice into shared memory, lists
+// the union of their allowed columns once (a TT-bit word a column) and
+// brings the listed columns' windows in by chunks of TCK columns by
+// 16-byte cp.async. A window is the 16 bytes around the slice, which starts
+// h D floats into a row (1188 h bytes at D = 297, off 16 for odd h). A
+// column crosses from L2 once a tile, not once a row as on the per-element
+// route.
+// The products run on the tensor cores in about float32 accuracy: each
+// operand is split into a TF32 part and the rest, and a 16 x 8 x 8 product
+// is three mma.sync m16n8k8 (lo hi + hi lo + hi hi; TF32 alone keeps about
+// three digits, short of the 1e-4 gate). The TPARTS warps of a block split
+// the head dim's k-steps of the scores (their partial sums meet in shared
+// memory) and its 8-dim output tiles. Per chunk:
+//   - forward: S = Q K^T, the online softmax of rows g and g + 8 on a lane
+//     quad (as the staged forward), dropout, acc += P~ V;
+//   - dQ: S = Q K^T and dP~ = G V^T, p = exp(s - lse), w = p dP, and, as
+//     the staged dQ, r = sum w, acc1 += W K and acc2 += P K in one walk:
+//     dQ = scale (acc1 - r acc2);
+//   - dK/dV (key tiles over the union of their allowed queries, each
+//     listed query's lse, r and dropout row key copied once): S^T = K Q^T,
+//     dP~^T = V G^T, dS = p (dP - r) scale, dK += dS Q, dV += P~ G.
+// Sums in fp32 in registers, no atomics: deterministic. Bound: at the
+// tracklet shapes 0.31 GB of compulsory traffic (0.093 ms) against 2.5
+// GFLOP forward, so bytes. A first design summed on the CUDA cores (lanes
+// split the head dim, as on the per-element route); its walks issued about
+// 1,000 instructions a warp per chunk and bounded it. These issue about a
+// third of that, and what bounds them is each chunk's three block syncs
+// (copy, partial sums, refill) over few resident blocks: so the ring is one
+// chunk deep, and the shared memory a second stage would take holds more
+// blocks instead (tools/kernel_variants.py: tiled-stages-2).
+constexpr int TT = 16;         // rows a tile: the mma's m
+constexpr int TCK = 8;         // columns a cp.async chunk: the scores' n, P V's k
+constexpr int TSTAGES = 1;     // chunks in the ring (see above)
+constexpr int TPARTS = 4;      // warps a block: each k-step ks % TPARTS, output tile % TPARTS
+constexpr int TILED_THREADS = TPARTS * 32;
+constexpr int TPART_NT = (DMAX / 8 + TPARTS - 1) / TPARTS;  // output 8-dim tiles a warp
+constexpr int WT_LD = 12;      // row stride of a warp's 16 x 8 weight tile (conflict-free)
+constexpr int FWD_TILED_BLOCKS = 5;  // blocks an SM asked of the compiler, as shared
+constexpr int BWD_TILED_BLOCKS = 3;  // memory allows at the tracklet shapes
 
 // Floats a staged row: the widest window of a head's slice (D + 6 floats
-// rounded down to 16 bytes).
-__host__ __device__ constexpr int tiled_row(int D) { return (D + 6) & ~3; }
+// rounded down to 16 bytes), 4 mod 8 floats, so the fragments' loads of 8
+// rows at 4 columns fall in 32 different banks.
+__host__ __device__ constexpr int tiled_row(int D) { return ((D + 6) & ~3) | 4; }
 
-// Shared memory of one tiled block over `n` columns: the ring of TSTAGES
-// chunks of TCK rows of two tensors' windows, with `stats` (dK/dV) each
-// listed query's lse, r and dropout row key, the column list and its row
-// bits. The wrapper's tiled_smem_bytes is the same sum.
-size_t tiled_smem(int n, int D, bool stats) {
-  return (size_t)TSTAGES * 2 * TCK * tiled_row(D) * sizeof(float) +
+// A 16-row tile of output dims in the scores' layout (acc[i]: output tile
+// part + TPARTS i, rows g and g + 8, dims 2t, 2t + 1; row r scaled by f[r])
+// into the tile's windows ts (row stride ld, the head's dims from 0), then
+// rows[] of out (token stride sl) by coalesced stores, a warp a row: the
+// caller syncs the block before and after.
+__device__ __forceinline__ void put_acc(float* ts, int ld, const float (&acc)[TPART_NT][4],
+                                        const float (&f)[2], int D) {
+  const int part = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < TPART_NT; ++i) {
+    const int d = 8 * (part + TPARTS * i) + 2 * t;
+    if (d - 2 * t >= D) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (d < D) ts[(g + 8 * r) * ld + d] = acc[i][2 * r] * f[r];
+      if (d + 1 < D) ts[(g + 8 * r) * ld + d + 1] = acc[i][2 * r + 1] * f[r];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_tile(float* out, long long sl, const int* rows,
+                                           const float* ts, int ld, int D) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < TT; r += TPARTS) {
+    if (rows[r] < 0) continue;
+    float* o = out + rows[r] * sl;
+    for (int d = lane; d < D; d += 32) o[d] = ts[r * ld + d];
+  }
+}
+
+// Shared memory of one tiled block over `n` columns: `row_tiles` (1 or 2)
+// tiles of TT row windows, the ring of TSTAGES chunks of TCK windows of two
+// tensors, with `stats` (dK/dV) each listed query's lse, r and dropout row
+// key, the column list and its row bits. The wrapper's tiled_smem_bytes is
+// the same sum.
+size_t tiled_smem(int n, int D, int row_tiles, bool stats) {
+  return ((size_t)row_tiles * TT + (size_t)TSTAGES * 2 * TCK) * tiled_row(D) * sizeof(float) +
          (stats ? (size_t)n * 3 * sizeof(float) : 0) + (size_t)n * (sizeof(int) + sizeof(uint16_t));
 }
 
-// A tiled kernel's own shared memory: a count a warp and the tile's rows.
-constexpr size_t tiled_static_smem(int threads) { return (size_t)threads / 32 * 4 + TT * 4; }
+// A tiled kernel's own shared memory: a count a warp, the tile's rows,
+// each lane's `sums` partial 16 x 8 tiles (a float4 each) and each warp's
+// `sums` weight tiles. The wrapper's tiled_plan is the same.
+constexpr size_t tiled_static_smem(int sums) {
+  return (size_t)TPARTS * 4 + TT * 4 + (size_t)TILED_THREADS * 16 * sums +
+         (size_t)TPARTS * TT * WT_LD * 4 * sums;
+}
 
 // A head's window of a float row: its slice [h D, (h + 1) D) widened to
 // 16-byte bounds, inside the row (rows are whole 16-byte pieces); the slice
@@ -1299,453 +1339,417 @@ __device__ __forceinline__ void tile_rows(int* rows, const long long* order, int
   __syncthreads();
 }
 
-// The listed columns c0 .. c0 + TCK - 1 (list[] tokens, n of them left) of
-// two float tensors' windows (`len` floats, a multiple of 4) into two
-// TCK-row blocks of dst (row stride ld) by 16-byte cp.async, a warp a row,
-// zero-filled past n.
-template <int NT>
-__device__ __forceinline__ void gather_windows(float* dst, int ld, const int* list, int n,
-                                               const float* x, long long x_sl, const float* y,
-                                               long long y_sl, int len) {
+// The windows (`len` floats, a multiple of 4) of tokens list[0 .. count) of
+// x, then (y not null) of y, into rows 0 .. count - 1 and count .. 2 count
+// - 1 of dst (row stride ld) by 16-byte cp.async, a warp a row; a place at
+// or past n, or a token of -1, is zero-filled.
+__device__ __forceinline__ void copy_windows(float* dst, int ld, const int* list, int count,
+                                             int n, const float* x, long long x_sl,
+                                             const float* y, long long y_sl, int len) {
   const int lane = threadIdx.x & 31;
-  for (int j = threadIdx.x >> 5; j < 2 * TCK; j += NT / 32) {
-    const int col = j % TCK;
-    const bool in = col < n;
-    const long long tok = in ? list[col] : 0;
-    const float* src = j < TCK ? x + tok * x_sl : y + tok * y_sl;
+  for (int j = threadIdx.x >> 5; j < (y != nullptr ? 2 : 1) * count; j += TPARTS) {
+    const int at = j % count;
+    const int tok = at < n ? list[at] : -1;
+    const bool in = tok >= 0;
+    const float* src = (j < count ? x + (in ? tok : 0) * x_sl : y + (in ? tok : 0) * y_sl);
     for (int e = 4 * lane; e < len; e += 128) cp_async16(dst + j * ld + e, src + e, in);
   }
 }
 
-// One round of scatter_sum32 on the first N values, with lanes O apart: a
-// lane keeps the half whose index has its lane bit O and adds the partner's
-// copy of that half.
-template <int N, int O>
-__device__ __forceinline__ void scatter_round(float (&v)[32]) {
-  const bool hi = threadIdx.x & O;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float send = hi ? v[i] : v[i + N / 2];
-    v[i] = (hi ? v[i + N / 2] : v[i]) + __shfl_xor_sync(0xffffffffu, send, O);
-  }
+// x as a TF32 part (round to nearest) and the rest (the mma reads its top
+// 19 bits)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// 32 values a lane summed across the warp: lane l ends with the sum of
-// every lane's v[l], in five rounds that halve the values a lane holds.
-__device__ __forceinline__ float scatter_sum32(float (&v)[32]) {
-  scatter_round<32, 16>(v);
-  scatter_round<16, 8>(v);
-  scatter_round<8, 4>(v);
-  scatter_round<4, 2>(v);
-  scatter_round<2, 1>(v);
-  return v[0];
+// d (16 x 8, fp32) += a (16 x 8, tf32) @ b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two rows' values x0, x1 and y0, y1 summed across the warp: lanes 0-15 end
-// with row 0's sums, lanes 16-31 with row 1's (one split round, four
-// butterfly rounds of two values).
-__device__ __forceinline__ void row_sums2(float (&sv)[4], float& x, float& y) {
-  const bool hi = threadIdx.x & 16;
-  x = (hi ? sv[1] : sv[0]) + __shfl_xor_sync(0xffffffffu, hi ? sv[0] : sv[1], 16);
-  y = (hi ? sv[3] : sv[2]) + __shfl_xor_sync(0xffffffffu, hi ? sv[2] : sv[3], 16);
+// d += A B in about fp32 accuracy from split parts: A_lo B_hi + A_hi B_lo + A_hi B_hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// One k-step of the scores: s (16 x 8: rows g, g + 8, columns 2t, 2t + 1)
+// += X rows . Y rows over dims 8 ks .. 8 ks + 7 of the head (row stride ld,
+// 0 past D).
+__device__ __forceinline__ void dot_step(float (&s)[4], const float* x, const float* y, int ld,
+                                         int ks, int D) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d0 = 8 * ks + t, d1 = d0 + 4;
+  const bool in0 = d0 < D, in1 = d1 < D;
+  const float a[4] = {in0 ? x[g * ld + d0] : 0.f, in0 ? x[(g + 8) * ld + d0] : 0.f,
+                      in1 ? x[g * ld + d1] : 0.f, in1 ? x[(g + 8) * ld + d1] : 0.f};
+  uint32_t ah[4], al[4];
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-    y += __shfl_xor_sync(0xffffffffu, y, o);
-  }
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+  mma_3xtf32(s, ah, al, in0 ? y[g * ld + d0] : 0.f, in1 ? y[g * ld + d1] : 0.f);
+}
+
+// The B fragment of output tile nt from a chunk's TCK rows (row stride ld):
+// dims 8 nt + g of columns t and t + 4. Dims past D give outputs that are
+// never stored.
+__device__ __forceinline__ float2 chunk_b(const float* y, int ld, int nt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  return make_float2(y[t * ld + 8 * nt + g], y[(t + 4) * ld + 8 * nt + g]);
+}
+
+// A 16 x 8 weight tile held in the scores' layout (c: rows g, g + 8,
+// columns 2t, 2t + 1) as the products' A fragment (rows g, g + 8, columns
+// t, t + 4), split: through the warp's tile wt in shared memory.
+__device__ __forceinline__ void weights_a(float* wt, const float (&c)[4], uint32_t (&ah)[4],
+                                          uint32_t (&al)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  wt[g * WT_LD + 2 * t] = c[0];
+  wt[g * WT_LD + 2 * t + 1] = c[1];
+  wt[(g + 8) * WT_LD + 2 * t] = c[2];
+  wt[(g + 8) * WT_LD + 2 * t + 1] = c[3];
+  __syncwarp();
+  const float a[4] = {wt[g * WT_LD + t], wt[(g + 8) * WT_LD + t], wt[g * WT_LD + t + 4],
+                      wt[(g + 8) * WT_LD + t + 4]};
+  __syncwarp();  // the tile is written again next chunk
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
 }
 
 // ------------------------------------------------ forward, tiled route
-template <int SLOTS, bool DROP, bool LSE>
-__global__ void __launch_bounds__(FWD_TILED_THREADS, FWD_TILED_BLOCKS)
+template <bool DROP, bool LSE>
+__global__ void __launch_bounds__(TILED_THREADS, FWD_TILED_BLOCKS)
 masked_mha_fwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const unsigned char* __restrict__ allow,
                             const long long* __restrict__ order, const int* __restrict__ seeds,
                             float* __restrict__ out, float* __restrict__ lse, Args a) {
-  constexpr int NT = FWD_TILED_THREADS;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int counts[NT / 32];
+  __shared__ int counts[TPARTS];
   __shared__ int rows[TT];
-  const int D = a.D, EW = tiled_row(D);
-  float* ring = reinterpret_cast<float*>(smem);  // stage: TCK k windows, then TCK v windows
-  int* keys = reinterpret_cast<int*>(ring + TSTAGES * 2 * TCK * EW);
+  __shared__ float4 partial[TILED_THREADS];  // each lane's partial S of its warp's k-steps
+  __shared__ float wts[TPARTS][TT * WT_LD];
+  const int D = a.D, RS = tiled_row(D), KS = (D + 7) / 8;
+  float* qs = reinterpret_cast<float*>(smem);  // the tile's q windows
+  float* ring = qs + TT * RS;                  // stage: TCK k windows, then TCK v windows
+  int* keys = reinterpret_cast<int*>(ring + TSTAGES * 2 * TCK * RS);
   uint16_t* kbits = reinterpret_cast<uint16_t*>(keys + a.Lk);
 
   const int tiles = (a.Lq + TT - 1) / TT;
   const int h = blockIdx.x % a.H, tile = (blockIdx.x / a.H) % tiles;
   const int b = blockIdx.x / (a.H * tiles);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int part = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   tile_rows(rows, order, b, a.Lq, tile);
+  const Window win = head_window(h, D);
+  copy_windows(qs, RS, rows, TT, TT, q + b * a.q_sb + win.start, a.q_sl, nullptr, 0, win.len);
+  cp_async_commit();
   const unsigned char* mb = allow + (long long)b * a.Lq * a.Lk;
-  const int nk = compact_list<NT>(
+  const int nk = compact_list<TILED_THREADS>(
       a.Lk, [&](int kj) { return tile_bits(mb, rows, a.Lk, kj); }, keys, kbits, counts);
   const int chunks = (nk + TCK - 1) / TCK;
-  const Window win = head_window(h, D);
   const float* kb = k + b * a.k_sb + win.start;
   const float* vb = v + b * a.v_sb + win.start;
   auto stage = [&](int c) {
     if (c * TCK < nk)
-      gather_windows<NT>(ring + (c % TSTAGES) * 2 * TCK * EW, EW, keys + c * TCK, nk - c * TCK,
-                         kb, a.k_sl, vb, a.v_sl, win.len);
+      copy_windows(ring + (c % TSTAGES) * 2 * TCK * RS, RS, keys + c * TCK, TCK, nk - c * TCK,
+                   kb, a.k_sl, vb, a.v_sl, win.len);
     cp_async_commit();
   };
 #pragma unroll
   for (int c = 0; c < TSTAGES - 1; ++c) stage(c);
 
-  // this warp's rows FWD_ROWS warp + r: q and the output sums in registers
-  float qv[FWD_ROWS][SLOTS], acc[FWD_ROWS][SLOTS];
+  // the dropout row keys of this lane's rows g and g + 8, once
+  const uint32_t rkey0 = DROP && rows[g] >= 0 ? row_key(seeds[b], h, rows[g]) : 0u;
+  const uint32_t rkey1 = DROP && rows[g + 8] >= 0 ? row_key(seeds[b], h, rows[g + 8]) : 0u;
+  // rows g (r = 0) and g + 8 (r = 1): running max and this lane's part of
+  // the sum; acc[i]: output tile part + TPARTS i
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[TPART_NT][4];
 #pragma unroll
-  for (int r = 0; r < FWD_ROWS; ++r) {
-    const int row = rows[FWD_ROWS * warp + r];
-    const float* qp = q + b * a.q_sb + (long long)max(row, 0) * a.q_sl + (long long)h * D;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      qv[r][j] = row >= 0 && d < D ? qp[d] : 0.f;
-      acc[r][j] = 0.f;
-    }
-  }
-  // the score this lane takes after each exchange: tile row my_t, column
-  // lane % 8 of the chunk; the row's running max (the same in its 8 lanes)
-  // and this lane's part of its sum
-  const int my_t = FWD_ROWS * warp + (lane >> 3), my_row = rows[my_t];
-  const uint32_t rkey = DROP && my_row >= 0 ? row_key(seeds[b], h, my_row) : 0u;
-  float m = -INFINITY, l = 0.f;
+  for (int i = 0; i < TPART_NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const float* qh = qs + win.shift;
   for (int c = 0; c < chunks; ++c) {
     stage(c + TSTAGES - 1);
     cp_async_wait<TSTAGES - 1>();
     __syncthreads();
-    const float* kr = ring + (c % TSTAGES) * 2 * TCK * EW + win.shift;
-    const float* vr = kr + TCK * EW;
-    float s[FWD_ROWS * TCK];  // [r * TCK + column]: this lane's dims' part
+    const float* kr = ring + (c % TSTAGES) * 2 * TCK * RS + win.shift;
+    const float* vr = kr + TCK * RS;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = part; ks < KS; ks += TPARTS) dot_step(s, qh, kr, RS, ks, D);
+    partial[threadIdx.x] = make_float4(s[0], s[1], s[2], s[3]);
+    __syncthreads();
+    s[0] = s[1] = s[2] = s[3] = 0.f;  // the head's S: the parts' sums
 #pragma unroll
-    for (int i = 0; i < FWD_ROWS * TCK; ++i) s[i] = 0.f;
+    for (int pp = 0; pp < TPARTS; ++pp) {
+      const float4 x = partial[pp * 32 + lane];
+      s[0] += x.x;
+      s[1] += x.y;
+      s[2] += x.z;
+      s[3] += x.w;
+    }
+    const int j0 = c * TCK + 2 * t, j1 = j0 + 1;
+    const unsigned w0 = j0 < nk ? kbits[j0] : 0u, w1 = j1 < nk ? kbits[j1] : 0u;
+    const int key0 = j0 < nk ? keys[j0] : 0, key1 = j1 < nk ? keys[j1] : 0;
+    float p[4];
 #pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) {
+    for (int r = 0; r < 2; ++r) {
+      const bool on0 = (w0 >> (g + 8 * r)) & 1u, on1 = (w1 >> (g + 8 * r)) & 1u;
+      const float x0 = on0 ? s[2 * r] * a.scale : -INFINITY;
+      const float x1 = on1 ? s[2 * r + 1] * a.scale : -INFINITY;
+      float mx = fmaxf(x0, x1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = m_new == -INFINITY ? 1.f : __expf(m[r] - m_new);
+      p[2 * r] = on0 ? __expf(x0 - m_new) : 0.f;
+      p[2 * r + 1] = on1 ? __expf(x1 - m_new) : 0.f;
+      l[r] = l[r] * alpha + p[2 * r] + p[2 * r + 1];
+      m[r] = m_new;
 #pragma unroll
-        for (int col = 0; col < TCK; ++col) {
-          const float x = kr[col * EW + d];
-#pragma unroll
-          for (int r = 0; r < FWD_ROWS; ++r) s[r * TCK + col] += qv[r][j] * x;
-        }
+      for (int i = 0; i < TPART_NT; ++i) {
+        acc[i][2 * r] *= alpha;
+        acc[i][2 * r + 1] *= alpha;
+      }
+      // dropout acts on the normalized p: the sum l stays undropped
+      if (DROP) {
+        const uint32_t rk = r ? rkey1 : rkey0;
+        p[2 * r] = drop_bits(rk, key0) >= a.threshold ? p[2 * r] * a.keep_scale : 0.f;
+        p[2 * r + 1] = drop_bits(rk, key1) >= a.threshold ? p[2 * r + 1] * a.keep_scale : 0.f;
       }
     }
-    const float sc = scatter_sum32(s) * a.scale;
-    const int slot = c * TCK + (lane & 7);
-    const bool on = slot < nk && ((kbits[slot] >> my_t) & 1u);
-    const float x = on ? sc : -INFINITY;
-    float mx = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = m_new == -INFINITY ? 1.f : __expf(m - m_new);
-    float p = on ? __expf(x - m_new) : 0.f;
-    l = l * alpha + p;
-    m = m_new;
-    // dropout acts on the normalized p: the sum l stays undropped
-    if (DROP && on) p = drop_bits(rkey, keys[slot]) >= a.threshold ? p * a.keep_scale : 0.f;
+    uint32_t ph[4], pl[4];
+    weights_a(wts[part], p, ph, pl);
 #pragma unroll
-    for (int r = 0; r < FWD_ROWS; ++r) {
-      const float f = __shfl_sync(0xffffffffu, alpha, 8 * r);
-#pragma unroll
-      for (int j = 0; j < SLOTS; ++j) acc[r][j] *= f;
+    for (int i = 0; i < TPART_NT; ++i) {
+      const int nt = part + TPARTS * i;
+      if (nt >= KS) break;
+      const float2 bv = chunk_b(vr, RS, nt);
+      mma_3xtf32(acc[i], ph, pl, bv.x, bv.y);
     }
-#pragma unroll
-    for (int col = 0; col < TCK; ++col) {
-      float pc[FWD_ROWS];
-#pragma unroll
-      for (int r = 0; r < FWD_ROWS; ++r) pc[r] = __shfl_sync(0xffffffffu, p, 8 * r + col);
-#pragma unroll
-      for (int j = 0; j < SLOTS; ++j) {
-        const int d = lane + 32 * j;
-        if (d < D) {
-          const float y = vr[col * EW + d];
-#pragma unroll
-          for (int r = 0; r < FWD_ROWS; ++r) acc[r][j] += pc[r] * y;
-        }
-      }
-    }
-    __syncthreads();  // stage c % TSTAGES is refilled next
+    __syncthreads();  // stage c % TSTAGES and the partial sums are written next
   }
   cp_async_wait<0>();
 
-  float sum = l + __shfl_xor_sync(0xffffffffu, l, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-  const float inv = sum > 0.f ? 1.f / sum : 0.f;  // no allowed key -> 0
+  __syncthreads();  // the q windows are free: the output rows go there
+  float inv[2], L[2];
 #pragma unroll
-  for (int r = 0; r < FWD_ROWS; ++r) {
-    const float f = __shfl_sync(0xffffffffu, inv, 8 * r);
-    const int row = rows[FWD_ROWS * warp + r];
-    if (row < 0) continue;  // warp-uniform
-    float* o = out + (((long long)b * a.Lq + row) * a.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) o[d] = acc[r][j] * f;
-    }
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[r] = sum > 0.f ? 1.f / sum : 0.f;  // no allowed key -> 0
+    L[r] = sum > 0.f ? m[r] + logf(sum) : LSE_EMPTY;
   }
-  if (LSE && (lane & 7) == 0 && my_row >= 0)
-    lse[((long long)b * a.H + h) * a.Lq + my_row] = sum > 0.f ? m + logf(sum) : LSE_EMPTY;
+  put_acc(qs, RS, acc, inv, D);
+  __syncthreads();
+  store_tile(out + ((long long)b * a.Lq * a.H + h) * D, (long long)a.H * D, rows, qs, RS, D);
+  if (LSE && part == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[g + 8 * r] >= 0) lse[((long long)b * a.H + h) * a.Lq + rows[g + 8 * r]] = L[r];
+  }
 }
 
-// ------------------------------------------------------ dQ, tiled route
-template <int SLOTS, bool DROP>
-__global__ void __launch_bounds__(BWD_TILED_THREADS, BWD_TILED_BLOCKS)
-masked_mha_bwd_dq_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ g,
-                               const unsigned char* __restrict__ allow,
-                               const long long* __restrict__ order,
-                               const float* __restrict__ lse, const int* __restrict__ seeds,
-                               float* __restrict__ dq, float* __restrict__ r_out, Args a) {
-  constexpr int NT = BWD_TILED_THREADS;
+// ---------------------------------------------- dQ and dK/dV, tiled route
+// One kernel for both backward launches: dQ (DKV false) over query tiles,
+// its rows' q and g against the listed keys' k and v; dK/dV (DKV true)
+// over key tiles, its rows' k and v against the listed queries' q and g.
+// `mask` is allow (dQ) or allowT (dK/dV); out0, out1 are dq and r (dQ) or
+// dk and dv (dK/dV).
+template <bool DROP, bool DKV>
+__global__ void __launch_bounds__(TILED_THREADS, BWD_TILED_BLOCKS)
+masked_mha_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ g,
+                            const unsigned char* __restrict__ mask,
+                            const long long* __restrict__ order, const float* __restrict__ lse,
+                            const float* __restrict__ r_in, const int* __restrict__ seeds,
+                            float* __restrict__ out0, float* __restrict__ out1, Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int counts[NT / 32];
+  __shared__ int counts[TPARTS];
   __shared__ int rows[TT];
-  const int D = a.D, EW = tiled_row(D);
-  float* ring = reinterpret_cast<float*>(smem);  // stage: TCK k windows, then TCK v windows
-  int* keys = reinterpret_cast<int*>(ring + TSTAGES * 2 * TCK * EW);
-  uint16_t* kbits = reinterpret_cast<uint16_t*>(keys + a.Lk);
+  __shared__ float4 partial[2 * TILED_THREADS];  // each lane's partial S and dP~ of its k-steps
+  __shared__ float wts[TPARTS][2][TT * WT_LD];
+  const int D = a.D, RS = tiled_row(D), KS = (D + 7) / 8;
+  const int L = DKV ? a.Lk : a.Lq, N = DKV ? a.Lq : a.Lk;  // tile rows, listed columns
+  float* xs = reinterpret_cast<float*>(smem);  // the tile's windows: q, g (dQ) or k, v (dK/dV)
+  float* ring = xs + 2 * TT * RS;             // stage: TCK k (q) windows, then TCK v (g)
+  float* lses = ring + TSTAGES * 2 * TCK * RS;  // dK/dV: each listed query's lse, r, row key
+  float* rs = lses + (DKV ? N : 0);
+  uint32_t* rks = reinterpret_cast<uint32_t*>(rs + (DKV ? N : 0));
+  int* cols = reinterpret_cast<int*>(rks + (DKV ? N : 0));
+  uint16_t* cbits = reinterpret_cast<uint16_t*>(cols + N);
 
-  const int tiles = (a.Lq + TT - 1) / TT;
+  const int tiles = (L + TT - 1) / TT;
   const int h = blockIdx.x % a.H, tile = (blockIdx.x / a.H) % tiles;
   const int b = blockIdx.x / (a.H * tiles);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  tile_rows(rows, order, b, a.Lq, tile);
-  const unsigned char* mb = allow + (long long)b * a.Lq * a.Lk;
-  const int nk = compact_list<NT>(
-      a.Lk, [&](int kj) { return tile_bits(mb, rows, a.Lk, kj); }, keys, kbits, counts);
-  const int chunks = (nk + TCK - 1) / TCK;
+  const int part = threadIdx.x >> 5, lane = threadIdx.x & 31, gi = lane >> 2, t = lane & 3;
+  tile_rows(rows, order, b, L, tile);
   const Window win = head_window(h, D);
-  const float* kb = k + b * a.k_sb + win.start;
-  const float* vb = v + b * a.v_sb + win.start;
+  // row side x1, x2 and column side y1, y2, at the window
+  const float* x1 = (DKV ? k + b * a.k_sb : q + b * a.q_sb) + win.start;
+  const float* x2 = (DKV ? v + b * a.v_sb : g + b * a.g_sb) + win.start;
+  const float* y1 = (DKV ? q + b * a.q_sb : k + b * a.k_sb) + win.start;
+  const float* y2 = (DKV ? g + b * a.g_sb : v + b * a.v_sb) + win.start;
+  const long long x1_sl = DKV ? a.k_sl : a.q_sl, x2_sl = DKV ? a.v_sl : a.g_sl;
+  const long long y1_sl = DKV ? a.q_sl : a.k_sl, y2_sl = DKV ? a.g_sl : a.v_sl;
+  copy_windows(xs, RS, rows, TT, TT, x1, x1_sl, x2, x2_sl, win.len);
+  cp_async_commit();
+  const unsigned char* mb = mask + (long long)b * L * N;
+  const int nc = compact_list<TILED_THREADS>(
+      N, [&](int j) { return tile_bits(mb, rows, N, j); }, cols, cbits, counts);
+  if (DKV) {
+    // each listed query's lse, r and dropout row key, once (an allowed pair
+    // means the query row has a key: its lse is real)
+    for (int i = threadIdx.x; i < nc; i += TILED_THREADS) {
+      const long long at = ((long long)b * a.H + h) * a.Lq + cols[i];
+      lses[i] = lse[at];
+      rs[i] = r_in[at];
+      if (DROP) rks[i] = row_key(seeds[b], h, cols[i]);
+    }
+  }
+  const int chunks = (nc + TCK - 1) / TCK;
   auto stage = [&](int c) {
-    if (c * TCK < nk)
-      gather_windows<NT>(ring + (c % TSTAGES) * 2 * TCK * EW, EW, keys + c * TCK, nk - c * TCK,
-                         kb, a.k_sl, vb, a.v_sl, win.len);
+    if (c * TCK < nc)
+      copy_windows(ring + (c % TSTAGES) * 2 * TCK * RS, RS, cols + c * TCK, TCK, nc - c * TCK,
+                   y1, y1_sl, y2, y2_sl, win.len);
     cp_async_commit();
   };
 #pragma unroll
   for (int c = 0; c < TSTAGES - 1; ++c) stage(c);
 
-  // this warp's rows BWD_ROWS warp + r: q and g, and the sums of p dP k and
-  // p k, in registers
-  float qv[BWD_ROWS][SLOTS], gv[BWD_ROWS][SLOTS], pdk[BWD_ROWS][SLOTS], pk[BWD_ROWS][SLOTS];
+  // dQ: this lane's rows gi and gi + 8 (r = 0, 1): lse and dropout row key
+  float Lrow[2] = {0.f, 0.f};
+  uint32_t rkey[2] = {0u, 0u};
+  if (!DKV) {
 #pragma unroll
-  for (int r = 0; r < BWD_ROWS; ++r) {
-    const int row = rows[BWD_ROWS * warp + r];
-    const float* qp = q + b * a.q_sb + (long long)max(row, 0) * a.q_sl + (long long)h * D;
-    const float* gp = g + b * a.g_sb + (long long)max(row, 0) * a.g_sl + (long long)h * D;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      const bool in = row >= 0 && d < D;
-      qv[r][j] = in ? qp[d] : 0.f;
-      gv[r][j] = in ? gp[d] : 0.f;
-      pdk[r][j] = pk[r][j] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = rows[gi + 8 * r];
+      if (row < 0) continue;
+      Lrow[r] = lse[((long long)b * a.H + h) * a.Lq + row];
+      if (DROP) rkey[r] = row_key(seeds[b], h, row);
     }
   }
-  // lanes 0-15 take row 0's scores, lanes 16-31 row 1's
-  const bool hi = lane & 16;
-  const int my_t = BWD_ROWS * warp + hi, my_row = rows[my_t];
-  const float L = my_row >= 0 ? lse[((long long)b * a.H + h) * a.Lq + my_row] : 0.f;
-  const uint32_t rkey = DROP && my_row >= 0 ? row_key(seeds[b], h, my_row) : 0u;
-  float rsum[BWD_ROWS] = {0.f, 0.f};
+  // acc1: dQ's sum p dP k (dK); acc2: sum p k (dV); rsum: dQ's r parts
+  float acc1[TPART_NT][4], acc2[TPART_NT][4], rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < TPART_NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[i][e] = acc2[i][e] = 0.f;
+  const float* xh1 = xs + win.shift;
+  const float* xh2 = xh1 + TT * RS;
   for (int c = 0; c < chunks; ++c) {
     stage(c + TSTAGES - 1);
     cp_async_wait<TSTAGES - 1>();
     __syncthreads();
-    const float* kr = ring + (c % TSTAGES) * 2 * TCK * EW + win.shift;
-    const float* vr = kr + TCK * EW;
-    const int n = min(TCK, nk - c * TCK);
-    for (int col = 0; col < n; ++col) {
-      float kx[SLOTS], sv[4] = {0.f, 0.f, 0.f, 0.f};  // q0.k, q1.k, g0.v, g1.v parts
-#pragma unroll
-      for (int j = 0; j < SLOTS; ++j) {
-        const int d = lane + 32 * j;
-        kx[j] = 0.f;
-        if (d < D) {
-          kx[j] = kr[col * EW + d];
-          const float y = vr[col * EW + d];
-          sv[0] += qv[0][j] * kx[j];
-          sv[1] += qv[1][j] * kx[j];
-          sv[2] += gv[0][j] * y;
-          sv[3] += gv[1][j] * y;
-        }
-      }
-      float s, dp;
-      row_sums2(sv, s, dp);
-      const int slot = c * TCK + col;
-      const bool on = (kbits[slot] >> my_t) & 1u;
-      const float p = on ? __expf(s * a.scale - L) : 0.f;
-      if (DROP) dp = drop_bits(rkey, keys[slot]) >= a.threshold ? dp * a.keep_scale : 0.f;
-      const float w = p * dp;  // this row's p dP; the other row's from lane ^ 16
-      const float w_o = __shfl_xor_sync(0xffffffffu, w, 16);
-      const float p_o = __shfl_xor_sync(0xffffffffu, p, 16);
-      const float w0 = hi ? w_o : w, w1 = hi ? w : w_o, p0 = hi ? p_o : p, p1 = hi ? p : p_o;
-      rsum[0] += w0;
-      rsum[1] += w1;
-#pragma unroll
-      for (int j = 0; j < SLOTS; ++j) {
-        pdk[0][j] += w0 * kx[j];
-        pdk[1][j] += w1 * kx[j];
-        pk[0][j] += p0 * kx[j];
-        pk[1][j] += p1 * kx[j];
-      }
+    const float* yr1 = ring + (c % TSTAGES) * 2 * TCK * RS + win.shift;
+    const float* yr2 = yr1 + TCK * RS;
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ks = part; ks < KS; ks += TPARTS) {
+      dot_step(s, xh1, yr1, RS, ks, D);
+      dot_step(dp, xh2, yr2, RS, ks, D);
     }
-    __syncthreads();  // stage c % TSTAGES is refilled next
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < BWD_ROWS; ++r) {
-    const int row = rows[BWD_ROWS * warp + r];
-    if (row < 0) continue;  // warp-uniform
-    float* o = dq + (((long long)b * a.Lq + row) * a.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) o[d] = (pdk[r][j] - rsum[r] * pk[r][j]) * a.scale;
-    }
-  }
-  if ((lane & 15) == 0 && my_row >= 0)
-    r_out[((long long)b * a.H + h) * a.Lq + my_row] = hi ? rsum[1] : rsum[0];
-}
-
-// --------------------------------------------------- dK/dV, tiled route
-template <int SLOTS, bool DROP>
-__global__ void __launch_bounds__(BWD_TILED_THREADS, BWD_TILED_BLOCKS)
-masked_mha_bwd_dkv_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ g,
-                                const unsigned char* __restrict__ allow_t,
-                                const long long* __restrict__ order,
-                                const float* __restrict__ lse, const float* __restrict__ r_in,
-                                const int* __restrict__ seeds, float* __restrict__ dk,
-                                float* __restrict__ dv, Args a) {
-  constexpr int NT = BWD_TILED_THREADS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int counts[NT / 32];
-  __shared__ int rows[TT];
-  const int D = a.D, EW = tiled_row(D);
-  float* ring = reinterpret_cast<float*>(smem);  // stage: TCK q windows, then TCK g windows
-  float* lses = ring + TSTAGES * 2 * TCK * EW;
-  float* rs = lses + a.Lq;
-  uint32_t* rks = reinterpret_cast<uint32_t*>(rs + a.Lq);
-  int* qlist = reinterpret_cast<int*>(rks + a.Lq);
-  uint16_t* qbits = reinterpret_cast<uint16_t*>(qlist + a.Lq);
-
-  const int tiles = (a.Lk + TT - 1) / TT;
-  const int h = blockIdx.x % a.H, tile = (blockIdx.x / a.H) % tiles;
-  const int b = blockIdx.x / (a.H * tiles);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  tile_rows(rows, order, b, a.Lk, tile);
-  const unsigned char* mb = allow_t + (long long)b * a.Lk * a.Lq;
-  const int nq = compact_list<NT>(
-      a.Lq, [&](int qj) { return tile_bits(mb, rows, a.Lq, qj); }, qlist, qbits, counts);
-  // each listed query's lse, r and dropout row key, once (an allowed pair
-  // means the query row has a key: its lse is real)
-  for (int i = threadIdx.x; i < nq; i += NT) {
-    const int qi = qlist[i];
-    const long long at = ((long long)b * a.H + h) * a.Lq + qi;
-    lses[i] = lse[at];
-    rs[i] = r_in[at];
-    if (DROP) rks[i] = row_key(seeds[b], h, qi);
-  }
-  const int chunks = (nq + TCK - 1) / TCK;
-  const Window win = head_window(h, D);
-  const float* qb = q + b * a.q_sb + win.start;
-  const float* gb = g + b * a.g_sb + win.start;
-  auto stage = [&](int c) {
-    if (c * TCK < nq)
-      gather_windows<NT>(ring + (c % TSTAGES) * 2 * TCK * EW, EW, qlist + c * TCK,
-                         nq - c * TCK, qb, a.q_sl, gb, a.g_sl, win.len);
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int c = 0; c < TSTAGES - 1; ++c) stage(c);
-
-  // this warp's key rows BWD_ROWS warp + r: k and v, and the dK and dV
-  // sums, in registers
-  float kv[BWD_ROWS][SLOTS], vv[BWD_ROWS][SLOTS], dka[BWD_ROWS][SLOTS], dva[BWD_ROWS][SLOTS];
-#pragma unroll
-  for (int r = 0; r < BWD_ROWS; ++r) {
-    const int row = rows[BWD_ROWS * warp + r];
-    const float* kp = k + b * a.k_sb + (long long)max(row, 0) * a.k_sl + (long long)h * D;
-    const float* vp = v + b * a.v_sb + (long long)max(row, 0) * a.v_sl + (long long)h * D;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      const bool in = row >= 0 && d < D;
-      kv[r][j] = in ? kp[d] : 0.f;
-      vv[r][j] = in ? vp[d] : 0.f;
-      dka[r][j] = dva[r][j] = 0.f;
-    }
-  }
-  // lanes 0-15 take key row 0's scores, lanes 16-31 key row 1's
-  const bool hi = lane & 16;
-  const int my_t = BWD_ROWS * warp + hi, my_key = rows[my_t];
-  for (int c = 0; c < chunks; ++c) {
-    stage(c + TSTAGES - 1);
-    cp_async_wait<TSTAGES - 1>();
+    partial[2 * threadIdx.x] = make_float4(s[0], s[1], s[2], s[3]);
+    partial[2 * threadIdx.x + 1] = make_float4(dp[0], dp[1], dp[2], dp[3]);
     __syncthreads();
-    const float* qr = ring + (c % TSTAGES) * 2 * TCK * EW + win.shift;
-    const float* gr = qr + TCK * EW;
-    const int n = min(TCK, nq - c * TCK);
-    for (int col = 0; col < n; ++col) {
-      float qx[SLOTS], gx[SLOTS], sv[4] = {0.f, 0.f, 0.f, 0.f};  // k0.q, k1.q, v0.g, v1.g parts
 #pragma unroll
-      for (int j = 0; j < SLOTS; ++j) {
-        const int d = lane + 32 * j;
-        qx[j] = gx[j] = 0.f;
-        if (d < D) {
-          qx[j] = qr[col * EW + d];
-          gx[j] = gr[col * EW + d];
-          sv[0] += kv[0][j] * qx[j];
-          sv[1] += kv[1][j] * qx[j];
-          sv[2] += vv[0][j] * gx[j];
-          sv[3] += vv[1][j] * gx[j];
+    for (int e = 0; e < 4; ++e) s[e] = dp[e] = 0.f;  // the head's S and dP~: the parts' sums
+#pragma unroll
+    for (int pp = 0; pp < TPARTS; ++pp) {
+      const float4 x = partial[2 * (pp * 32 + lane)], y = partial[2 * (pp * 32 + lane) + 1];
+      s[0] += x.x;
+      s[1] += x.y;
+      s[2] += x.z;
+      s[3] += x.w;
+      dp[0] += y.x;
+      dp[1] += y.y;
+      dp[2] += y.z;
+      dp[3] += y.w;
+    }
+    // the weights of pairs (row gi + 8 r, column 2t + e)
+    float w1[4], w2[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = c * TCK + 2 * t + e;
+      const bool in = j < nc;
+      const unsigned w = in ? cbits[j] : 0u;
+      const float Lc = DKV && in ? lses[j] : 0.f, Rc = DKV && in ? rs[j] : 0.f;
+      const uint32_t rkc = DKV && DROP && in ? rks[j] : 0u;
+      const int col = in ? cols[j] : 0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool on = (w >> (gi + 8 * r)) & 1u;
+        const float p = on ? __expf(s[2 * r + e] * a.scale - (DKV ? Lc : Lrow[r])) : 0.f;
+        bool keep = true;
+        if (DROP)
+          keep = DKV ? drop_bits(rkc, rows[gi + 8 * r]) >= a.threshold
+                     : drop_bits(rkey[r], col) >= a.threshold;
+        const float ks_ = DROP ? a.keep_scale : 1.f;
+        const float dpk = keep ? dp[2 * r + e] * ks_ : 0.f;
+        if (DKV) {
+          w1[2 * r + e] = p * (dpk - Rc) * a.scale;  // dS
+          w2[2 * r + e] = keep ? p * ks_ : 0.f;     // p~
+        } else {
+          w1[2 * r + e] = p * dpk;  // p dP
+          w2[2 * r + e] = p;
+          rsum[r] += p * dpk;
         }
       }
-      float s, dpt;
-      row_sums2(sv, s, dpt);
-      const int slot = c * TCK + col;
-      const bool on = (qbits[slot] >> my_t) & 1u;
-      const float p = on ? __expf(s * a.scale - lses[slot]) : 0.f;
-      const bool keep = !DROP || drop_bits(rks[slot], my_key) >= a.threshold;
-      const float ks = DROP ? a.keep_scale : 1.f;
-      const float pt = keep ? p * ks : 0.f;
-      const float ds = p * ((keep ? dpt * ks : 0.f) - rs[slot]) * a.scale;
-      const float pt_o = __shfl_xor_sync(0xffffffffu, pt, 16);
-      const float ds_o = __shfl_xor_sync(0xffffffffu, ds, 16);
-      const float pt0 = hi ? pt_o : pt, pt1 = hi ? pt : pt_o;
-      const float ds0 = hi ? ds_o : ds, ds1 = hi ? ds : ds_o;
-#pragma unroll
-      for (int j = 0; j < SLOTS; ++j) {
-        dva[0][j] += pt0 * gx[j];
-        dva[1][j] += pt1 * gx[j];
-        dka[0][j] += ds0 * qx[j];
-        dka[1][j] += ds1 * qx[j];
-      }
     }
-    __syncthreads();  // stage c % TSTAGES is refilled next
+    uint32_t ah1[4], al1[4], ah2[4], al2[4];
+    weights_a(wts[part][0], w1, ah1, al1);
+    weights_a(wts[part][1], w2, ah2, al2);
+#pragma unroll
+    for (int i = 0; i < TPART_NT; ++i) {
+      const int nt = part + TPARTS * i;
+      if (nt >= KS) break;
+      const float2 b1 = chunk_b(yr1, RS, nt);
+      mma_3xtf32(acc1[i], ah1, al1, b1.x, b1.y);
+      const float2 b2 = DKV ? chunk_b(yr2, RS, nt) : b1;
+      mma_3xtf32(acc2[i], ah2, al2, b2.x, b2.y);
+    }
+    __syncthreads();  // stage c % TSTAGES and the partial sums are written next
   }
   cp_async_wait<0>();
 
+  __syncthreads();  // the tile's windows are free: the output rows go there
+  float rr[2] = {0.f, 0.f};
+  const float one[2] = {1.f, 1.f};
+  const long long osl = (long long)a.H * D;
+  float* o0 = out0 + ((long long)b * L * a.H + h) * D;
+  if (DKV) {
+    put_acc(xs, RS, acc1, one, D);
+    put_acc(xs + TT * RS, RS, acc2, one, D);
+    __syncthreads();
+    store_tile(o0, osl, rows, xs, RS, D);
+    store_tile(out1 + ((long long)b * L * a.H + h) * D, osl, rows, xs + TT * RS, RS, D);
+  } else {
 #pragma unroll
-  for (int r = 0; r < BWD_ROWS; ++r) {
-    const int row = rows[BWD_ROWS * warp + r];
-    if (row < 0) continue;  // warp-uniform
-    const long long o = (((long long)b * a.Lk + row) * a.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < SLOTS; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) {
-        dk[o + d] = dka[r][j];
-        dv[o + d] = dva[r][j];
-      }
+    for (int r = 0; r < 2; ++r) {
+      rr[r] = rsum[r] + __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rr[r] += __shfl_xor_sync(0xffffffffu, rr[r], 2);
     }
+    // dQ = scale (sum p dP k - r sum p k), row by row
+#pragma unroll
+    for (int i = 0; i < TPART_NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc1[i][e] -= rr[e >> 1] * acc2[i][e];
+    const float sc[2] = {a.scale, a.scale};
+    put_acc(xs, RS, acc1, sc, D);
+    __syncthreads();
+    store_tile(o0, osl, rows, xs, RS, D);
+  }
+  if (!DKV && part == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[gi + 8 * r] >= 0) out1[((long long)b * a.H + h) * a.Lq + rows[gi + 8 * r]] = rr[r];
   }
 }
 
@@ -1896,82 +1900,39 @@ unsigned tiled_blocks(const Args& a, int rows) {
   return (unsigned)((long long)a.B * ((rows + TT - 1) / TT) * a.H);
 }
 
-template <int SLOTS, bool DROP, bool LSE>
-int fwd_tiled_slots(const void* q, const void* k, const void* v, const void* allow,
-                    const void* order, const void* seeds, void* out, void* lse, const Args& a,
-                    cudaStream_t s) {
-  auto kernel = masked_mha_fwd_tiled_kernel<SLOTS, DROP, LSE>;
-  const size_t smem = tiled_smem(a.Lk, a.D, false);
+template <bool DROP, bool LSE>
+int fwd_tiled(const void* q, const void* k, const void* v, const void* allow, const void* order,
+              const void* seeds, void* out, void* lse, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_fwd_tiled_kernel<DROP, LSE>;
+  const size_t smem = tiled_smem(a.Lk, a.D, 1, false);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<tiled_blocks(a, a.Lq), FWD_TILED_THREADS, smem, s>>>(
+  kernel<<<tiled_blocks(a, a.Lq), TILED_THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const unsigned char*>(allow), static_cast<const long long*>(order),
       static_cast<const int*>(seeds), static_cast<float*>(out), static_cast<float*>(lse), a);
   return (int)cudaGetLastError();
 }
 
-template <bool DROP, bool LSE>
-int fwd_tiled(const void* q, const void* k, const void* v, const void* allow, const void* order,
-              const void* seeds, void* out, void* lse, const Args& a, cudaStream_t s) {
-  return slots_for(a.D) == 8
-             ? fwd_tiled_slots<8, DROP, LSE>(q, k, v, allow, order, seeds, out, lse, a, s)
-             : fwd_tiled_slots<10, DROP, LSE>(q, k, v, allow, order, seeds, out, lse, a, s);
-}
-
-template <int SLOTS, bool DROP>
-int bwd_dq_tiled_slots(const void* q, const void* k, const void* v, const void* g,
-                       const void* allow, const void* order, const void* lse, const void* seeds,
-                       void* dq, void* r, const Args& a, cudaStream_t s) {
-  auto kernel = masked_mha_bwd_dq_tiled_kernel<SLOTS, DROP>;
-  const size_t smem = tiled_smem(a.Lk, a.D, false);
+// dQ (DKV false: mask = allow, out0 = dq, out1 = r) or dK/dV (DKV true:
+// mask = allowT, out0 = dk, out1 = dv)
+template <bool DROP, bool DKV>
+int bwd_tiled(const void* q, const void* k, const void* v, const void* g, const void* mask,
+              const void* order, const void* lse, const void* r, const void* seeds, void* out0,
+              void* out1, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_bwd_tiled_kernel<DROP, DKV>;
+  const size_t smem = tiled_smem(DKV ? a.Lq : a.Lk, a.D, 2, DKV);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<tiled_blocks(a, a.Lq), BWD_TILED_THREADS, smem, s>>>(
+  kernel<<<tiled_blocks(a, DKV ? a.Lk : a.Lq), TILED_THREADS, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(g), static_cast<const unsigned char*>(allow),
+      static_cast<const float*>(g), static_cast<const unsigned char*>(mask),
       static_cast<const long long*>(order), static_cast<const float*>(lse),
-      static_cast<const int*>(seeds), static_cast<float*>(dq), static_cast<float*>(r), a);
+      static_cast<const float*>(r), static_cast<const int*>(seeds), static_cast<float*>(out0),
+      static_cast<float*>(out1), a);
   return (int)cudaGetLastError();
-}
-
-template <bool DROP>
-int bwd_dq_tiled(const void* q, const void* k, const void* v, const void* g, const void* allow,
-                 const void* order, const void* lse, const void* seeds, void* dq, void* r,
-                 const Args& a, cudaStream_t s) {
-  return slots_for(a.D) == 8
-             ? bwd_dq_tiled_slots<8, DROP>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s)
-             : bwd_dq_tiled_slots<10, DROP>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s);
-}
-
-template <int SLOTS, bool DROP>
-int bwd_dkv_tiled_slots(const void* q, const void* k, const void* v, const void* g,
-                        const void* allow_t, const void* order, const void* lse, const void* r,
-                        const void* seeds, void* dk, void* dv, const Args& a, cudaStream_t s) {
-  auto kernel = masked_mha_bwd_dkv_tiled_kernel<SLOTS, DROP>;
-  const size_t smem = tiled_smem(a.Lq, a.D, true);
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<tiled_blocks(a, a.Lk), BWD_TILED_THREADS, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(g), static_cast<const unsigned char*>(allow_t),
-      static_cast<const long long*>(order), static_cast<const float*>(lse),
-      static_cast<const float*>(r), static_cast<const int*>(seeds), static_cast<float*>(dk),
-      static_cast<float*>(dv), a);
-  return (int)cudaGetLastError();
-}
-
-template <bool DROP>
-int bwd_dkv_tiled(const void* q, const void* k, const void* v, const void* g,
-                  const void* allow_t, const void* order, const void* lse, const void* r,
-                  const void* seeds, void* dk, void* dv, const Args& a, cudaStream_t s) {
-  return slots_for(a.D) == 8 ? bwd_dkv_tiled_slots<8, DROP>(q, k, v, g, allow_t, order, lse, r,
-                                                           seeds, dk, dv, a, s)
-                             : bwd_dkv_tiled_slots<10, DROP>(q, k, v, g, allow_t, order, lse,
-                                                            r, seeds, dk, dv, a, s);
 }
 
 }  // namespace
@@ -2126,7 +2087,7 @@ extern "C" int masked_mha_fwd_tiled(int dtype, const void* q, const void* k, con
                                     long long k_sl, long long v_sb, long long v_sl, float scale,
                                     unsigned threshold, float keep_scale, void* stream) {
   if (tiled_refuses(dtype, B, Lq, Lk, H, D, {q, k, v}, q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) ||
-      tiled_smem(Lk, D, false) + tiled_static_smem(FWD_TILED_THREADS) > (size_t)SMEM_LIMIT)
+      tiled_smem(Lk, D, 1, false) + tiled_static_smem(1) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, 0, 0,
                            scale, threshold, keep_scale);
@@ -2148,14 +2109,15 @@ extern "C" int masked_mha_bwd_dq_tiled(int dtype, const void* q, const void* k, 
                                        float keep_scale, void* stream) {
   if (tiled_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, g},
                     q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) ||
-      tiled_smem(Lk, D, false) + tiled_static_smem(BWD_TILED_THREADS) > (size_t)SMEM_LIMIT)
+      tiled_smem(Lk, D, 2, false) + tiled_static_smem(2) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
                            scale, threshold, keep_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return seeds != nullptr
-             ? bwd_dq_tiled<true>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s)
-             : bwd_dq_tiled<false>(q, k, v, g, allow, order, lse, seeds, dq, r, a, s);
+             ? bwd_tiled<true, false>(q, k, v, g, allow, order, lse, nullptr, seeds, dq, r, a, s)
+             : bwd_tiled<false, false>(q, k, v, g, allow, order, lse, nullptr, seeds, dq, r, a,
+                                       s);
 }
 
 extern "C" int masked_mha_bwd_dkv_tiled(int dtype, const void* q, const void* k, const void* v,
@@ -2168,12 +2130,12 @@ extern "C" int masked_mha_bwd_dkv_tiled(int dtype, const void* q, const void* k,
                                         unsigned threshold, float keep_scale, void* stream) {
   if (tiled_refuses(dtype, B, Lq, Lk, H, D, {q, k, v, g},
                     q_sb | q_sl | k_sb | k_sl | v_sb | v_sl | g_sb | g_sl) ||
-      tiled_smem(Lq, D, true) + tiled_static_smem(BWD_TILED_THREADS) > (size_t)SMEM_LIMIT)
+      tiled_smem(Lq, D, 2, true) + tiled_static_smem(2) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, g_sb, g_sl,
                            scale, threshold, keep_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return seeds != nullptr
-             ? bwd_dkv_tiled<true>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s)
-             : bwd_dkv_tiled<false>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s);
+             ? bwd_tiled<true, true>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s)
+             : bwd_tiled<false, true>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s);
 }

@@ -53,8 +53,9 @@ rows of a tile taken in `row_order`: each video's rows by their first
 allowed column, so that rows with the same allowed keys share a tile. The
 block lists the union of its rows' allowed columns once and stages their
 slices once a tile (8 columns a cp.async chunk, the 16-byte window around
-a head's slice); the sums run in fp32 on the CUDA cores, dQ in one walk as
-on the staged route.
+a head's slice); the products run on the tensor cores in about float32
+accuracy (each operand a TF32 part and the rest, three mma.sync a
+product), dQ in one walk as on the staged route.
 "per-element" (bf16 with odd D or D above 256, other views, more than 8
 heads) runs one warp a (row, head) and loads a head's dims one by one, 8 a
 lane up to D = 256 and 10 up to 320.
@@ -88,13 +89,14 @@ HEAD_GROUP = 2                   # forward / dK/dV: heads a block
 CHUNK_ROWS = 8                   # forward / dK/dV: keys / queries a cp.async chunk
 FWD_CHUNKS = DKV_CHUNKS = 2      # forward / dK/dV: chunks in the ring
 FWD_PARTS, DKV_PARTS = 4, 2      # forward / dK/dV: warps a head
-# the tiled routes (csrc/masked_attention.cu TT, TCK, TSTAGES, FWD_ROWS,
-# BWD_ROWS and tiled_smem)
+# the tiled routes (csrc/masked_attention.cu TT, TCK, TSTAGES, TPARTS, WT_LD,
+# tiled_row, tiled_smem and tiled_static_smem)
 TILED_MAX_HEADS = 8
 TILED_ROWS = 16                  # rows a tile (query rows: forward, dQ; key rows: dK/dV)
 TILED_CHUNK = 8                  # columns a cp.async chunk
-TILED_CHUNKS = 2                 # chunks in the ring
-TILED_WARP_ROWS = {"fwd": 4, "bwd": 2}   # tile rows a warp
+TILED_CHUNKS = 1                 # chunks in the ring
+TILED_PARTS = 4                  # warps a block
+_WT_LD = 12                      # row stride of a warp's 16 x 8 weight tile
 _DQ_ENTRY = {"staged": "masked_mha_bwd_dq_staged", "tiled": "masked_mha_bwd_dq_tiled",
              "per-element": "masked_mha_bwd_dq"}
 _FWD_ENTRY = {"staged": "masked_mha_fwd_staged", "tiled": "masked_mha_fwd_tiled",
@@ -357,27 +359,40 @@ def tiled_layout(tensors) -> bool:
                     for t in tensors))
 
 
-def tiled_smem_bytes(columns: int, head_dim: int, stats: bool = False) -> int:
-    """Shared memory of one tiled block over `columns` columns (keys, or
-    queries for dK/dV): a ring of TILED_CHUNKS chunks of TILED_CHUNK rows of
-    two tensors' windows (float32, `(D + 6) & ~3` floats a row), with
-    `stats` (dK/dV) each listed query's lse, r and dropout row key, the
-    column list (int32) and its row bits (16 bits a column)."""
-    row = (head_dim + 6) & ~3
-    return (TILED_CHUNKS * 2 * TILED_CHUNK * row * 4 + (columns * 12 if stats else 0)
-            + columns * 6)
+def tiled_row(head_dim: int) -> int:
+    """Floats a staged row of the tiled kernels: the widest 16-byte window
+    of a head's slice, 4 mod 8 floats (bank-conflict-free fragment
+    loads)."""
+    return ((head_dim + 6) & ~3) | 4
+
+
+def tiled_smem_bytes(columns: int, head_dim: int, kind: str) -> int:
+    """Shared memory of one tiled block of `kind` ("fwd", "dq" or "dkv")
+    over `columns` columns (keys, or queries for dK/dV): its 16 rows'
+    windows of one tensor (the forward's q) or two (dQ's q and g, dK/dV's k
+    and v), a ring of TILED_CHUNKS chunks of TILED_CHUNK windows of two
+    tensors (float32, `tiled_row` floats a row), for dK/dV each listed
+    query's lse, r and dropout row key, the column list (int32) and its row
+    bits (16 bits a column)."""
+    row_tiles = 1 if kind == "fwd" else 2
+    rows = row_tiles * TILED_ROWS + TILED_CHUNKS * 2 * TILED_CHUNK
+    return rows * tiled_row(head_dim) * 4 + (columns * 12 if kind == "dkv" else 0) + columns * 6
 
 
 def tiled_plan(kind: str, lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
-    """A tiled launch of `kind` ("fwd", "dq" or "dkv"): one block a (video,
-    tile, head); tile t takes the rows at places [t * TILED_ROWS, (t + 1) *
-    TILED_ROWS) of `row_order`'s order (query rows, key rows for dK/dV), so
-    `tiles` of them take every row once. `static_smem` is the kernel's own:
-    a count a warp and the tile's rows."""
+    """A tiled launch of `kind` ("fwd", "dq" or "dkv"): one block of
+    TILED_PARTS warps a (video, tile, head); tile t takes the rows at places
+    [t * TILED_ROWS, (t + 1) * TILED_ROWS) of `row_order`'s order (query
+    rows, key rows for dK/dV), so `tiles` of them take every row once.
+    `static_smem` is the kernel's own: a count a warp, the tile's rows, and
+    per product (the forward's S; the backward's S and dP) each lane's
+    partial 16 x 8 tile (a float4) and each warp's 16 x 8 weight tile."""
     rows, cols = (lk, lq) if kind == "dkv" else (lq, lk)
-    threads = 32 * TILED_ROWS // TILED_WARP_ROWS["fwd" if kind == "fwd" else "bwd"]
-    smem = tiled_smem_bytes(cols, head_dim, kind == "dkv")
-    static = threads // 32 * 4 + TILED_ROWS * 4
+    threads = 32 * TILED_PARTS
+    sums = 1 if kind == "fwd" else 2
+    smem = tiled_smem_bytes(cols, head_dim, kind)
+    static = (TILED_PARTS * 4 + TILED_ROWS * 4 + threads * 16 * sums
+              + TILED_PARTS * TILED_ROWS * _WT_LD * 4 * sums)
     return {"rows": TILED_ROWS, "tiles": -(-rows // TILED_ROWS), "heads": num_heads,
             "threads": threads, "smem": smem, "static_smem": static,
             "fits": smem + static <= BLOCK_SMEM_MAX}

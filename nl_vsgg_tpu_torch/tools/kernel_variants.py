@@ -91,16 +91,17 @@ that leaves out work computes a wrong result and is timed only:
   row order made once, the committed kernel also on the per-element
   entries, then the wrappers (their row order included) and `row_order`
   alone:
-    tiled-stages-1       the ring one chunk deep
-    tiled-stages-3       the ring three chunks deep
-    tiled-no-load        the staged columns' copies zero-filled, not read
-    tiled-no-walk        the walks over the staged columns left out
+    tiled-stages-2       the ring two chunks deep (a chunk's copy in flight
+                         during a walk, fewer blocks an SM)
+    tiled-no-load        every window copy zero-filled, not read (the
+                         tile's rows and the staged columns)
+    tiled-no-walk        the products over the staged columns left out
     tiled-no-list        nothing listed (the mask read, rows loaded, zeros
                          stored)
-    tiled-fewer-blocks   2 forward and 1 backward blocks an SM asked of the
-                         compiler in place of 3 and 2
-    tiled-more-blocks    4 forward blocks an SM in place of 3
-    tiled-unroll-2       the backward walks unrolled by two columns
+    tiled-fewer-blocks   3 forward and 2 backward blocks an SM asked of the
+                         compiler in place of 5 and 3
+    tiled-1xtf32         one TF32 mma a product in place of three (its
+                         numbers keep about 3 digits: timed only)
 
 Each row prints device us (or ms) a call, two-point differenced with the
 card kept busy while the host queues the calls (`tools.timing`), beside
@@ -246,25 +247,23 @@ VARIANTS = {
                            "[&](int kj) { return (unsigned)(arow[kj] == 7); }")),
         "no-second-walk": _edits(("for (int pass = 0; pass < 2; ++pass)",
                                   "for (int pass = 0; pass < 1; ++pass)")),
-        "tiled-stages-1": _edits(("constexpr int TSTAGES = 2;", "constexpr int TSTAGES = 1;")),
-        "tiled-stages-3": _edits(("constexpr int TSTAGES = 2;", "constexpr int TSTAGES = 3;")),
-        "tiled-no-load": _edits(   # the staged columns' copies zero-filled, not read
+        "tiled-stages-2": _edits(("constexpr int TSTAGES = 1;", "constexpr int TSTAGES = 2;")),
+        "tiled-no-load": _edits(   # every window copy zero-filled, not read
             ("cp_async16(dst + j * ld + e, src + e, in);",
              "cp_async16(dst + j * ld + e, src + e, false);")),
-        "tiled-no-walk": _edits(   # the walks over the staged columns left out
-            ("      if (d < D) {\n#pragma unroll\n        for (int col = 0; col < TCK; ++col) {",
-             "      if (d < 0) {\n#pragma unroll\n        for (int col = 0; col < TCK; ++col) {"),
-            ("        if (d < D) {\n          const float y = vr[col * EW + d];",
-             "        if (d < 0) {\n          const float y = vr[col * EW + d];"),
-            ("    for (int col = 0; col < n; ++col) {", "    for (int col = 0; col < 0; ++col) {")),
+        "tiled-no-walk": _edits(   # the products over the staged columns left out
+            ("for (int ks = part; ks < KS; ks += TPARTS)",
+             "for (int ks = part; ks < 0; ks += TPARTS)"),
+            ("      if (nt >= KS) break;\n      const float2 bv",
+             "      if (nt >= 0) break;\n      const float2 bv"),
+            ("      if (nt >= KS) break;\n      const float2 b1",
+             "      if (nt >= 0) break;\n      const float2 b1")),
         "tiled-no-list": _edits(   # nothing listed: the mask read, the rows loaded and stored
             ("    if (rows[t] >= 0) bits |= (mb", "    if (rows[t] < -1) bits |= (mb")),
-        "tiled-fewer-blocks": _edits(("FWD_TILED_BLOCKS = 3;", "FWD_TILED_BLOCKS = 2;"),
-                                     ("BWD_TILED_BLOCKS = 2;", "BWD_TILED_BLOCKS = 1;")),
-        "tiled-more-blocks": _edits(("FWD_TILED_BLOCKS = 3;", "FWD_TILED_BLOCKS = 4;")),
-        "tiled-unroll-2": _edits(   # the backward walks two columns an iteration
-            ("    for (int col = 0; col < n; ++col) {",
-             "#pragma unroll 2\n    for (int col = 0; col < n; ++col) {")),
+        "tiled-fewer-blocks": _edits(("FWD_TILED_BLOCKS = 5;", "FWD_TILED_BLOCKS = 3;"),
+                                     ("BWD_TILED_BLOCKS = 3;", "BWD_TILED_BLOCKS = 2;")),
+        "tiled-1xtf32": _edits(   # one TF32 mma a product (about 3 digits): what 3x costs
+            ("  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", "")),
     },
 }
 # the attention kernels each masked_attention variant is timed on, and the
@@ -276,11 +275,10 @@ ATTENTION_KINDS = {"kernel": ("dq", "fwd", "dkv"), "no-kv-load": ("dq",),
                    "stages-3": ("fwd", "dkv"), "stages-4": ("fwd", "dkv"),
                    "heads-4": ("fwd", "dkv"), "parts-swap": ("fwd", "dkv"),
                    "no-walk": ("dq", "fwd", "dkv"), "no-mask": ("dq",), "no-list": ("fwd", "dkv"),
-                   "no-second-walk": ("dq",), "tiled-stages-1": ("tiled",),
-                   "tiled-stages-3": ("tiled",), "tiled-no-load": ("tiled",),
-                   "tiled-no-walk": ("tiled",), "tiled-no-list": ("tiled",),
-                   "tiled-fewer-blocks": ("tiled",), "tiled-more-blocks": ("tiled",),
-                   "tiled-unroll-2": ("tiled",)}
+                   "no-second-walk": ("dq",), "tiled-stages-2": ("tiled",),
+                   "tiled-no-load": ("tiled",), "tiled-no-walk": ("tiled",),
+                   "tiled-no-list": ("tiled",), "tiled-fewer-blocks": ("tiled",),
+                   "tiled-1xtf32": ("tiled",)}
 DQ_ROUTES = {"kernel": ("staged", "per-element"), "no-second-walk": ("per-element",)}
 ROI_MAP, ROIS_PER_FRAME, ROI_OUT = (32, 38, 64, 1024), 300, (14, 14)
 DQ_SHAPES = ((96, 96), (192, 192), (192, 192), (96, 192))   # (Lq, Lk), one train step

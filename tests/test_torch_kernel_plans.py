@@ -261,11 +261,15 @@ def test_tiled_constants_match_the_kernel():
     assert _cu_int(src, "TT") == ma.TILED_ROWS
     assert _cu_int(src, "TCK") == ma.TILED_CHUNK
     assert _cu_int(src, "TSTAGES") == ma.TILED_CHUNKS
-    assert _cu_int(src, "FWD_ROWS") == ma.TILED_WARP_ROWS["fwd"]
-    assert _cu_int(src, "BWD_ROWS") == ma.TILED_WARP_ROWS["bwd"]
+    assert _cu_int(src, "TPARTS") == ma.TILED_PARTS
+    assert _cu_int(src, "WT_LD") == ma._WT_LD
     assert _cu_int(src, "WARPS") == ma.TILED_MAX_HEADS
     assert _cu_int(src, "DMAX") == ma._MAX_HEAD_DIM
-    assert "return (D + 6) & ~3;" in src            # a staged row, as tiled_smem_bytes
+    # a staged row, as `tiled_row`: the widest window, 4 mod 8 floats
+    assert "return ((D + 6) & ~3) | 4;" in src
+    for D in (1, 64, 241, 242, 297, 298, 320):
+        w = ma.tiled_row(D)
+        assert w % 8 == 4 and w >= D + 3 and w >= ((D + 6) & ~3) >= w - 4
 
 
 def _kernel_refuses(src):
@@ -316,26 +320,29 @@ def test_tiled_rule_agrees_with_the_kernel(dtype, pad):
 @pytest.mark.parametrize("L", [1, 96, 97, 128, 256])
 @pytest.mark.parametrize("D", [64, 241, 297, 320])
 def test_tiled_plans_fit_and_cover(kind, L, D):
-    """Each tiled plan fits a block's shared memory at L in {1, 96, 97,
-    128, 256}, with room for its forward's (3) and backward's (2) resident
-    blocks an SM at the tracklet shapes, and its tiles take every place of
-    the row order exactly once, the last one short where 16 does not
-    divide L."""
+    """Each tiled plan (4 warps a block) fits a block's shared memory at L
+    in {1, 96, 97, 128, 256}, with room for the forward's 5 and the
+    backward's 3 resident blocks an SM at the tracklet shapes, and its
+    tiles take every place of the row order exactly once, the last one
+    short where 16 does not divide L."""
     for other in (1, 96, 97, 128, 256):
         lq, lk = (L, other) if kind != "dkv" else (other, L)
         p = ma.tiled_plan(kind, lq, lk, 8, D)
         assert p["fits"] and p["smem"] + p["static_smem"] <= ma.BLOCK_SMEM_MAX
-        assert p["threads"] == (128 if kind == "fwd" else 256)
+        assert p["threads"] == 128
         covered = [0] * L
         for t in range(p["tiles"]):
             for place in range(t * p["rows"], min(L, (t + 1) * p["rows"])):
                 covered[place] += 1
         assert covered == [1] * L
     p = ma.tiled_plan(kind, 128, 128, 8, 297)
-    blocks = 3 if kind == "fwd" else 2
+    blocks = 5 if kind == "fwd" else 3
     assert blocks * (p["smem"] + p["static_smem"] + BLOCK_RESERVED) <= SM_SHARED
-    ring = 2 * 8 * 300 * 4 * 2                       # 2 stages of 8 columns' two 300-float rows
-    assert p["smem"] == ring + 128 * 6 + (128 * 12 if kind == "dkv" else 0)
+    ring = 8 * 300 * 4 * 2            # 1 stage of 8 columns' two 300-float rows
+    tile = 16 * 300 * 4 * (1 if kind == "fwd" else 2)
+    assert p["smem"] == ring + tile + 128 * 6 + (128 * 12 if kind == "dkv" else 0)
+    sums = 1 if kind == "fwd" else 2
+    assert p["static_smem"] == 16 + 64 + sums * (128 * 16 + 4 * 16 * 12 * 4)
 
 
 def test_tiled_plans_refuse_an_overflowing_list():
