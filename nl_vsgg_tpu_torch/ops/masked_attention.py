@@ -379,7 +379,7 @@ def tiled_smem_bytes(columns: int, head_dim: int, kind: str) -> int:
     return rows * tiled_row(head_dim) * 4 + (columns * 12 if kind == "dkv" else 0) + columns * 6
 
 
-def tiled_plan(kind: str, lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
+def tiled_plan(kind: str, lq: int, lk: int, head_dim: int) -> dict:
     """A tiled launch of `kind` ("fwd", "dq" or "dkv"): one block of
     TILED_PARTS warps a (video, tile, head); tile t takes the rows at places
     [t * TILED_ROWS, (t + 1) * TILED_ROWS) of `row_order`'s order (query
@@ -393,9 +393,8 @@ def tiled_plan(kind: str, lq: int, lk: int, num_heads: int, head_dim: int) -> di
     smem = tiled_smem_bytes(cols, head_dim, kind)
     static = (TILED_PARTS * 4 + TILED_ROWS * 4 + threads * 16 * sums
               + TILED_PARTS * TILED_ROWS * _WT_LD * 4 * sums)
-    return {"rows": TILED_ROWS, "tiles": -(-rows // TILED_ROWS), "heads": num_heads,
-            "threads": threads, "smem": smem, "static_smem": static,
-            "fits": smem + static <= BLOCK_SMEM_MAX}
+    return {"rows": TILED_ROWS, "tiles": -(-rows // TILED_ROWS), "threads": threads,
+            "smem": smem, "static_smem": static, "fits": smem + static <= BLOCK_SMEM_MAX}
 
 
 def row_order(allow: torch.Tensor) -> torch.Tensor:
@@ -482,8 +481,8 @@ def dkv_plan(lq: int, lk: int, num_heads: int, head_dim: int) -> dict:
 
 
 def _tiled(kind, tensors) -> bool:
-    _, Lq, H, D = tensors[0].shape
-    return tiled_layout(tensors) and tiled_plan(kind, Lq, tensors[1].shape[1], H, D)["fits"]
+    _, Lq, _, D = tensors[0].shape
+    return tiled_layout(tensors) and tiled_plan(kind, Lq, tensors[1].shape[1], D)["fits"]
 
 
 def dq_route(q, k, v, g) -> str:

@@ -327,7 +327,7 @@ def test_tiled_plans_fit_and_cover(kind, L, D):
     short where 16 does not divide L."""
     for other in (1, 96, 97, 128, 256):
         lq, lk = (L, other) if kind != "dkv" else (other, L)
-        p = ma.tiled_plan(kind, lq, lk, 8, D)
+        p = ma.tiled_plan(kind, lq, lk, D)
         assert p["fits"] and p["smem"] + p["static_smem"] <= ma.BLOCK_SMEM_MAX
         assert p["threads"] == 128
         covered = [0] * L
@@ -335,7 +335,7 @@ def test_tiled_plans_fit_and_cover(kind, L, D):
             for place in range(t * p["rows"], min(L, (t + 1) * p["rows"])):
                 covered[place] += 1
         assert covered == [1] * L
-    p = ma.tiled_plan(kind, 128, 128, 8, 297)
+    p = ma.tiled_plan(kind, 128, 128, 297)
     blocks = 5 if kind == "fwd" else 3
     assert blocks * (p["smem"] + p["static_smem"] + BLOCK_RESERVED) <= SM_SHARED
     ring = 8 * 300 * 4 * 2            # 1 stage of 8 columns' two 300-float rows
@@ -346,10 +346,10 @@ def test_tiled_plans_fit_and_cover(kind, L, D):
 
 
 def test_tiled_plans_refuse_an_overflowing_list():
-    assert not ma.tiled_plan("fwd", 96, 65536, 8, 297)["fits"]
-    assert not ma.tiled_plan("dq", 96, 65536, 8, 297)["fits"]
-    assert not ma.tiled_plan("dkv", 16384, 96, 8, 297)["fits"]     # the per-query stats
-    assert ma.tiled_plan("dkv", 96, 16384, 8, 297)["fits"]         # key rows are tiles
+    assert not ma.tiled_plan("fwd", 96, 65536, 297)["fits"]
+    assert not ma.tiled_plan("dq", 96, 65536, 297)["fits"]
+    assert not ma.tiled_plan("dkv", 16384, 96, 297)["fits"]     # the per-query stats
+    assert ma.tiled_plan("dkv", 96, 16384, 297)["fits"]         # key rows are tiles
 
 
 def _tracklet_mask(rng, B, L, groups):
