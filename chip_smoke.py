@@ -100,7 +100,7 @@ Phases, in order; any failure exits non-zero before the result line:
      (`sgdet_assign`, `build_infer_entry`, one forward), each evaluator's
      R@K finite and in [0, 1]; `nms_mask` and `batched_nms_mask` keep the
      same boxes on the card as on the CPU; host and device ms per video,
-     the device scorer alone, the loop's `place_batch` times and fetch
+     the device scorer alone, the loop's `place_entries` times and fetch
      waits, the loop traced once more by `torch.profiler` (the card's busy
      time, kernels and copies, and idle share over the traced span) and the
      phase's wall time, beside the card's name and power limit;
@@ -136,7 +136,28 @@ Phases, in order; any failure exits non-zero before the result line:
      R@K finite and in [0, 1];
      `solve_lsap_auction` on the card against scipy on the tracker's
      non-degenerate cost matrices; the phase's wall time and the card;
- 13. the `kernels` JSON line, then the device JSON line, last; the line
+ 13. the data path at full width (`data_phases`): a synthetic Action
+     Genome split written to disk (128 videos x 32 frames, a person and 3
+     objects a frame, feat 2048: the 128-box / 96-relation bucket), read by
+     `AGTrain` / `AGTest`; the native grounding engine against the python
+     path on 8 videos in train and in test mode (every Entry field equal);
+     STTran sgdet at full width (bf16, seeded) trained for a cold epoch
+     (`ground_video` on 4 prefetch workers, `bucket_events`,
+     `place_entries` with a width-0 union, the train step, each batch
+     adopted by a `DeviceEntryStore`) and a warm epoch gathered from the
+     store, the launch counts set to 0 just before and read just after (4 +
+     4 + 4 a step), every video on the native engine, no truncation, every
+     loss finite and valid, walls, frames/s and host seconds printed; a
+     stored gather equal to `place_entries` over the same videos; the train
+     gradients of that grounded batch through the kernels against plain
+     attention (TRAIN_GRAD_TOL); each epoch again under the profiler for the
+     card's busy and idle share; live union features for 2 videos from phase
+     8's bf16 detector on 480x640 frames (RoIAlign and grouped-conv launches
+     equal to those the calls imply, the union cache's second call
+     extracting nothing) and a train step on them; `evaluate_epoch` through
+     the prefetcher on 64 test videos (promoted, score(20) equal to the
+     host's);
+ 14. the `kernels` JSON line, then the device JSON line, last; the line
      before them prints the card and the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
@@ -656,7 +677,8 @@ def roi_align_edge_checks(ra, g, dev) -> None:
 def detector_phases(dev, card) -> list[dict]:
     """Phases 7-9: the detector kernels against their plain versions, the
     detector path (fp32 kernel vs plain, bf16 serving), the kernels timed on
-    the path's own inputs. Returns the two `kernels` rows."""
+    the path's own inputs. Returns the bf16 detector (phase 13's union
+    features reuse it) and the two `kernels` rows."""
     import torch
     import torch.nn.functional as F
 
@@ -920,7 +942,7 @@ def detector_phases(dev, card) -> list[dict]:
         f"{ams:.4f} ms; card {card}")
     profile_table(lambda: det16.detect_video(videos[1]), per_video, "bf16 detect_video", n=1)
 
-    return [{
+    return det16, [{
         "name": "roi_align", "route": "cuda", "source": "nl_vsgg_tpu_torch/csrc/roi_align.cu",
         "replaces": "nl_vsgg_tpu/ops/pallas_roi_align.py:163",
         "launches": served["roi_align"], "max_abs_err": align_err, "ms": ams, "plain_ms": apl,
@@ -1339,15 +1361,15 @@ def eval_phases(dev, card, entries) -> None:
         return timed
 
     places = []
-    place = epoch_mod.place_batch
+    place = epoch_mod.place_entries
 
-    def timed_place(*a):
+    def timed_place(*a, **kw):
         t = time.perf_counter()
-        b = place(*a)
+        b = place(*a, **kw)
         places.append((time.perf_counter() - t) * 1e3)
         return b
 
-    epoch_mod._start_fetch, epoch_mod.place_batch = timed_fetch, timed_place
+    epoch_mod._start_fetch, epoch_mod.place_entries = timed_fetch, timed_place
     try:
         ma.reset_launches()
         t0 = time.perf_counter()
@@ -1355,7 +1377,7 @@ def eval_phases(dev, card, entries) -> None:
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
     finally:
-        epoch_mod._start_fetch, epoch_mod.place_batch = start_fetch, place
+        epoch_mod._start_fetch, epoch_mod.place_entries = start_fetch, place
     want = {"fwd": 4 * len(batches), "bwd_dq": 0, "bwd_dkv": 0}
     if dict(ma.LAUNCHES) != want:
         fail(f"evaluate_epoch launched {dict(ma.LAUNCHES)}, expected {want}")
@@ -1368,7 +1390,7 @@ def eval_phases(dev, card, entries) -> None:
     del placed
     log(f"evaluate_epoch: {len(entries)} videos in batches of {EVAL_BATCH}, promoted after "
         f"{promo.checked} host-checked videos, score(20) {promo.score(20):.6f} = host "
-        f"{ev.mean_score(20):.6f}; wall {epoch_s:.3f} s; place_batch (stacking and upload) "
+        f"{ev.mean_score(20):.6f}; wall {epoch_s:.3f} s; place_entries (stacking and upload) "
         f"{[round(t, 3) for t in places]} ms host wall; fetch waits in the loop "
         f"{[round(w, 3) for w in waits[:-1]]} ms, after the last batch {waits[-1]:.3f} ms, "
         f"against a {fwd16_ms:.3f} ms forward of {EVAL_BATCH} videos (CUDA events); "
@@ -2231,6 +2253,462 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
                           d297_train["bwd_dkv"])]
 
 
+# ------------------------------------------------------------- data engine
+AG_VIDEOS, AG_OBJS, AG_SEED = 128, 3, 4000  # bench_train_e2e's split (128 videos x 32
+# frames, a person and 3 objects a frame): it fills the 128-box / 96-relation bucket
+PARITY_VIDEOS = 8                # videos grounded by both paths, in train and in test mode
+UNION_VIDEOS, UNION_HW = 2, (480, 640)  # videos given frames for live union features
+EVAL_VIDEOS = 64                 # test videos in phase 13's evaluate_epoch
+TRUNK_CONVS, HEAD_CONVS = 45, 2  # grouped convs of a C4 pass / of a C5 head pass
+STORE_GB = 10.0                  # the device Entry store's budget
+
+
+def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n_objs: int,
+                       seed: int) -> str:
+    """An Action Genome split on disk in the reference's schema (the test
+    fixture's, tests/fixtures.build_micro_ag, plus the dets_f32.npy sidecars
+    the native engine reads): frame_features/{video}/{frame}/dets.npy,
+    dets_f32.npy and feat.npy; final_ag_data_w_neg.pkl, triplets_LLM4SGG.pkl,
+    ag_img_info_{train,test}.pkl; annotations/person_bbox.pkl and
+    object_bbox_and_relationship(_filtersmall).pkl, every frame of the test
+    set. Each frame: a person and `n_objs` objects of classes the OI -> AG
+    map sends to one AG class, each annotated with one relation of each
+    kind. Returns the AG directory."""
+    import pickle
+
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.data.grounding import DETS_F32, dets_to_f32
+
+    rng = np.random.default_rng(seed)
+    tax = schema.load_taxonomy()
+    oi_to_ag, ag_to_oi = schema.load_oi_ag_maps()
+    person_ids = list(ag_to_oi[1])
+    single = [(k, v[0]) for k, v in oi_to_ag.items()
+              if len(v) == 1 and k not in set(person_ids) and v[0] >= 2]
+    ag = os.path.join(root, "AG")
+    ann_dir = os.path.join(ag, "annotations")
+    os.makedirs(ann_dir, exist_ok=True)
+    pseudo, frame_lists, img_info, person_bbox, object_bbox = {}, {}, {}, {}, {}
+    for v in range(n_videos):
+        vid = f"vid{v:03d}.mp4"
+        frames = [f"{i:06d}.png" for i in range(n_frames)]
+        frame_lists[vid] = {"frame_list": frames}
+        img_info[vid] = [480.0, 640.0, 1.0]
+        video_gt = []
+        for i, fr in enumerate(frames):
+            fdir = os.path.join(ag, "frame_features", vid, fr)
+            os.makedirs(fdir)
+            person_rect = np.array([20 + i, 30, 120 + i, 260], np.float32)
+            dets = [{"class": person_ids[0], "conf": np.float32(0.95), "rect": person_rect}]
+            frame_gt = [{"person_bbox": person_rect[None]}]
+            objs = []
+            for j, p in enumerate(rng.choice(len(single), size=n_objs, replace=False)):
+                oi_cls, ag_cls = single[int(p)]
+                rect = np.array([40 + 50 * j, 60, 110 + 50 * j, 150], np.float32)
+                dets.append({"class": oi_cls, "conf": np.float32(0.7 + 0.1 * j), "rect": rect})
+                rels = {"attention_relationship": np.array([int(rng.integers(0, 3))]),
+                        "spatial_relationship": np.array([int(rng.integers(0, 6))]),
+                        "contacting_relationship": np.array([int(rng.integers(0, 17))])}
+                frame_gt.append(dict({"class": int(ag_cls), "bbox": rect}, **rels))
+                objs.append((ag_cls, rect, rels))
+            np.save(os.path.join(fdir, "dets.npy"), np.asarray(dets, object), allow_pickle=True)
+            np.save(os.path.join(fdir, DETS_F32), dets_to_f32(dets))
+            np.save(os.path.join(fdir, "feat.npy"),
+                    rng.standard_normal((len(dets), feat_dim), dtype=np.float32))
+            video_gt.append(frame_gt)
+            key = f"{vid}/{fr}"
+            person_bbox[key] = {"bbox": person_rect[None], "bbox_size": (640, 480)}
+            object_bbox[key] = [{
+                "class": tax.object_classes[cls],
+                "bbox": [float(r[0]), float(r[1]), float(r[2] - r[0]), float(r[3] - r[1])],
+                "visible": True, "metadata": {"set": "test"},
+                "attention_relationship": [tax.attention_relationships[
+                    int(rel["attention_relationship"][0])]],
+                "spatial_relationship": [tax.spatial_relationships[
+                    int(rel["spatial_relationship"][0])]],
+                "contacting_relationship": [tax.contacting_relationships[
+                    int(rel["contacting_relationship"][0])]],
+            } for cls, r, rel in objs]
+        pseudo[vid] = video_gt
+    for path, obj in ((os.path.join(ag, "final_ag_data_w_neg.pkl"), pseudo),
+                      (os.path.join(ag, "triplets_LLM4SGG.pkl"), frame_lists),
+                      (os.path.join(ag, "ag_img_info_train.pkl"), img_info),
+                      (os.path.join(ag, "ag_img_info_test.pkl"), img_info),
+                      (os.path.join(ann_dir, "person_bbox.pkl"), person_bbox),
+                      (os.path.join(ann_dir, "object_bbox_and_relationship_filtersmall.pkl"),
+                       object_bbox),
+                      (os.path.join(ann_dir, "object_bbox_and_relationship.pkl"), object_bbox)):
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+    return ag
+
+
+def same_entries(a, b) -> str | None:
+    """The first Entry field whose dtype, shape or bits differ, else None."""
+    import dataclasses
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype != y.dtype or x.shape != y.shape or not bool((x == y).all()):
+            return f.name
+    return None
+
+
+def data_phases(dev, card, det) -> None:
+    """Phase 13: the data path at full width. A synthetic Action Genome
+    split on disk (AG_VIDEOS videos x N_FRAMES frames, feat FEAT) grounded
+    by the native engine (equal to the python path on PARITY_VIDEOS videos
+    in train and in test mode), prefetched, bucketed, placed and trained
+    (STTran sgdet, bf16, full width) for a cold epoch that fills the device
+    Entry store and a warm epoch gathered from it; a stored gather against
+    `place_entries`, the train gradients of a grounded batch through the
+    kernels against plain attention, each epoch traced for the card's busy
+    share; live union features from `det` (phase 8's bf16 detector) with
+    the union cache, and a train step on them; `evaluate_epoch` on the test
+    split through the prefetcher."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from nl_vsgg_tpu_torch.data import grounding as gr
+    from nl_vsgg_tpu_torch.data.action_genome import AGTest, AGTrain
+    from nl_vsgg_tpu_torch.data.device_store import DeviceEntryStore
+    from nl_vsgg_tpu_torch.data.pipeline import (GroundingPrefetcher, TruncationCounter,
+                                                 bucket_events)
+    from nl_vsgg_tpu_torch.eval import epoch as epoch_mod
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, masked_attention as ma, roi_align as ra
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step, place_entries
+    from nl_vsgg_tpu_torch.utils import native_io
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase13_", dir=os.path.join(HERE, "build"))
+    nat_fn, py_fn = ts.wk_forward_native, ts.wk_forward
+    try:
+        t0 = time.perf_counter()
+        ag = write_synthetic_ag(root, AG_VIDEOS, N_FRAMES, FEAT, AG_OBJS, AG_SEED)
+        log(f"dataset: {AG_VIDEOS} videos x {N_FRAMES} frames (a person and {AG_OBJS} objects "
+            f"a frame, feat {FEAT}) written in {time.perf_counter() - t0:.3f} s")
+        cfg = load_config(None, {
+            "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
+            "feat_dim": FEAT, "dtype": "bfloat16", "batch_videos": B, "num_workers": 4,
+            "use_native_grounding": True, "use_native_io": True,
+            "device_spatial_masks": True, "entry_cache": os.path.join(root, "entry_cache"),
+            "device_entry_store_gb": STORE_GB,
+            "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES],
+                        "max_rels": [N_RELS]}})
+        ds = AGTrain(ag, remove_one_frame_video=False)
+        ds_test = AGTest(os.path.join(ag, "annotations"))
+        if len(ds) != AG_VIDEOS or len(ds_test) != AG_VIDEOS:
+            fail(f"AGTrain / AGTest read {len(ds)} / {len(ds_test)} videos of {AG_VIDEOS}")
+        if native_io.get_lib() is None:
+            fail("the native host library did not build")
+
+        # ---- the native engine against the python path ----
+        ms = {}
+        for is_train, split in ((True, ds), (False, ds_test)):
+            for path in ("native", "python"):
+                ms[path, is_train] = []
+            for i in range(-1, PARITY_VIDEOS):          # -1: an untimed warm-up
+                paths = [os.path.join(cfg.frame_features_path, f)
+                         for f in split.video_list[max(i, 0)]]
+                gt = split.gt_annotations[max(i, 0)]
+                t0 = time.perf_counter()
+                e_nat = gr.wk_forward_native(paths, gt, is_train, cfg.buckets.max_boxes,
+                                             cfg.buckets.max_rels, feat_dim=FEAT)
+                t1 = time.perf_counter()
+                e_py = gr.wk_forward(gr.load_frame_features(paths, use_native=False,
+                                                            feat_dim=FEAT),
+                                     gt, is_train, cfg.buckets.max_boxes, cfg.buckets.max_rels,
+                                     feat_dim=FEAT, compute_spatial_masks=False)
+                t2 = time.perf_counter()
+                if e_nat is gr._NATIVE_UNAVAILABLE or e_nat is None or e_py is None:
+                    fail(f"grounding video {i} (train {is_train}): native {e_nat}, python "
+                         f"{e_py}")
+                diff = same_entries(e_nat, e_py)
+                if diff is not None:
+                    fail(f"native and python grounding differ in {diff} (video {i}, train "
+                         f"{is_train})")
+                if i >= 0:
+                    ms["native", is_train].append((t1 - t0) * 1e3)
+                    ms["python", is_train].append((t2 - t1) * 1e3)
+        log(f"grounding, native = python on {PARITY_VIDEOS} videos in train and in test mode "
+            f"(every field, exact): ms/video (host clock, one thread, feature reads included) "
+            + ", ".join(f"{p} {'train' if t else 'test'} {np.mean(v):.3f}"
+                        for (p, t), v in ms.items()))
+
+        # ---- the composed loop: ground -> prefetch -> bucket -> place -> step ----
+        model = STTran(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3,
+                       dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0),
+                       device=dev)
+        st = create_train_state(model, lr=cfg.lr)
+        step = make_train_step(model, st.optimizer)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        nocache = cfg.replace(entry_cache="")
+        warm = place_entries([ts.ground_video(ds, 0, nocache, True, cfg.buckets)] * B,
+                             zero_union=True, rel_bf16=True, device=dev)
+        st, _ = step(st, warm, gen)                  # warm-up, outside the epochs
+        torch.cuda.synchronize()
+        del warm
+
+        lock = threading.Lock()
+        calls = {"native": 0, "python": 0}
+
+        def count_native(*a, **kw):
+            e = nat_fn(*a, **kw)
+            with lock:
+                calls["native"] += e is not gr._NATIVE_UNAVAILABLE
+            return e
+
+        def count_python(*a, **kw):
+            with lock:
+                calls["python"] += 1
+            return py_fn(*a, **kw)
+
+        ts.wk_forward_native, ts.wk_forward = count_native, count_python
+        store = DeviceEntryStore(budget_bytes=int(cfg.device_entry_store_gb * 1e9),
+                                 rel_bf16=True, device=dev)
+        trunc = TruncationCounter()
+        frames_of: dict[int, int] = {}
+        state = {"st": st}
+
+        def run_epoch(epoch: int, c, use_store: bool, fill: bool) -> dict:
+            host = {"ground": 0.0, "place": 0.0, "store": 0.0}
+            mets = []
+            order = np.random.default_rng(cfg.seed + epoch).permutation(len(ds)).tolist()
+            stored, misses = store.plan_batches(order, B) if use_store else ([], order)
+
+            def timed_ground(i):
+                t = time.perf_counter()
+                e = ts.ground_video(ds, int(i), c, True, c.buckets, on_truncate=trunc.add)
+                with lock:
+                    host["ground"] += time.perf_counter() - t
+                return e
+
+            n_frames = 0
+            t0 = time.perf_counter()
+            for idxs in stored:                       # the device store: indices only
+                t = time.perf_counter()
+                batch = store.gather(idxs)
+                host["store"] += time.perf_counter() - t
+                state["st"], m = step(state["st"], batch, gen)
+                mets.append(m)
+                n_frames += sum(frames_of[i] for i in idxs)
+            pre = GroundingPrefetcher(timed_ground, misses, num_workers=c.num_workers)
+            for kind, payload in bucket_events(iter(pre), B):
+                if kind == "skip":
+                    fail(f"video {payload} grounded to no relation")
+                t = time.perf_counter()
+                batch = place_entries([e for _, e in payload], zero_union=True, rel_bf16=True,
+                                      device=dev)
+                host["place"] += time.perf_counter() - t
+                state["st"], m = step(state["st"], batch, gen)
+                mets.append(m)
+                if fill and not store.overflow:
+                    t = time.perf_counter()
+                    store.add_batch([i for i, _ in payload], batch)
+                    host["store"] += time.perf_counter() - t
+                for i, e in payload:
+                    frames_of[i] = int(e.num_frames)
+                    n_frames += frames_of[i]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses = [float(m["total"]) for m in mets]
+            if not all(np.isfinite(losses)) or any(float(m["valid"]) != 1.0 for m in mets):
+                fail(f"epoch {epoch}: losses {losses}, valid "
+                     f"{[float(m['valid']) for m in mets]}")
+            return {"wall": wall, "frames": n_frames, "host": host, "steps": len(mets),
+                    "stored": len(stored), "losses": losses}
+
+        ma.reset_launches()
+        runs = [run_epoch(0, cfg, True, True), run_epoch(1, cfg, True, False)]
+        launched = dict(ma.LAUNCHES)
+        n_steps = sum(r["steps"] for r in runs)
+        want = {"fwd": 4 * n_steps, "bwd_dq": 4 * n_steps, "bwd_dkv": 4 * n_steps}
+        if launched != want:
+            fail(f"the two epochs' {n_steps} train steps launched {launched}, expected {want}")
+        if calls != {"native": AG_VIDEOS, "python": 0}:
+            fail(f"the cold epoch grounded {calls}: every video must take the native engine")
+        if runs[1]["stored"] * B != AG_VIDEOS or runs[1]["host"]["ground"] != 0.0:
+            fail(f"the warm epoch gathered {runs[1]['stored']} batches from the store")
+        dropped = trunc.take()
+        if dropped != (0, 0, 0):
+            fail(f"bucket truncation dropped (videos, boxes, relations) {dropped}")
+        for epoch, r in enumerate(runs):
+            h = r["host"]
+            log(f"epoch {epoch} ({'cold: ground, place, fill the store' if epoch == 0 else 'warm: gather from the store'}): "
+                f"{r['wall']:.3f} s wall, {r['frames'] / r['wall']:.1f} frames/s "
+                f"({r['frames']} frames, {r['steps']} steps of {B} videos); host s: ground "
+                f"{h['ground']:.3f} (summed over {cfg.num_workers} workers), place {h['place']:.3f}, "
+                f"store {h['store']:.3f}; losses {[round(x, 4) for x in r['losses']]}")
+        log(f"device store: {store.bytes} bytes for {AG_VIDEOS} videos "
+            f"({store.bytes / AG_VIDEOS / 1e6:.3f} MB a video, width-0 union, bf16 rel "
+            f"arrays); launches over both epochs {launched}; truncation 0; native engine on "
+            f"{calls['native']} of {AG_VIDEOS} videos, python path on 0")
+
+        # ---- a stored gather against place_entries over the same videos ----
+        idxs = np.random.default_rng(7).permutation(AG_VIDEOS)[:B].tolist()
+        cache = getattr(ds, "_entry_cache_train")
+        hits = cache.hits
+        t0 = time.perf_counter()
+        host_entries = [ts.ground_video(ds, i, cfg, True, cfg.buckets) for i in idxs]
+        hit_ms = (time.perf_counter() - t0) / B * 1e3
+        if cache.hits - hits != B:
+            fail(f"entry cache: {cache.hits - hits} hits of {B} warm loads")
+        gathered = store.gather(idxs)
+        diff = same_entries(gathered, place_entries(host_entries, zero_union=True,
+                                                    rel_bf16=True, device=dev))
+        if diff is not None:
+            fail(f"the stored gather differs from place_entries in {diff}")
+        log(f"store gather = place_entries over the same {B} videos (every field, dtype and "
+            f"bits); entry-cache hits {hit_ms:.3f} ms/video (host clock, one thread)")
+
+        # ---- train gradients of a grounded batch: kernels against plain attention ----
+        plain = STTran(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3,
+                       dtype=torch.bfloat16, fused=False, device=dev)
+        plain.load_state_dict(model.state_dict())
+        ma.reset_launches()
+        ker = train_grads(model, gathered, 7, dev)
+        torch.cuda.synchronize()
+        got = dict(ma.LAUNCHES)
+        ma.reset_launches()
+        pln = train_grads(plain, gathered, 7, dev)
+        if got != {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4} or any(ma.LAUNCHES.values()):
+            fail(f"grounded batch forward/backward launched {got} (kernel path) and "
+                 f"{dict(ma.LAUNCHES)} (plain path)")
+        worst, worst_name, floored = compare_grads(ker, pln, "grounded batch train gradients",
+                                                   TRAIN_GRAD_TOL["bfloat16"])
+        log(f"train grads on a grounded batch, kernel vs plain attention (bf16, dropout "
+            f"{RATE}): {len(pln)} tensors, worst ||dg||/||g|| {worst:.3e} at {worst_name} "
+            f"(tol {TRAIN_GRAD_TOL['bfloat16']}); {floored} denominators under the floor")
+        del ker, pln, plain, gathered, host_entries
+
+        # ---- each epoch again, traced: the card's busy share ----
+        ma.reset_launches()
+        traced = []
+        for epoch, c, use_store in ((2, nocache, False), (3, cfg, True)):
+            box = {}
+            tr = device_busy(lambda: box.update(run_epoch(epoch, c, use_store, False)),
+                             f"epoch {epoch}")
+            traced.append((box, tr))
+        n_steps = sum(b["steps"] for b, _ in traced)
+        want = {"fwd": 4 * n_steps, "bwd_dq": 4 * n_steps, "bwd_dkv": 4 * n_steps}
+        if dict(ma.LAUNCHES) != want or trunc.take() != (0, 0, 0):
+            fail(f"the traced epochs launched {dict(ma.LAUNCHES)}, expected {want}")
+        for (box, tr), kind in zip(traced, ("cold (grounded again, no entry cache)",
+                                            "warm (store)")):
+            if tr is not None:
+                log(f"epoch traced, {kind}: span {tr['span_ms']:.3f} ms ({box['wall']:.3f} s "
+                    f"inside), card busy {tr['busy_ms']:.3f} ms (kernels {tr['kernel_ms']:.3f}, "
+                    f"copies to the card {tr['htod_ms']:.3f}, to the host {tr['dtoh_ms']:.3f}), "
+                    f"idle share {1 - tr['busy_ms'] / tr['span_ms']:.4f}; card {card}")
+        st = state["st"]
+
+        # ---- live union features from phase 8's detector ----
+        urng = np.random.default_rng(AG_SEED + 1)
+        frames_u = {i: [urng.integers(0, 256, (*UNION_HW, 3), dtype=np.uint8)
+                        for _ in range(N_FRAMES)] for i in range(UNION_VIDEOS)}
+        base = ts.detector_union_provider(lambda: det, lambda _ds, i: frames_u.get(i))
+        ucalls = {"c4": 0, "fn": 0}
+
+        def provider(ds_, i):
+            ucalls["c4"] += 1
+            fn = base(ds_, i)
+
+            def counted(f, boxes):
+                ucalls["fn"] += 1
+                return fn(f, boxes)
+            return counted
+
+        cfg_u = nocache.replace(union_feat_cache=os.path.join(root, "union_cache"),
+                                union_feat_cache_dtype="float32", vinvl_dtype="bfloat16")
+
+        def ground_union():
+            ra.reset_launches()
+            gc.reset_launches()
+            t0 = time.perf_counter()
+            es = [ts.ground_video(ds, i, cfg_u, True, cfg.buckets, union_provider=provider)
+                  for i in range(UNION_VIDEOS)]
+            torch.cuda.synchronize()
+            return es, (time.perf_counter() - t0) / UNION_VIDEOS * 1e3, {
+                "roi_align": ra.LAUNCHES["roi_align"],
+                "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+
+        ues, union_ms, got = ground_union()
+        want = {"roi_align": ucalls["fn"],
+                "grouped_conv3x3": TRUNK_CONVS * ucalls["c4"] + HEAD_CONVS * ucalls["fn"]}
+        if got != want or ucalls != {"c4": UNION_VIDEOS, "fn": UNION_VIDEOS * N_FRAMES}:
+            fail(f"union features: launches {got}, expected {want} from the calls {ucalls}")
+        for e in ues:
+            uf = e.union_feat
+            live = uf[e.rel_mask].abs().amax(dim=(1, 2, 3))
+            if uf.shape != (N_RELS, 7, 7, FEAT) or not bool(uf.isfinite().all()) \
+                    or not bool((live > 0).all()):
+                fail(f"union features: shape {tuple(uf.shape)}, a relation row without "
+                     f"features or non-finite values")
+        counted = dict(ucalls)
+        ucalls.update(c4=0, fn=0)
+        again, hit_union_ms, got = ground_union()
+        if any(ucalls.values()) or any(got.values()) or any(
+                not torch.equal(a.union_feat, b.union_feat) for a, b in zip(ues, again)):
+            fail(f"union cache: the second call extracted ({ucalls}, launches {got}) or "
+                 f"differs")
+        ma.reset_launches()
+        st, m = step(st, place_entries(ues, zero_union=False, rel_bf16=True, device=dev), gen)
+        torch.cuda.synchronize()
+        if not np.isfinite(float(m["total"])) or float(m["valid"]) != 1.0 \
+                or dict(ma.LAUNCHES) != {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}:
+            fail(f"train step on union features: loss {float(m['total'])}, valid "
+                 f"{float(m['valid'])}, launches {dict(ma.LAUNCHES)}")
+        log(f"union features (bf16 detector of phase 8, {UNION_VIDEOS} videos of {N_FRAMES} "
+            f"frames {UNION_HW[0]}x{UNION_HW[1]}): {union_ms:.3f} ms/video grounding with the "
+            f"provider (host clock), calls {counted}, launches "
+            f"{want}; union cache hit {hit_union_ms:.3f} ms/video, no extraction; a train "
+            f"step on them (full-width union_feat): loss {float(m['total']):.4f}")
+        del ues, again
+
+        # ---- evaluate_epoch through the prefetcher on the test split ----
+        trunc_eval = TruncationCounter()
+
+        def get_entry(i):
+            return ts.ground_video(ds_test, int(i), cfg, False, cfg.buckets,
+                                   on_truncate=trunc_eval.add)
+
+        def batches():
+            return epoch_mod.grounded_batches(get_entry, ds_test.gt_annotations,
+                                              range(EVAL_VIDEOS), EVAL_BATCH, cfg.num_workers)
+
+        promo = epoch_mod.DeviceEvalPromotion(burnin=16, recheck_every=64)
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        epoch_mod.evaluate_epoch(model, batches(), promotion=promo, device=dev, zero_union=True)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        want = {"fwd": 4 * (-(-EVAL_VIDEOS // EVAL_BATCH)), "bwd_dq": 0, "bwd_dkv": 0}
+        if dict(ma.LAUNCHES) != want or trunc_eval.take() != (0, 0, 0):
+            fail(f"evaluate_epoch on grounded batches launched {dict(ma.LAUNCHES)}, expected "
+                 f"{want}")
+        host_ev = epoch_mod.evaluate_epoch(model, batches(), device=dev, zero_union=True)
+        diff = abs(promo.score(20) - host_ev.mean_score(20))
+        if not promo.promoted or diff > EVAL_ATOL:
+            fail(f"evaluate_epoch on grounded batches: promoted {promo.promoted}, score(20) "
+                 f"{promo.score(20)} against the host's {host_ev.mean_score(20)}")
+        log(recall_line(host_ev) + f"  (sgdet, {EVAL_VIDEOS} grounded test videos)")
+        log(f"evaluate_epoch through the prefetcher ({EVAL_VIDEOS} test videos, eval-mode "
+            f"grounding, batches of {EVAL_BATCH}): promoted after {promo.checked} videos, "
+            f"score(20) {promo.score(20):.6f} = host {host_ev.mean_score(20):.6f}; wall "
+            f"{eval_s:.3f} s (grounding and caching the split included)")
+    finally:
+        ts.wk_forward_native, ts.wk_forward = nat_fn, py_fn
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"data phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -2496,7 +2974,7 @@ def main() -> None:
     # ---- 7-9. the detector path ----
     del models, batches, batch, steps, st, step, records, captured
     torch.cuda.empty_cache()
-    det_rows = detector_phases(dev, card)
+    det16, det_rows = detector_phases(dev, card)
 
     # ---- 10. the probe path ----
     torch.cuda.empty_cache()
@@ -2510,7 +2988,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     dsg_rows = dsg_detr_phases(dev, card, entries)
 
-    # ---- 13. result lines ----
+    # ---- 13. the data path: Action Genome on disk -> grounding -> training ----
+    torch.cuda.empty_cache()
+    data_phases(dev, card, det16)
+    del det16
+
+    # ---- 14. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),

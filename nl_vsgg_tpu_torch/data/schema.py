@@ -1,10 +1,11 @@
-"""Action Genome label schema: class counts and the taxonomy.
+"""Action Genome label schema: class counts, the taxonomy and the
+OpenImages -> AG class maps.
 
-Own copy of nl_vsgg_tpu/data/schema.py's constants and `load_taxonomy`
-(the port imports nothing of the JAX package). It reads the same
-`assets/*.txt` files and applies the same name canonicalization
-(dataloader/wk_action_genome.py:25-87 of the reference). The 26 predicates
-split positionally: attention=[0:3], spatial=[3:9], contacting=[9:26].
+Own copy of nl_vsgg_tpu/data/schema.py (the port imports nothing of the
+JAX package). It reads the same `assets/*.txt` and `assets/*.npy` files and
+applies the same name canonicalization (dataloader/wk_action_genome.py:25-87
+of the reference). The 26 predicates split positionally: attention=[0:3],
+spatial=[3:9], contacting=[9:26].
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import functools
 import os
 from dataclasses import dataclass
+
+import numpy as np
 
 ASSETS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
 
@@ -93,3 +96,33 @@ def load_taxonomy(assets_dir: str | None = None) -> Taxonomy:
     return Taxonomy(fixed(raw_obj, _OBJ_DISPLAY_FIX), fixed(raw_obj, _OBJ_GT_FIX),
                     fixed(raw_obj, _OBJ_PIPELINE_FIX),
                     fixed(raw_rel, _REL_DISPLAY_FIX), fixed(raw_rel, _REL_GT_FIX))
+
+
+@functools.lru_cache(maxsize=4)
+def load_oi_ag_maps(assets_dir: str | None = None
+                    ) -> tuple[dict[int, list[int]], dict[int, list[int]]]:
+    """(oi_to_ag, ag_to_oi) class-id maps (lib/assign_pseudo_label.py:894-896)."""
+    d = assets_dir or ASSETS_DIR
+    oi_to_ag = np.load(os.path.join(d, "oi_to_ag_word_map_synset.npy"), allow_pickle=True).tolist()
+    ag_to_oi = np.load(os.path.join(d, "ag_to_oi_word_map_synset.npy"), allow_pickle=True).tolist()
+    return oi_to_ag, ag_to_oi
+
+
+@functools.lru_cache(maxsize=4)
+def oi_to_ag_matrix(assets_dir: str | None = None) -> np.ndarray:
+    """Dense (1595, 37) 0/1 form of the OI -> AG map. Row 1594 is aliased to
+    row 1593 (the reference's remap, lib/assign_pseudo_label.py:114-115)."""
+    oi_to_ag, _ = load_oi_ag_maps(assets_dir)
+    m = np.zeros((1595, NUM_OBJ_CLASSES), dtype=np.float32)
+    for oi_id, ag_ids in oi_to_ag.items():
+        for ag in ag_ids:
+            m[oi_id, ag] = 1.0
+    m[1594] = m[1593]
+    return m
+
+
+@functools.lru_cache(maxsize=4)
+def person_oi_ids(assets_dir: str | None = None) -> tuple[int, ...]:
+    """OpenImages class ids that map to AG 'person' (ag_to_oi[1])."""
+    _, ag_to_oi = load_oi_ag_maps(assets_dir)
+    return tuple(ag_to_oi[1])

@@ -2,24 +2,26 @@
 of the on-device R@K scorer (port of tools/train_STTran.py:304-497).
 
 `evaluate_epoch` scores same-bucket batches of (GT annotation, Entry): each
-batch is placed on the card (`serve.place_batch`), run through the eval
-step, and scored by the host evaluator and/or `eval/recall_device`. The loop
-is double-buffered: batch i's forward is queued before batch i-1 is scored
-on the host, so the card computes while the host scores.
+batch is placed on the card (`train.step.place_entries`), run through the
+eval step, and scored by the host evaluator and/or `eval/recall_device`.
+The loop is double-buffered: batch i's forward is queued before batch i-1
+is scored on the host, so the card computes while the host scores.
+`grounded_batches` makes such batches the way the training tool does: the
+test videos grounded on prefetch workers and grouped by bucket.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 
 from ..data.entry import Entry, to_numpy
 from ..data.grounding import entry_to_eval_pred
+from ..data.pipeline import GroundingPrefetcher, bucket_events
 from ..device import resolve_device
-from ..serve import place_batch
-from ..train.step import eval_step
+from ..train.step import eval_step, place_entries
 from .recall import SceneGraphEvaluator
 from .recall_device import device_eval_batch
 
@@ -145,12 +147,28 @@ def _start_fetch(out: dict, device: torch.device) -> Callable[[], dict]:
     return wait
 
 
+def grounded_batches(get_entry: Callable[[int], Entry | None], gt_annotations: Sequence,
+                     indices: Iterable[int], batch_videos: int, num_workers: int = 4
+                     ) -> Iterator[list[tuple[list, Entry | None]]]:
+    """`evaluate_epoch`'s input as the training tool builds it
+    (tools/train_STTran.py:400-509): `get_entry(i)` grounds test video i on
+    `num_workers` prefetch threads; Entries are grouped into same-bucket
+    batches of `batch_videos` (`bucket_events`); a video that grounds to
+    None comes as a batch of its own, as it arrives."""
+    prefetcher = GroundingPrefetcher(get_entry, list(indices), num_workers=num_workers)
+    for kind, payload in bucket_events(iter(prefetcher), batch_videos):
+        if kind == "skip":
+            yield [(gt_annotations[payload], None)]
+        else:
+            yield [(gt_annotations[i], e) for i, e in payload]
+
+
 def evaluate_epoch(model: torch.nn.Module,
                    batches: Iterable[Sequence[tuple[list, Entry | None]]],
                    evaluator: SceneGraphEvaluator | None = None,
                    device_recalls: list | None = None,
                    promotion: DeviceEvalPromotion | None = None,
-                   device=None) -> SceneGraphEvaluator:
+                   device=None, zero_union: bool = False) -> SceneGraphEvaluator:
     """Streaming evaluation (the reference's tools/train_STTran.py:210-232).
 
     `batches` yields lists of (gt_annotation, Entry) whose Entries share one
@@ -160,7 +178,9 @@ def evaluate_epoch(model: torch.nn.Module,
     `device_recalls` to also score every video with the on-device scorers;
     pass a `DeviceEvalPromotion` to let them replace the host evaluator
     after its burn-in. The host evaluator stays the reported source of
-    truth. `device=None` is the card; the model must live there."""
+    truth. `device=None` is the card; the model must live there.
+    `zero_union` places the batches with a width-0 union_feat, as the
+    training tool does when there is no union-feature provider."""
     device = resolve_device(device)
     if evaluator is None:
         evaluator = SceneGraphEvaluator(mode=getattr(model, "mode", "sgdet"))
@@ -224,7 +244,8 @@ def evaluate_epoch(model: torch.nn.Module,
         if not items:
             continue
         fetch = _start_fetch(pending[1], device) if pending else None
-        out = eval_step(model, place_batch([e for _, e in items], device, dtype))
+        out = eval_step(model, place_entries([e for _, e in items], zero_union=zero_union,
+                                             rel_bf16=dtype == torch.bfloat16, device=device))
         if pending:
             score(pending[0], fetch())
         pending = (items, out)

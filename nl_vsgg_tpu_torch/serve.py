@@ -1,9 +1,9 @@
 """Batch serving: Entries in, one JSON scene graph per video out.
 
 Port of tools/predict.py's serving core (`scene_graph_json` and the batch
-dispatch around the eval step). Getting real videos into Entries (cached
-detector features -> grounding) is the host data engine, not ported yet
-(ROADMAP Queue 1 item 8); callers build Entries themselves, e.g. with
+dispatch around the eval step). Real videos become Entries through the
+host data engine (cached detector features -> grounding,
+`tools.train_sttran.ground_video`); tests and smoke runs build them with
 `data.synthetic.make_synthetic_entry`.
 
 Scene graph layout:
@@ -24,9 +24,9 @@ import numpy as np
 import torch
 
 from .data import schema
-from .data.entry import Entry, stack_entries, to_numpy as _np
+from .data.entry import Entry, to_numpy as _np
 from .device import resolve_device
-from .train.step import eval_step
+from .train.step import eval_step, place_entries
 
 NEEDED = ("attention_distribution", "spatial_distribution", "contacting_distribution")
 
@@ -81,16 +81,15 @@ def scene_graph_json(video_id: str, entry: Entry, pred: dict, tax, topk: int) ->
 
 
 def place_batch(entries: Sequence[Entry], device: torch.device, dtype=None) -> Entry:
-    """Stack same-bucket Entries and move them to `device`. With a reduced
-    compute dtype, `union_feat` and `spatial_masks` are cast to it on the
-    device: only compute-dtype layers read them, so the cast is the model's
-    own and later reads move half the bytes. `features` stays float32 (the
-    object classifier reads it in float32)."""
-    b = stack_entries(list(entries)).to(device)
-    if dtype is not None:
-        b = b.replace(union_feat=b.union_feat.to(dtype),
-                      spatial_masks=b.spatial_masks.to(dtype))
-    return b
+    """Stack same-bucket Entries and move them to `device` for a model of
+    compute dtype `dtype` (None: float32; bfloat16): `place_entries` with
+    `union_feat` and `spatial_masks` cast to bfloat16 on the device. Only
+    compute-dtype layers read them, so the cast is the model's own and later
+    reads move half the bytes. `features` stays float32 (the object
+    classifier reads it in float32)."""
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype}: expected None, float32 or bfloat16")
+    return place_entries(list(entries), rel_bf16=dtype == torch.bfloat16, device=device)
 
 
 def predict(model: torch.nn.Module, entries: Sequence[Entry], batch: int,

@@ -17,7 +17,7 @@ adds 1 to `skipped`. Deciding it costs one host sync per step.
 Device rule: the step runs where the model is. The model is built on CUDA
 unless its caller asked for the CPU (`STTran(device="cpu")`); the batch and
 the generator must be on the model's device, so there is no silent CPU
-path.
+path. `place_entries` makes such a batch from host Entries.
 """
 
 from __future__ import annotations
@@ -28,14 +28,48 @@ from typing import Callable
 import torch
 
 from ..data.entry import Entry, stack_entries
+from ..device import resolve_device
 from ..models.layers import MaskedBatchNorm
 from ..models.losses import sttran_losses
 from .state import TrainState
 
-__all__ = ["eval_step", "make_train_step", "stack_entries"]
+__all__ = ["eval_step", "make_train_step", "place_entries", "stack_entries"]
 
 LOSS_KEYS = ("object_loss", "attention_relation_loss", "spatial_relation_loss",
              "contact_relation_loss", "total")
+
+
+def place_entries(entries: list[Entry], zero_union: bool = False, cast_bf16: bool = False,
+                  rel_bf16: bool = False, device=None) -> Entry:
+    """A batch on `device` (None: the card) from same-bucket host Entries
+    (nl_vsgg_tpu/train/step.py::place_entries).
+
+    Each field is stacked on the host and moved in one copy. `zero_union`
+    (no union-feature provider: union_feat is all zeros) ships a width-0
+    union_feat of shape (B, R, 7, 7, 0), which the models turn into the
+    union projection's exact bias broadcast (models/sttran.union_projection),
+    so the zeros, about 95% of an Entry's bytes at 96 x 7 x 7 x 2048, are
+    neither stacked nor copied. `rel_bf16` casts union_feat and
+    spatial_masks to bfloat16, the cast a bf16-compute model makes of them
+    itself (only bf16 layers read them), so the step's math is unchanged;
+    `cast_bf16` casts features too (serving a bf16 model). The casts run on
+    the device after the copy."""
+    device = resolve_device(device)
+    rel_bf16 = rel_bf16 or cast_bf16
+    big = torch.bfloat16 if rel_bf16 else torch.float32
+    placed = {}
+    for f in dataclasses.fields(Entry):
+        if f.name == "union_feat" and zero_union:
+            shape = (len(entries),) + tuple(entries[0].union_feat.shape[:-1]) + (0,)
+            placed[f.name] = torch.zeros(shape, dtype=big, device=device)
+            continue
+        v = torch.stack([getattr(e, f.name) for e in entries]).to(device)
+        if f.name in ("union_feat", "spatial_masks") and rel_bf16:
+            v = v.to(big)
+        elif f.name == "features" and cast_bf16:
+            v = v.to(torch.bfloat16)
+        placed[f.name] = v
+    return Entry(**placed)
 
 
 def eval_step(model: torch.nn.Module, batch: Entry) -> dict[str, torch.Tensor]:

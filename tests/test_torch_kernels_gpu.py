@@ -615,3 +615,68 @@ def test_dsg_detr_train_steps_on_gpu(gpu):
         out = sg(batch)
     assert dict(ma.LAUNCHES) == {"fwd": 7, "bwd_dq": 0, "bwd_dkv": 0}
     assert out["distribution"].isfinite().all()
+
+
+def test_device_store_gather_equals_place_entries_on_gpu(gpu):
+    """The Entry store on the card: batches adopted from place_entries
+    (width-0 union, bf16 relation arrays, as the train loop places them)
+    and gathered in another order equal place_entries over the same videos,
+    bit for bit."""
+    from nl_vsgg_tpu_torch.data.device_store import DeviceEntryStore
+    from nl_vsgg_tpu_torch.train.step import place_entries
+    rng = np.random.default_rng(12)
+    es = [make_synthetic_entry(rng, n_frames=8, objs_per_frame=3, bucket_boxes=32,
+                               bucket_rels=24, feat_dim=2048) for _ in range(6)]
+    store = DeviceEntryStore(rel_bf16=True)
+    for lo in (0, 3):
+        batch = place_entries(es[lo:lo + 3], zero_union=True, rel_bf16=True)
+        assert batch.features.is_cuda and store.add_batch(range(lo, lo + 3), batch)
+    idx = [5, 0, 3, 2]
+    got = store.gather(idx)
+    want = place_entries([es[i] for i in idx], zero_union=True, rel_bf16=True)
+    for f in ("boxes", "box_frame", "box_mask", "labels", "scores", "distribution", "features",
+              "pair_idx", "im_idx", "rel_mask", "union_feat", "spatial_masks", "attention_gt",
+              "spatial_gt", "contacting_gt", "num_frames"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a, b), f
+    assert store.bytes > 0 and store.gather([0, 99]) is None
+
+
+def test_native_grounding_equals_python_on_the_gpu_host(gpu, tmp_path):
+    """The native engine, built with the card machine's g++, grounds every
+    Entry field equal to the python path, in train and in test mode."""
+    from nl_vsgg_tpu_torch.data import grounding as gr
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.utils import native_io
+    assert native_io.get_lib() is not None
+    oi_to_ag, ag_to_oi = schema.load_oi_ag_maps()
+    person = sorted(ag_to_oi[1])
+    mapped = [k for k, v in oi_to_ag.items() if v and k not in set(person)]
+    rng = np.random.default_rng(13)
+    paths, gt = [], []
+    for f in range(6):
+        d = tmp_path / f"f{f}"
+        d.mkdir()
+        cls = [person[0]] + [int(c) for c in rng.choice(mapped, 5)]
+        dets = [{"class": c, "conf": np.float32(rng.random()),
+                 "rect": rng.uniform(0, 400, 4).astype(np.float32)} for c in cls]
+        np.save(d / "dets.npy", np.asarray(dets, object), allow_pickle=True)
+        np.save(d / gr.DETS_F32, gr.dets_to_f32(dets))
+        np.save(d / "feat.npy", rng.standard_normal((len(cls), 64)).astype(np.float32))
+        paths.append(str(d))
+        gt.append([{"person_bbox": np.zeros(4)}] + [
+            {"class": a, "attention_relationship": np.array([0]),
+             "spatial_relationship": np.array([1]), "contacting_relationship": np.array([2])}
+            for c in cls[1:] for a in oi_to_ag[c]])
+    for is_train in (True, False):
+        nat = gr.wk_forward_native(paths, gt, is_train, (32, 64), (32, 64), feat_dim=64)
+        py = gr.wk_forward(gr.load_frame_features(paths, use_native=False, feat_dim=64), gt,
+                           is_train, (32, 64), (32, 64), feat_dim=64,
+                           compute_spatial_masks=False)
+        assert nat is not None and nat is not gr._NATIVE_UNAVAILABLE
+        for f in ("boxes", "box_frame", "box_mask", "labels", "scores", "distribution",
+                  "features", "pair_idx", "im_idx", "rel_mask", "union_feat", "spatial_masks",
+                  "attention_gt", "spatial_gt", "contacting_gt", "num_frames"):
+            a, b = getattr(nat, f), getattr(py, f)
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f
