@@ -137,8 +137,9 @@ Phases, in order; any failure exits non-zero before the result line:
      `solve_lsap_auction` on the card against scipy on the tracker's
      non-degenerate cost matrices; the phase's wall time and the card;
  13. the data path at full width (`data_phases`): a synthetic Action
-     Genome split written to disk (128 videos x 32 frames, a person and 3
-     objects a frame, feat 2048: the 128-box / 96-relation bucket), read by
+     Genome split written to disk (128 videos x 32 frames, 36 detections a
+     frame: a person, 3 objects and 32 of classes outside Action Genome that
+     grounding drops; feat 2048: the 128-box / 96-relation bucket), read by
      `AGTrain` / `AGTest`; the native grounding engine against the python
      path on 8 videos in train and in test mode (every Entry field equal);
      STTran sgdet at full width (bf16, seeded) trained for a cold epoch
@@ -153,8 +154,9 @@ Phases, in order; any failure exits non-zero before the result line:
      attention (TRAIN_GRAD_TOL); each epoch again under the profiler for the
      card's busy and idle share; live union features for 2 videos from phase
      8's bf16 detector on 480x640 frames (RoIAlign and grouped-conv launches
-     equal to those the calls imply, the union cache's second call
-     extracting nothing) and a train step on them; `evaluate_epoch` through
+     equal to those the calls imply, the first call of each shape held
+     against its plain version on its own inputs, the union cache's second
+     call extracting nothing) and a train step on them; `evaluate_epoch` through
      the prefetcher on 64 test videos (promoted, score(20) equal to the
      host's);
  14. the `kernels` JSON line, then the device JSON line, last; the line
@@ -2256,6 +2258,9 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
 # ------------------------------------------------------------- data engine
 AG_VIDEOS, AG_OBJS, AG_SEED = 128, 3, 4000  # bench_train_e2e's split (128 videos x 32
 # frames, a person and 3 objects a frame): it fills the 128-box / 96-relation bucket
+AG_DETS = 36                     # detections a frame (VinVL gives 10-100; 36 is the fixed
+# count of bottom-up features): the person, the AG_OBJS objects and detections of
+# OpenImages classes outside Action Genome, which grounding reads and drops
 PARITY_VIDEOS = 8                # videos grounded by both paths, in train and in test mode
 UNION_VIDEOS, UNION_HW = 2, (480, 640)  # videos given frames for live union features
 EVAL_VIDEOS = 64                 # test videos in phase 13's evaluate_epoch
@@ -2264,16 +2269,18 @@ STORE_GB = 10.0                  # the device Entry store's budget
 
 
 def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n_objs: int,
-                       seed: int) -> str:
+                       n_dets: int, seed: int) -> str:
     """An Action Genome split on disk in the reference's schema (the test
     fixture's, tests/fixtures.build_micro_ag, plus the dets_f32.npy sidecars
     the native engine reads): frame_features/{video}/{frame}/dets.npy,
     dets_f32.npy and feat.npy; final_ag_data_w_neg.pkl, triplets_LLM4SGG.pkl,
     ag_img_info_{train,test}.pkl; annotations/person_bbox.pkl and
     object_bbox_and_relationship(_filtersmall).pkl, every frame of the test
-    set. Each frame: a person and `n_objs` objects of classes the OI -> AG
-    map sends to one AG class, each annotated with one relation of each
-    kind. Returns the AG directory."""
+    set. Each frame: `n_dets` detections in random order, a person, `n_objs`
+    objects of classes the OI -> AG map sends to one AG class, each
+    annotated with one relation of each kind, and the rest of classes the
+    map sends to no AG class (grounding drops them in train and test mode).
+    Returns the AG directory."""
     import pickle
 
     from nl_vsgg_tpu_torch.data import schema
@@ -2285,6 +2292,9 @@ def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n
     person_ids = list(ag_to_oi[1])
     single = [(k, v[0]) for k, v in oi_to_ag.items()
               if len(v) == 1 and k not in set(person_ids) and v[0] >= 2]
+    unmapped = np.array(sorted(k for k, v in oi_to_ag.items() if not v), np.int64)
+    n_other = n_dets - 1 - n_objs
+    pool = rng.standard_normal((4096, feat_dim), dtype=np.float32)  # the others' features
     ag = os.path.join(root, "AG")
     ann_dir = os.path.join(ag, "annotations")
     os.makedirs(ann_dir, exist_ok=True)
@@ -2311,10 +2321,19 @@ def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n
                         "contacting_relationship": np.array([int(rng.integers(0, 17))])}
                 frame_gt.append(dict({"class": int(ag_cls), "bbox": rect}, **rels))
                 objs.append((ag_cls, rect, rels))
+            xy = rng.uniform(0, (560, 400), (n_other, 2)).astype(np.float32)
+            wh = rng.uniform(16, 80, (n_other, 2)).astype(np.float32)
+            dets += [{"class": int(c), "conf": np.float32(q), "rect": r} for c, q, r in zip(
+                rng.choice(unmapped, n_other), rng.uniform(0.2, 0.9, n_other),
+                np.concatenate([xy, xy + wh], 1))]
+            o = int(rng.integers(0, len(pool) - n_other))
+            feat = np.concatenate([rng.standard_normal((1 + n_objs, feat_dim), dtype=np.float32),
+                                   pool[o:o + n_other]])
+            order = rng.permutation(n_dets)
+            dets = [dets[k] for k in order]
             np.save(os.path.join(fdir, "dets.npy"), np.asarray(dets, object), allow_pickle=True)
             np.save(os.path.join(fdir, DETS_F32), dets_to_f32(dets))
-            np.save(os.path.join(fdir, "feat.npy"),
-                    rng.standard_normal((len(dets), feat_dim), dtype=np.float32))
+            np.save(os.path.join(fdir, "feat.npy"), feat[order])
             video_gt.append(frame_gt)
             key = f"{vid}/{fr}"
             person_bbox[key] = {"bbox": person_rect[None], "bbox_size": (640, 480)}
@@ -2371,6 +2390,8 @@ def data_phases(dev, card, det) -> None:
 
     import torch
 
+    import nl_vsgg_tpu_torch.detector.resnet as dresnet
+    import nl_vsgg_tpu_torch.detector.roi_box as droi
     from nl_vsgg_tpu_torch.data import grounding as gr
     from nl_vsgg_tpu_torch.data.action_genome import AGTest, AGTrain
     from nl_vsgg_tpu_torch.data.device_store import DeviceEntryStore
@@ -2391,9 +2412,10 @@ def data_phases(dev, card, det) -> None:
     nat_fn, py_fn = ts.wk_forward_native, ts.wk_forward
     try:
         t0 = time.perf_counter()
-        ag = write_synthetic_ag(root, AG_VIDEOS, N_FRAMES, FEAT, AG_OBJS, AG_SEED)
-        log(f"dataset: {AG_VIDEOS} videos x {N_FRAMES} frames (a person and {AG_OBJS} objects "
-            f"a frame, feat {FEAT}) written in {time.perf_counter() - t0:.3f} s")
+        ag = write_synthetic_ag(root, AG_VIDEOS, N_FRAMES, FEAT, AG_OBJS, AG_DETS, AG_SEED)
+        log(f"dataset: {AG_VIDEOS} videos x {N_FRAMES} frames ({AG_DETS} detections a frame: a "
+            f"person, {AG_OBJS} objects and {AG_DETS - 1 - AG_OBJS} of classes outside Action "
+            f"Genome; feat {FEAT}) written in {time.perf_counter() - t0:.3f} s")
         cfg = load_config(None, {
             "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
             "feat_dim": FEAT, "dtype": "bfloat16", "batch_videos": B, "num_workers": 4,
@@ -2471,8 +2493,7 @@ def data_phases(dev, card, det) -> None:
             return py_fn(*a, **kw)
 
         ts.wk_forward_native, ts.wk_forward = count_native, count_python
-        store = DeviceEntryStore(budget_bytes=int(cfg.device_entry_store_gb * 1e9),
-                                 rel_bf16=True, device=dev)
+        store = DeviceEntryStore(budget_bytes=int(cfg.device_entry_store_gb * 1e9), device=dev)
         trunc = TruncationCounter()
         frames_of: dict[int, int] = {}
         state = {"st": st}
@@ -2639,7 +2660,44 @@ def data_phases(dev, card, det) -> None:
                 "roi_align": ra.LAUNCHES["roi_align"],
                 "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
 
-        ues, union_ms, got = ground_union()
+        # the first kernel call of each shape on this path (the C4 pass's
+        # three conv classes, the head's, one frame's RoIAlign), kept with
+        # its output for a check against the plain version
+        recorded = {}
+
+        def recorder(kind, fn):
+            def wrapped(*args, **kw):
+                out = fn(*args, **kw)
+                key = (kind,) + tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
+                if key not in recorded:
+                    recorded[key] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                                     kw, out.clone())
+                return out
+            return wrapped
+
+        ra_fn, gc_fn = droi.roi_align, dresnet.grouped_conv3x3
+        droi.roi_align = recorder("roi_align", ra_fn)
+        dresnet.grouped_conv3x3 = recorder("grouped_conv3x3", gc_fn)
+        try:
+            ues, union_ms, got = ground_union()
+        finally:
+            droi.roi_align, dresnet.grouped_conv3x3 = ra_fn, gc_fn
+        checked = []
+        for key, (args, kw, out) in recorded.items():
+            plain_fn = ra.roi_align_reference if key[0] == "roi_align" else \
+                gc.grouped_conv3x3_reference
+            ref = plain_fn(*args, **kw)
+            err, ok = det_kernel_err(out, ref)
+            checked.append(f"{key[0]} {key[1]} {str(out.dtype)[6:]}: max_abs_err {err:.3e}, "
+                           f"max |ref| {float(ref.float().abs().max()):.3e}")
+            if not ok:
+                fail(f"union path: {key[0]} at {key[1:]} disagrees with its plain version "
+                     f"(max_abs_err {err:.3e})")
+        if sorted(k[0] for k in recorded) != ["grouped_conv3x3"] * 4 + ["roi_align"]:
+            fail(f"union path: recorded kernel calls {sorted(recorded)}")
+        log(f"union path kernels vs plain on the path's own inputs (tol "
+            f"{KERNEL_TOL['torch.bfloat16']} in bf16): " + "; ".join(checked))
+        del recorded
         want = {"roi_align": ucalls["fn"],
                 "grouped_conv3x3": TRUNK_CONVS * ucalls["c4"] + HEAD_CONVS * ucalls["fn"]}
         if got != want or ucalls != {"c4": UNION_VIDEOS, "fn": UNION_VIDEOS * N_FRAMES}:

@@ -12,10 +12,10 @@ bit-identical to `place_entries` over the same videos.
 
 `budget_bytes` caps the store; past it `overflow` is set and callers stream
 the remaining videos as usual: the store is a cache tier, not a correctness
-dependency. `rel_bf16` / `feats_bf16` store union_feat + spatial_masks /
-features in bfloat16, the casts `place_entries(rel_bf16=True)` and a bf16
-upload of features make. The JAX package's sharded store (a mesh's data
-axis) is not ported.
+dependency. A batch keeps the dtypes `place_entries` gave it (bf16 relation
+arrays under `rel_bf16=True`). The JAX package's host fill (`add` + `seal`),
+its `feats_bf16` cast and its sharded store (a mesh's data axis) are not
+ported: the train loop fills the store with `add_batch` only.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
-from .entry import Entry, stack_entries
+from .entry import Entry
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(Entry))
 
@@ -37,20 +37,16 @@ def _bucket_key(shapes) -> tuple:
 class DeviceEntryStore:
     """Per-bucket stacked Entry batches resident on `device` (None: the card).
 
-    Fill it with `add_batch` (placed batches) or `add` + `seal` (host
-    Entries, uploaded at `seal`). `gather(indices)` returns a batched Entry
-    on the device; `plan_batches` groups an epoch's order into same-bucket
-    batches of stored videos and lists the misses."""
+    Fill it with `add_batch` (batches placed by `place_entries`).
+    `gather(indices)` returns a batched Entry on the device; `plan_batches`
+    groups an epoch's order into same-bucket batches of stored videos and
+    lists the misses."""
 
-    def __init__(self, budget_bytes: int | None = None, feats_bf16: bool = False,
-                 rel_bf16: bool = False, device=None):
+    def __init__(self, budget_bytes: int | None = None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.budget = budget_bytes
-        self.feats_bf16 = feats_bf16
-        self.rel_bf16 = rel_bf16
-        self._pending: dict[tuple, list[tuple[int, Entry]]] = {}
         # appended batches per bucket, concatenated once at the next gather
         self._chunks: dict[tuple, list[Entry]] = {}
         self._n: dict[tuple, int] = {}              # rows per bucket
@@ -58,71 +54,25 @@ class DeviceEntryStore:
         self._bytes = 0
         self.overflow = False
 
-    def _width(self, name: str, itemsize: int) -> int:
-        if name == "features" and self.feats_bf16:
-            return 2
-        if name in ("union_feat", "spatial_masks") and self.rel_bf16:
-            return 2
-        return itemsize
-
-    def _entry_bytes(self, e: Entry) -> int:
-        return sum(getattr(e, n).numel() * self._width(n, getattr(e, n).element_size())
-                   for n in _FIELDS)
-
-    def _within_budget(self, nbytes: int) -> bool:
+    def add_batch(self, video_indices, batch: Entry) -> bool:
+        """Adopt a batch already on the store's device (place_entries) as
+        store rows: no copy. Returns False, and stores nothing, on budget
+        overflow or when the batch lies elsewhere."""
+        if self.overflow or batch.box_mask.device != self.device:
+            return False
+        nbytes = sum(getattr(batch, n).numel() * getattr(batch, n).element_size()
+                     for n in _FIELDS)
         if self.budget is not None and self._bytes + nbytes > self.budget:
             self.overflow = True
             return False
         self._bytes += nbytes
-        return True
-
-    def add(self, video_idx: int, e: Entry) -> bool:
-        """Queue one host Entry (uploaded at `seal`). Returns False, and
-        stores nothing further, once the byte budget is exceeded."""
-        if self.overflow or not self._within_budget(self._entry_bytes(e)):
-            return False
-        key = _bucket_key(getattr(e, n).shape for n in _FIELDS)
-        self._pending.setdefault(key, []).append((int(video_idx), e))
-        return True
-
-    def _cast(self, b: Entry) -> Entry:
-        if self.feats_bf16:
-            b = b.replace(features=b.features.to(torch.bfloat16))
-        if self.rel_bf16:
-            b = b.replace(union_feat=b.union_feat.to(torch.bfloat16),
-                          spatial_masks=b.spatial_masks.to(torch.bfloat16))
-        return b
-
-    def _append(self, key: tuple, video_indices, batch: Entry) -> None:
+        key = _bucket_key(getattr(batch, n).shape[1:] for n in _FIELDS)
         offset = self._n.get(key, 0)
         self._chunks.setdefault(key, []).append(batch)
         self._n[key] = offset + len(video_indices)
         for r, vid in enumerate(video_indices):
             self._row_of[int(vid)] = (key, offset + r)
-
-    def add_batch(self, video_indices, batch: Entry) -> bool:
-        """Adopt a batch already on the store's device (place_entries) as
-        store rows: no copy, no seal needed. Returns False, and stores
-        nothing, on budget overflow or when the batch lies elsewhere."""
-        if self.overflow or batch.box_mask.device != self.device:
-            return False
-        if self.feats_bf16:
-            batch = batch.replace(features=batch.features.to(torch.bfloat16))
-        nbytes = sum(getattr(batch, n).numel() * getattr(batch, n).element_size()
-                     for n in _FIELDS)
-        if not self._within_budget(nbytes):
-            return False
-        self._append(_bucket_key(getattr(batch, n).shape[1:] for n in _FIELDS),
-                     list(video_indices), batch)
         return True
-
-    def seal(self) -> None:
-        """Stack the queued Entries per bucket and upload them, one copy a
-        field (a new chunk; chunks are concatenated at the next gather)."""
-        for key, items in self._pending.items():
-            host = self._cast(stack_entries([e for _, e in items]))
-            self._append(key, [v for v, _ in items], host.to(self.device))
-        self._pending.clear()
 
     def __contains__(self, video_idx: int) -> bool:
         return int(video_idx) in self._row_of
@@ -147,7 +97,7 @@ class DeviceEntryStore:
 
     def plan_batches(self, order, batch_size: int) -> tuple[list[list[int]], list[int]]:
         """Group `order` into same-bucket batches of stored videos (the
-        bucket_batches rule: a bucket's batch is emitted when full, the
+        bucket_events rule: a bucket's batch is emitted when full, the
         partial ones at the end). Returns (batches, misses); the caller
         streams the misses through ground -> place."""
         pending: dict[tuple, list[int]] = {}

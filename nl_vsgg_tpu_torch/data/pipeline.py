@@ -101,11 +101,10 @@ class GroundingPrefetcher:
 def bucket_events(pairs: Iterator[tuple[int, Entry | None]], batch_size: int
                   ) -> Iterator[tuple[str, int | list[tuple[int, Entry]]]]:
     """Shared bucket-batching event stream for (index, Entry|None) iterators
-    (one definition for the train-epoch eval, the serving CLI, and
-    bucket_batches): yields ("skip", index) for None entries and
-    ("batch", [(index, entry), ...]) whenever a same-shape bucket reaches
-    `batch_size`, flushing leftovers at the end — at most one pending batch
-    per bucket, so host memory stays bounded."""
+    (one definition for the train epoch and the epoch eval): yields ("skip",
+    index) for None entries and ("batch", [(index, entry), ...]) whenever a
+    same-shape bucket reaches `batch_size`, flushing leftovers at the end —
+    at most one pending batch per bucket, so host memory stays bounded."""
     pending: dict[tuple[int, int], list[tuple[int, Entry]]] = defaultdict(list)
     for i, e in pairs:
         if e is None:
@@ -117,30 +116,3 @@ def bucket_events(pairs: Iterator[tuple[int, Entry | None]], batch_size: int
             yield ("batch", pending.pop(key))
     for key in list(pending):
         yield ("batch", pending.pop(key))
-
-
-class DoubleBuffer:
-    """Hold ONE in-flight device batch so host post-processing overlaps
-    device compute: `push(x)` returns the previously pushed value (process it
-    AFTER dispatching the next batch), `flush()` returns the final pending
-    one. Shared by the epoch eval and the serving CLI."""
-
-    def __init__(self):
-        self._pending = None
-
-    def push(self, item):
-        prev, self._pending = self._pending, item
-        return prev
-
-    def flush(self):
-        prev, self._pending = self._pending, None
-        return prev
-
-
-def bucket_batches(entries: Iterator[tuple[int, Entry | None]],
-                   batch_size: int) -> Iterator[list[Entry]]:
-    """Group same-bucket Entries into batches of `batch_size`; flush leftovers
-    at the end (smaller final batches re-use the batch=1..N compiled steps)."""
-    for kind, payload in bucket_events(entries, batch_size):
-        if kind == "batch":
-            yield [e for _, e in payload]

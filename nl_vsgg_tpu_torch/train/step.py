@@ -39,8 +39,8 @@ LOSS_KEYS = ("object_loss", "attention_relation_loss", "spatial_relation_loss",
              "contact_relation_loss", "total")
 
 
-def place_entries(entries: list[Entry], zero_union: bool = False, cast_bf16: bool = False,
-                  rel_bf16: bool = False, device=None) -> Entry:
+def place_entries(entries: list[Entry], zero_union: bool = False, rel_bf16: bool = False,
+                  device=None) -> Entry:
     """A batch on `device` (None: the card) from same-bucket host Entries
     (nl_vsgg_tpu/train/step.py::place_entries).
 
@@ -51,11 +51,10 @@ def place_entries(entries: list[Entry], zero_union: bool = False, cast_bf16: boo
     so the zeros, about 95% of an Entry's bytes at 96 x 7 x 7 x 2048, are
     neither stacked nor copied. `rel_bf16` casts union_feat and
     spatial_masks to bfloat16, the cast a bf16-compute model makes of them
-    itself (only bf16 layers read them), so the step's math is unchanged;
-    `cast_bf16` casts features too (serving a bf16 model). The casts run on
-    the device after the copy."""
+    itself (only bf16 layers read them), so the step's math is unchanged.
+    The casts run on the device after the copy. (The JAX function's
+    `cast_bf16`, for the serving CLI, is not ported.)"""
     device = resolve_device(device)
-    rel_bf16 = rel_bf16 or cast_bf16
     big = torch.bfloat16 if rel_bf16 else torch.float32
     placed = {}
     for f in dataclasses.fields(Entry):
@@ -66,8 +65,6 @@ def place_entries(entries: list[Entry], zero_union: bool = False, cast_bf16: boo
         v = torch.stack([getattr(e, f.name) for e in entries]).to(device)
         if f.name in ("union_feat", "spatial_masks") and rel_bf16:
             v = v.to(big)
-        elif f.name == "features" and cast_bf16:
-            v = v.to(torch.bfloat16)
         placed[f.name] = v
     return Entry(**placed)
 

@@ -26,8 +26,7 @@ from nl_vsgg_tpu.utils.config import load_config as j_load_config
 from nl_vsgg_tpu_torch.data.device_store import DeviceEntryStore
 from nl_vsgg_tpu_torch.data.entry import Entry, empty_entry
 from nl_vsgg_tpu_torch.data.entry_cache import MISS, EntryCache, entry_cache_key
-from nl_vsgg_tpu_torch.data.pipeline import (DoubleBuffer, GroundingPrefetcher, TruncationCounter,
-                                             bucket_batches, bucket_events)
+from nl_vsgg_tpu_torch.data.pipeline import GroundingPrefetcher, TruncationCounter, bucket_events
 from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
 from nl_vsgg_tpu_torch.train.step import place_entries
 from nl_vsgg_tpu_torch.utils.config import Config, load_config
@@ -90,10 +89,8 @@ def test_bucket_events_match_jax():
                                      for i, e in pairs]), 2))
     assert [(k, p if k == "skip" else [i for i, _ in p]) for k, p in ours] == \
         [(k, p if k == "skip" else [i for i, _ in p]) for k, p in ref]
-    sizes = sorted((b[0].n_boxes, len(b)) for b in bucket_batches(iter(pairs), 2))
+    sizes = sorted((p[0][1].n_boxes, len(p)) for k, p in ours if k == "batch")
     assert sizes == [(8, 1), (8, 2), (8, 2), (16, 1), (16, 2)]
-    buf = DoubleBuffer()
-    assert buf.push(1) is None and buf.push(2) == 1 and buf.flush() == 2
 
 
 def test_truncation_counter_is_thread_safe():
@@ -227,7 +224,7 @@ def test_load_config_errors_match_jax(ov):
 
 # ----------------------------------------------------------- place_entries
 @pytest.mark.parametrize("kw", [{}, {"zero_union": True}, {"rel_bf16": True},
-                                {"zero_union": True, "rel_bf16": True}, {"cast_bf16": True}])
+                                {"zero_union": True, "rel_bf16": True}])
 def test_place_entries_matches_jax(kw):
     es = _entries(5, 3)
     ours = place_entries(es, device="cpu", **kw)
@@ -238,44 +235,42 @@ def test_place_entries_matches_jax(kw):
 
 
 # ------------------------------------------------------------ device store
+def _filled(es, chunks, **kw):
+    """A store filled as the train loop fills it: one placed batch a chunk
+    of consecutive videos (same bucket)."""
+    store = DeviceEntryStore(device="cpu")
+    for lo, hi in chunks:
+        assert store.add_batch(range(lo, hi), place_entries(es[lo:hi], device="cpu", **kw))
+    return store
+
+
+def assert_equal_batches(got: Entry, want: Entry) -> None:
+    for f in dataclasses.fields(Entry):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert a.dtype == b.dtype and torch.equal(a, b), f.name
+
+
 def test_store_gather_equals_place_entries():
     es = _entries(6, 6)
-    store = DeviceEntryStore(device="cpu")
-    for i, e in enumerate(es):
-        assert store.add(i, e)
-    store.seal()
+    store = _filled(es, [(0, 3), (3, 6)])
     idx = [4, 1, 5]
     assert_same_batch(store.gather(idx), j_place_entries([to_jax_entry(es[i]) for i in idx]))
-    got = store.gather(idx)
-    want = place_entries([es[i] for i in idx], device="cpu")
-    for f in dataclasses.fields(Entry):
-        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert_equal_batches(store.gather(idx), place_entries([es[i] for i in idx], device="cpu"))
 
 
-def test_store_zero_union_rel_bf16_and_feats_bf16():
-    es = [e.replace(union_feat=e.union_feat[..., :0]) for e in _entries(7, 4)]
-    store = DeviceEntryStore(rel_bf16=True, device="cpu")
-    for i, e in enumerate(es):
-        store.add(i, e)
-    store.seal()
+def test_store_keeps_zero_union_and_rel_bf16():
+    es = _entries(7, 4)
+    store = _filled(es, [(0, 2), (2, 4)], zero_union=True, rel_bf16=True)
     got = store.gather([2, 0])
-    want = place_entries([es[2], es[0]], rel_bf16=True, device="cpu")
-    for f in dataclasses.fields(Entry):
-        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert_equal_batches(got, place_entries([es[2], es[0]], zero_union=True, rel_bf16=True,
+                                            device="cpu"))
+    assert got.union_feat.shape == (2, 16, 7, 7, 0)
     assert got.union_feat.dtype == got.spatial_masks.dtype == torch.bfloat16
-    fs = DeviceEntryStore(feats_bf16=True, device="cpu")
-    assert fs.add_batch([0, 1], place_entries(es[:2], device="cpu"))
-    feats = fs.gather([0, 1]).features
-    assert feats.dtype == torch.bfloat16
-    assert torch.equal(feats, torch.stack([e.features for e in es[:2]]).to(torch.bfloat16))
 
 
 def test_store_refuses_mixed_buckets_and_unknown_videos():
     small, big = _entries(8, 3, 12, 8), _entries(9, 3, 24, 16)
-    store = DeviceEntryStore(device="cpu")
-    for i, e in enumerate(small + big):
-        store.add(i, e)
-    store.seal()
+    store = _filled(small + big, [(0, 3), (3, 6)])
     assert store.gather([0, 2]) is not None and store.gather([3, 5]) is not None
     assert store.gather([0, 3]) is None and store.gather([0, 99]) is None
     batches, misses = store.plan_batches([5, 0, 99, 3, 1, 4, 2], 2)
@@ -284,49 +279,35 @@ def test_store_refuses_mixed_buckets_and_unknown_videos():
 
 
 def test_store_budget_overflow():
-    es = _entries(10, 4)
-    per = DeviceEntryStore(device="cpu")._entry_bytes(es[0])
-    store = DeviceEntryStore(budget_bytes=int(per * 2.5), device="cpu")
-    assert store.add(0, es[0]) and store.add(1, es[1])
-    assert not store.add(2, es[2]) and store.overflow and not store.add(3, es[3])
-    store.seal()
-    assert store.bytes == 2 * per
-    assert store.gather([0, 1]) is not None and store.gather([0, 2]) is None
+    es = _entries(10, 6)
     b = place_entries(es[:2], device="cpu")
     nbytes = sum(t.numel() * t.element_size() for t in dataclasses.astuple(b))
-    capped = DeviceEntryStore(budget_bytes=int(nbytes * 1.5), device="cpu")
-    assert capped.add_batch([0, 1], b)
-    assert not capped.add_batch([2, 3], place_entries(es[2:], device="cpu"))
-    assert capped.overflow
+    store = DeviceEntryStore(budget_bytes=int(nbytes * 1.5), device="cpu")
+    assert store.add_batch([0, 1], b) and store.bytes == nbytes
+    assert not store.add_batch([2, 3], place_entries(es[2:4], device="cpu"))
+    assert store.overflow and not store.add_batch([4], place_entries(es[4:5], device="cpu"))
+    assert store.bytes == nbytes and 2 not in store and 4 not in store
+    assert store.gather([0, 1]) is not None and store.gather([0, 2]) is None
 
 
-def test_store_adopts_batches_and_seals_incrementally():
+def test_store_adopts_batches_across_chunks():
     es = _entries(11, 8)
     store = DeviceEntryStore(device="cpu")
     b0 = place_entries(es[:3], device="cpu")
     assert store.add_batch([0, 1, 2], b0)
     assert store.gather([2, 0]).features.data_ptr() != b0.features.data_ptr()
     assert store.add_batch([3, 4], place_entries(es[3:5], device="cpu"))
-    store.add(5, es[5])
-    store.seal()
-    store.add(6, es[6])
-    assert store.gather([6]) is None           # queued, not sealed yet
-    store.seal()
-    store.add(7, es[7])
-    store.seal()
+    assert store.gather([4, 1]) is not None          # chunks concatenated once
+    assert store.add_batch([5, 6, 7], place_entries(es[5:], device="cpu"))
     idx = [7, 4, 0, 6, 5]
     got = store.gather(idx)
-    want = place_entries([es[i] for i in idx], device="cpu")
-    for f in dataclasses.fields(Entry):
-        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert_equal_batches(got, place_entries([es[i] for i in idx], device="cpu"))
     # the JAX store gives the same batch for the same history
     from nl_vsgg_tpu.data.device_store import DeviceEntryStore as JStore
     js = JStore()
-    js.add_batch([0, 1, 2], j_place_entries([to_jax_entry(e) for e in es[:3]]))
-    js.add_batch([3, 4], j_place_entries([to_jax_entry(e) for e in es[3:5]]))
-    for i in (5, 6, 7):
-        js.add(i, to_jax_entry(es[i]))
-    js.seal()
+    for lo, hi in ((0, 3), (3, 5), (5, 8)):
+        js.add_batch(list(range(lo, hi)),
+                     j_place_entries([to_jax_entry(e) for e in es[lo:hi]]))
     assert_same_batch(got, js.gather(idx))
     assert js.plan_batches([7, 1, 3], 2) == store.plan_batches([7, 1, 3], 2)
     assert jnp.asarray(js.gather(idx).labels).shape == got.labels.shape

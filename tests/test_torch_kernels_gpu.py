@@ -627,7 +627,7 @@ def test_device_store_gather_equals_place_entries_on_gpu(gpu):
     rng = np.random.default_rng(12)
     es = [make_synthetic_entry(rng, n_frames=8, objs_per_frame=3, bucket_boxes=32,
                                bucket_rels=24, feat_dim=2048) for _ in range(6)]
-    store = DeviceEntryStore(rel_bf16=True)
+    store = DeviceEntryStore()
     for lo in (0, 3):
         batch = place_entries(es[lo:lo + 3], zero_union=True, rel_bf16=True)
         assert batch.features.is_cuda and store.add_batch(range(lo, lo + 3), batch)
