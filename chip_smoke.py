@@ -159,8 +159,25 @@ Phases, in order; any failure exits non-zero before the result line:
      call extracting nothing) and a train step on them; `evaluate_epoch` through
      the prefetcher on 64 test videos (promoted, score(20) equal to the
      host's);
- 14. the `kernels` JSON line, then the device JSON line, last; the line
-     before them prints the card and the script's total wall time.
+ 14. the entry points at full width on phase 13's dataset
+     (`entry_point_phases`): STTran sgdet (bf16, 1 + 3 layers, 8 heads,
+     embed 1936) trained by `tools.train_sttran.run_training` for 2 epochs
+     (cold, filling the device Entry store; warm, gathering), each evaluated
+     with the device-eval promotion and checkpointed (epoch walls, frames/s,
+     the PhaseTimer summary, store and checkpoint bytes, save ms, mean R@20
+     and lr printed; 4 + 4 + 4 launches a step, 4 an eval batch); a resume
+     (1 epoch, then a second run to 2) against that straight run
+     (parameters and AdamW moments equal, or within RESUME_REL); the test
+     CLI on its checkpoint (sgdet rows = a host evaluation of the same
+     weights; predcls and sgcls on 8 videos with phase 8's seeded detector
+     saved as a VinVL .pth, RoIAlign and grouped-conv launches counted and
+     the first call of each shape held against its plain version);
+     DSG-DETR trained 1 epoch and its sgcls test flow (6 tiled launches a
+     video at D = 297); `predict` = `serve.predict` (PREDICT_TOL); the
+     relation-checkpoint converter round trip, and a removed key refused;
+ 15. the `kernels` JSON line (each row with `launches_entry_points`, phase
+     14's launches), then the device JSON line, last; the line before them
+     prints the card and the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -1274,8 +1291,7 @@ def eval_phases(dev, card, entries) -> None:
     from nl_vsgg_tpu_torch.models.sttran import STTran
     from nl_vsgg_tpu_torch.ops import masked_attention as ma
     from nl_vsgg_tpu_torch.ops.nms import batched_nms_mask, nms_mask
-    from nl_vsgg_tpu_torch.serve import place_batch
-    from nl_vsgg_tpu_torch.train.step import eval_step
+    from nl_vsgg_tpu_torch.train.step import eval_step, place_entries
 
     t_phase = time.perf_counter()
     bf16 = torch.bfloat16
@@ -1286,7 +1302,7 @@ def eval_phases(dev, card, entries) -> None:
     one_fwd = {"fwd": 4, "bwd_dq": 0, "bwd_dkv": 0}
 
     # ---- the eval step, then both scorers on the same 64 videos ----
-    batch = place_batch(entries, dev, bf16)
+    batch = place_entries(entries, rel_bf16=True, device=dev)
     ma.reset_launches()
     out = eval_step(model, batch)
     torch.cuda.synchronize()
@@ -1350,7 +1366,7 @@ def eval_phases(dev, card, entries) -> None:
     batches = [list(zip(gts[s:s + EVAL_BATCH], entries[s:s + EVAL_BATCH]))
                for s in range(0, len(entries), EVAL_BATCH)]
     waits = []
-    start_fetch = epoch_mod._start_fetch
+    start_fetch = epoch_mod.start_fetch
 
     def timed_fetch(out, device):
         wait = start_fetch(out, device)
@@ -1371,7 +1387,7 @@ def eval_phases(dev, card, entries) -> None:
         places.append((time.perf_counter() - t) * 1e3)
         return b
 
-    epoch_mod._start_fetch, epoch_mod.place_entries = timed_fetch, timed_place
+    epoch_mod.start_fetch, epoch_mod.place_entries = timed_fetch, timed_place
     try:
         ma.reset_launches()
         t0 = time.perf_counter()
@@ -1379,7 +1395,7 @@ def eval_phases(dev, card, entries) -> None:
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
     finally:
-        epoch_mod._start_fetch, epoch_mod.place_entries = start_fetch, place
+        epoch_mod.start_fetch, epoch_mod.place_entries = start_fetch, place
     want = {"fwd": 4 * len(batches), "bwd_dq": 0, "bwd_dkv": 0}
     if dict(ma.LAUNCHES) != want:
         fail(f"evaluate_epoch launched {dict(ma.LAUNCHES)}, expected {want}")
@@ -1387,7 +1403,7 @@ def eval_phases(dev, card, entries) -> None:
     if not promo.promoted or diff > EVAL_ATOL:
         fail(f"evaluate_epoch: promoted {promo.promoted} (checked {promo.checked}), "
              f"score(20) {promo.score(20)} against the host's {ev.mean_score(20)}")
-    placed = place_batch(entries[:EVAL_BATCH], dev, bf16)
+    placed = place_entries(entries[:EVAL_BATCH], rel_bf16=True, device=dev)
     fwd16_ms = cuda_ms(lambda: eval_step(model, placed), iters=5)
     del placed
     log(f"evaluate_epoch: {len(entries)} videos in batches of {EVAL_BATCH}, promoted after "
@@ -1412,7 +1428,7 @@ def eval_phases(dev, card, entries) -> None:
     sg_model = STTran(mode="sgcls", generator=torch.Generator().manual_seed(1), **kw)
     sub, sub_gts = entries[:SGCLS_VIDEOS], gts[:SGCLS_VIDEOS]
     ma.reset_launches()
-    stage1 = to_numpy(eval_step(sg_model, place_batch(sub, dev, bf16))["distribution"])
+    stage1 = to_numpy(eval_step(sg_model, place_entries(sub, rel_bf16=True, device=dev))["distribution"])
     stage2_entries = []
     for i, e in enumerate(sub):
         nb = int(e.box_mask.sum())
@@ -1425,7 +1441,7 @@ def eval_phases(dev, card, entries) -> None:
         if e2 is None:
             fail(f"sgcls: video {i} has no person-object pair after assignment")
         stage2_entries.append(e2)
-    out2 = eval_step(sg_model, place_batch(stage2_entries, dev, bf16))
+    out2 = eval_step(sg_model, place_entries(stage2_entries, rel_bf16=True, device=dev))
     torch.cuda.synchronize()
     want = {"fwd": 8, "bwd_dq": 0, "bwd_dkv": 0}
     if dict(ma.LAUNCHES) != want:
@@ -1450,7 +1466,7 @@ def eval_phases(dev, card, entries) -> None:
     det_entries = [build_infer_entry(a, N_FRAMES, n_b, n_r, feat_dim=FEAT,
                                      compute_spatial_masks=False) for a in assigns]
     ma.reset_launches()
-    out3 = eval_step(model, place_batch(det_entries, dev, bf16))
+    out3 = eval_step(model, place_entries(det_entries, rel_bf16=True, device=dev))
     torch.cuda.synchronize()
     if dict(ma.LAUNCHES) != one_fwd:
         fail(f"the sgdet flow's forward launched {dict(ma.LAUNCHES)}, expected {one_fwd}")
@@ -1648,10 +1664,11 @@ def per_element_calls(ma, q, k, v, allow, s, rate, sd, gout=None, lse=None, r=No
 def launches_by_head_dim(ma, run) -> dict:
     """The kernel launches one `run()` makes, by the head dim of the call
     that made them: {D: {"fwd": n, "bwd_dq": n, "bwd_dkv": n}}, read from
-    LAUNCHES around each call of the three wrappers the autograd function
-    calls."""
+    LAUNCHES around each call of the forward launch (`_forward_cuda`, which
+    the autograd function and the no-grad path both reach) and of the two
+    backward wrappers."""
     counts = {}
-    names = {"masked_mha_forward": "fwd", "masked_mha_bwd_dq": "bwd_dq",
+    names = {"_forward_cuda": "fwd", "masked_mha_bwd_dq": "bwd_dq",
              "masked_mha_bwd_dkv": "bwd_dkv"}
     orig = {n: getattr(ma, n) for n in names}
 
@@ -1918,15 +1935,15 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
     from nl_vsgg_tpu_torch.models.track import sgcls_group_ids
     from nl_vsgg_tpu_torch.ops import masked_attention as ma
     from nl_vsgg_tpu_torch.ops.boxes import center_size
-    from nl_vsgg_tpu_torch.serve import place_batch, predict
+    from nl_vsgg_tpu_torch.serve import predict
     from nl_vsgg_tpu_torch.train.state import create_train_state
-    from nl_vsgg_tpu_torch.train.step import eval_step, make_train_step
+    from nl_vsgg_tpu_torch.train.step import eval_step, make_train_step, place_entries
 
     t_phase = time.perf_counter()
     bf16 = torch.bfloat16
     dtypes = {"float32": None, "bfloat16": bf16}
     sets = {"a": entries, "b": tracklet_entries(entries, np.random.default_rng(4000))}
-    batches = {(n, d): place_batch(es, dev, dt) for n, es in sets.items()
+    batches = {(n, d): place_entries(es, rel_bf16=dt == bf16, device=dev) for n, es in sets.items()
                for d, dt in dtypes.items()}
     for n in sets:
         local, glob = dsg_masks(batches[n, "bfloat16"])
@@ -2144,7 +2161,7 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
     ev = SceneGraphEvaluator("sgdet")
     ma.reset_launches()
     for items in ebatches:
-        out = eval_step(model, place_batch([e for _, e in items], dev, bf16))
+        out = eval_step(model, place_entries([e for _, e in items], rel_bf16=True, device=dev))
         host_out = {k: to_numpy(out[k]) for k in epoch_mod.EVAL_KEYS}
         for i, (gt, e) in enumerate(items):
             ev.evaluate_scene_graph(gt, entry_to_eval_pred(e, {k: v[i]
@@ -2203,7 +2220,7 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
     hooks = [oc.register_forward_pre_hook(enc_before), oc.register_forward_hook(enc_after)]
     ma.reset_launches()
     with torch.inference_mode():
-        stage1 = to_numpy(sg[True](place_batch(sub, dev, bf16), group_id=gid)["distribution"])
+        stage1 = to_numpy(sg[True](place_entries(sub, rel_bf16=True, device=dev), group_id=gid)["distribution"])
     stage2_entries = []
     for i, e in enumerate(sub):
         nb = int(e.box_mask.sum())
@@ -2217,7 +2234,7 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
             fail(f"DSG-DETR sgcls: video {i} has no person-object pair after assignment")
         stage2_entries.append(e2)
     with torch.inference_mode():
-        out2 = sg[True](place_batch(stage2_entries, dev, bf16), group_id=gid)
+        out2 = sg[True](place_entries(stage2_entries, rel_bf16=True, device=dev), group_id=gid)
     torch.cuda.synchronize()
     sg_launches = dict(ma.LAUNCHES)
     for h in hooks:
@@ -2372,7 +2389,57 @@ def same_entries(a, b) -> str | None:
     return None
 
 
-def data_phases(dev, card, det) -> None:
+def record_detector_kernels(run):
+    """(run(), recorded): `run` with the detector's RoIAlign and grouped-conv
+    calls recorded, the first call of each (kernel, input shapes) kept with
+    its inputs and output for `check_recorded`."""
+    import torch
+
+    import nl_vsgg_tpu_torch.detector.resnet as dresnet
+    import nl_vsgg_tpu_torch.detector.roi_box as droi
+
+    recorded = {}
+
+    def recorder(kind, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            key = (kind,) + tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
+            if key not in recorded:
+                recorded[key] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                                 kw, out.clone())
+            return out
+        return wrapped
+
+    ra_fn, gc_fn = droi.roi_align, dresnet.grouped_conv3x3
+    droi.roi_align = recorder("roi_align", ra_fn)
+    dresnet.grouped_conv3x3 = recorder("grouped_conv3x3", gc_fn)
+    try:
+        return run(), recorded
+    finally:
+        droi.roi_align, dresnet.grouped_conv3x3 = ra_fn, gc_fn
+
+
+def check_recorded(recorded, what: str) -> list[str]:
+    """Each call `record_detector_kernels` kept against its plain version on
+    the same inputs (det_kernel_err); fails on a disagreement. Returns one
+    line a call."""
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, roi_align as ra
+
+    checked = []
+    for key, (args, kw, out) in recorded.items():
+        plain_fn = ra.roi_align_reference if key[0] == "roi_align" else \
+            gc.grouped_conv3x3_reference
+        ref = plain_fn(*args, **kw)
+        err, ok = det_kernel_err(out, ref)
+        checked.append(f"{key[0]} {key[1]} {str(out.dtype)[6:]}: max_abs_err {err:.3e}, "
+                       f"max |ref| {float(ref.float().abs().max()):.3e}")
+        if not ok:
+            fail(f"{what}: {key[0]} at {key[1:]} disagrees with its plain version "
+                 f"(max_abs_err {err:.3e})")
+    return checked
+
+
+def data_phases(dev, card, det, then=None) -> None:
     """Phase 13: the data path at full width. A synthetic Action Genome
     split on disk (AG_VIDEOS videos x N_FRAMES frames, feat FEAT) grounded
     by the native engine (equal to the python path on PARITY_VIDEOS videos
@@ -2383,15 +2450,14 @@ def data_phases(dev, card, det) -> None:
     kernels against plain attention, each epoch traced for the card's busy
     share; live union features from `det` (phase 8's bf16 detector) with
     the union cache, and a train step on them; `evaluate_epoch` on the test
-    split through the prefetcher."""
+    split through the prefetcher. `then(ag, root)` (phase 14) runs on the
+    same dataset before it is removed."""
     import shutil
     import tempfile
     import threading
 
     import torch
 
-    import nl_vsgg_tpu_torch.detector.resnet as dresnet
-    import nl_vsgg_tpu_torch.detector.roi_box as droi
     from nl_vsgg_tpu_torch.data import grounding as gr
     from nl_vsgg_tpu_torch.data.action_genome import AGTest, AGTrain
     from nl_vsgg_tpu_torch.data.device_store import DeviceEntryStore
@@ -2661,42 +2727,14 @@ def data_phases(dev, card, det) -> None:
                 "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
 
         # the first kernel call of each shape on this path (the C4 pass's
-        # three conv classes, the head's, one frame's RoIAlign), kept with
-        # its output for a check against the plain version
-        recorded = {}
-
-        def recorder(kind, fn):
-            def wrapped(*args, **kw):
-                out = fn(*args, **kw)
-                key = (kind,) + tuple(tuple(a.shape) for a in args if torch.is_tensor(a))
-                if key not in recorded:
-                    recorded[key] = ([a.clone() if torch.is_tensor(a) else a for a in args],
-                                     kw, out.clone())
-                return out
-            return wrapped
-
-        ra_fn, gc_fn = droi.roi_align, dresnet.grouped_conv3x3
-        droi.roi_align = recorder("roi_align", ra_fn)
-        dresnet.grouped_conv3x3 = recorder("grouped_conv3x3", gc_fn)
-        try:
-            ues, union_ms, got = ground_union()
-        finally:
-            droi.roi_align, dresnet.grouped_conv3x3 = ra_fn, gc_fn
-        checked = []
-        for key, (args, kw, out) in recorded.items():
-            plain_fn = ra.roi_align_reference if key[0] == "roi_align" else \
-                gc.grouped_conv3x3_reference
-            ref = plain_fn(*args, **kw)
-            err, ok = det_kernel_err(out, ref)
-            checked.append(f"{key[0]} {key[1]} {str(out.dtype)[6:]}: max_abs_err {err:.3e}, "
-                           f"max |ref| {float(ref.float().abs().max()):.3e}")
-            if not ok:
-                fail(f"union path: {key[0]} at {key[1:]} disagrees with its plain version "
-                     f"(max_abs_err {err:.3e})")
+        # three conv classes, the head's, one frame's RoIAlign), held against
+        # the plain version
+        (ues, union_ms, got), recorded = record_detector_kernels(ground_union)
         if sorted(k[0] for k in recorded) != ["grouped_conv3x3"] * 4 + ["roi_align"]:
             fail(f"union path: recorded kernel calls {sorted(recorded)}")
         log(f"union path kernels vs plain on the path's own inputs (tol "
-            f"{KERNEL_TOL['torch.bfloat16']} in bf16): " + "; ".join(checked))
+            f"{KERNEL_TOL['torch.bfloat16']} in bf16): "
+            + "; ".join(check_recorded(recorded, "union path")))
         del recorded
         want = {"roi_align": ucalls["fn"],
                 "grouped_conv3x3": TRUNK_CONVS * ucalls["c4"] + HEAD_CONVS * ucalls["fn"]}
@@ -2761,10 +2799,473 @@ def data_phases(dev, card, det) -> None:
             f"grounding, batches of {EVAL_BATCH}): promoted after {promo.checked} videos, "
             f"score(20) {promo.score(20):.6f} = host {host_ev.mean_score(20):.6f}; wall "
             f"{eval_s:.3f} s (grounding and caching the split included)")
+        ts.wk_forward_native, ts.wk_forward = nat_fn, py_fn
+        log(f"data phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+        if then is not None:
+            state.clear()
+            del model, st, step, store
+            torch.cuda.empty_cache()
+            then(ag, root)
     finally:
         ts.wk_forward_native, ts.wk_forward = nat_fn, py_fn
         shutil.rmtree(root, ignore_errors=True)
-    log(f"data phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+
+
+# ------------------------------------------------------------- entry points
+P14_GT_VIDEOS = 8                # test videos of the predcls / sgcls CLI runs
+PREDICT_BATCH = 16               # predict's --batch
+PREDICT_TOL = 1e-3               # predict (features uploaded bf16) against serve.predict
+# a resumed run's final tensors against a straight run's, when not equal: the
+# card may sum in another order (the embedding-gather backward's atomics), and
+# 4 AdamW steps carry that into the moments -> 1e-3 of each tensor's largest
+# magnitude
+RESUME_REL = 1e-3
+ROWS_ATOL = 1e-6             # R@K rows of two host evaluations of the same weights
+
+
+def sorted_rows(ev) -> dict:
+    """A host evaluator's R@K rows by (sink, K), sorted: the prefetch
+    workers score videos in completion order."""
+    return {(name, k): np.sort(np.asarray(getattr(ev, name)[k], np.float64))
+            for name in ("recall", "recall_nogc", "semi_recall") for k in (10, 20, 50)}
+
+
+def same_rows(a, b, what: str) -> float:
+    """The largest difference of two evaluators' sorted rows; fails past
+    ROWS_ATOL or on another row count."""
+    ra, rb = sorted_rows(a), sorted_rows(b)
+    worst = 0.0
+    for key in ra:
+        if ra[key].shape != rb[key].shape:
+            fail(f"{what}: {key} has {len(ra[key])} rows against {len(rb[key])}")
+        worst = max(worst, float(np.abs(ra[key] - rb[key]).max(initial=0.0)))
+    if worst > ROWS_ATOL:
+        fail(f"{what}: R@K rows differ by {worst:.3e} > {ROWS_ATOL}")
+    return worst
+
+
+def tensors_apart(a: dict, b: dict, what: str) -> str:
+    """'equal', or the largest difference relative to each tensor's
+    largest magnitude (fails past RESUME_REL)."""
+    worst, where = 0.0, ""
+    for k, v in b.items():
+        w = a[k]
+        if torch_equal(w, v):
+            continue
+        rel = float((w.double() - v.double()).abs().max()) / max(float(v.double().abs().max()),
+                                                                 1e-30)
+        if rel > worst:
+            worst, where = rel, k
+    if worst > RESUME_REL:
+        fail(f"{what}: {where} differs by {worst:.3e} of its largest magnitude > {RESUME_REL}")
+    return "equal" if worst == 0.0 else f"largest difference {worst:.3e} at {where}"
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def entry_point_phases(dev, card, ag: str, root: str) -> dict:
+    """Phase 14: the entry points at full width on phase 13's synthetic
+    Action Genome. STTran sgdet (bf16, 1 + 3 layers, embed 1936) trained by
+    `run_training` for 2 epochs (cold, filling the device Entry store; warm,
+    gathering), each evaluated with the device-eval promotion and
+    checkpointed; a resume (1 epoch, then a second run to 2) against that
+    straight run; `test_sttran` on its checkpoint (sgdet: rows equal to a
+    host evaluation of the same weights; predcls and sgcls on
+    P14_GT_VIDEOS videos with phase 8's seeded detector saved as a VinVL
+    .pth, frames from an injected reader); DSG-DETR trained 1 epoch and its
+    sgcls test flow with tracker ids; `predict` against `serve.predict`;
+    the relation-checkpoint converter. Returns the phase's launch counts by
+    `kernels` row name."""
+    import dataclasses
+    import json
+    import logging
+    import types
+
+    import torch
+
+    import nl_vsgg_tpu_torch.detector.attr_rcnn as attr
+    from nl_vsgg_tpu_torch import serve
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.data.action_genome import AGTest
+    from nl_vsgg_tpu_torch.detector.convert import to_maskrcnn_state_dict
+    from nl_vsgg_tpu_torch.eval import epoch as epoch_mod
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, masked_attention as ma, roi_align as ra
+    from nl_vsgg_tpu_torch.tools import convert_relation_ckpt as conv
+    from nl_vsgg_tpu_torch.tools import predict, test_dsg_detr, test_sttran, train_dsg_detr
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.utils.checkpoint import STATE_FILE, load_meta, load_state
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    ff = os.path.join(ag, "frame_features")
+    base = {
+        "data_path": ag, "frame_features_path": ff,
+        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+        "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": "bfloat16",
+        "batch_videos": B, "num_workers": 4, "remove_one_frame_video": False,
+        "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
+        "device_entry_store_gb": STORE_GB, "device_eval_promote": True, "nepoch": 2,
+        "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}}
+    args = types.SimpleNamespace(max_videos=0, device=None)
+    ds_test = AGTest(os.path.join(ag, "annotations"))
+    n_eval_batches = -(-len(ds_test) // B)
+    counts = {}
+
+    def add(name, n):
+        counts[name] = counts.get(name, 0) + n
+
+    # the loop instrumented from outside: the train step's readiness, each
+    # epoch eval, each checkpoint save, the Entry store
+    marks = {"ready": [], "evals": [], "saves": [], "stores": []}
+    real = {n: getattr(ts, n) for n in ("make_train_step", "evaluate_epoch", "save_checkpoint",
+                                        "DeviceEntryStore")}
+
+    def make_train_step(*a, **kw):
+        marks["ready"].append(time.perf_counter())
+        return real["make_train_step"](*a, **kw)
+
+    def evaluate_epoch(model, batches, **kw):
+        t = time.perf_counter()
+        ev = real["evaluate_epoch"](model, batches, **kw)
+        torch.cuda.synchronize()
+        marks["evals"].append({"t0": t, "t1": time.perf_counter(), "ev": ev,
+                               "promotion": kw.get("promotion")})
+        return ev
+
+    def save_checkpoint(directory, step, state, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = real["save_checkpoint"](directory, step, state, **kw)
+        t1 = time.perf_counter()
+        marks["saves"].append({"t0": t, "t1": t1, "path": path,
+                               "bytes": os.path.getsize(os.path.join(path, STATE_FILE)),
+                               "lr": state.optimizer.param_groups[0]["lr"],
+                               "store": marks["stores"][-1].bytes if marks["stores"] else 0})
+        return path
+
+    class RecordedStore(real["DeviceEntryStore"]):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            marks["stores"].append(self)
+
+    records: list[str] = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    # the tools' logger: captured (the lines this phase reads are printed)
+    logger = logging.getLogger("nl_vsgg_tpu_torch")
+    saved = (list(logger.handlers), logger.level, logger.propagate)
+    logger.handlers, logger.propagate = [Capture()], False
+    logger.setLevel(logging.INFO)
+    ts.make_train_step, ts.evaluate_epoch, ts.save_checkpoint, ts.DeviceEntryStore = (
+        make_train_step, evaluate_epoch, save_checkpoint, RecordedStore)
+    try:
+        def train(save_path, build, **over) -> tuple:
+            """run_training on `save_path`; returns (state, its epochs'
+            marks, wall s)."""
+            for v in marks.values():
+                v.clear()
+            records.clear()
+            cfg = load_config(None, dict(base, save_path=save_path, **over))
+            t0 = time.perf_counter()
+            st = ts.run_training(cfg, args, build)
+            torch.cuda.synchronize()
+            return st, cfg, time.perf_counter() - t0
+
+        # ---- 1. train: 2 epochs, each evaluated and checkpointed ----
+        run_b = os.path.join(root, "p14_B")
+        ma.reset_launches()
+        st_b, cfg_b, wall_b = train(run_b, ts.build_model)
+        got = dict(ma.LAUNCHES)
+        want = {"fwd": 4 * st_b.step + 4 * n_eval_batches * 2, "bwd_dq": 4 * st_b.step,
+                "bwd_dkv": 4 * st_b.step}
+        if st_b.step != 2 * (AG_VIDEOS // B) or st_b.skipped or got != want:
+            fail(f"run_training: step {st_b.step}, skipped {st_b.skipped}, launches {got}, "
+                 f"expected {want}")
+        add("masked_mha", got["fwd"] - 4 * st_b.step)
+        add("masked_mha_fwd_train", 4 * st_b.step)
+        add("masked_mha_bwd_dq", got["bwd_dq"])
+        add("masked_mha_bwd_dkv", got["bwd_dkv"])
+        ckpt_b = os.path.join(run_b, "ckpt")
+        with open(os.path.join(run_b, "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "epoch" in r]
+        if sorted(os.listdir(ckpt_b)) != ["0", "0.meta.json", "1", "1.meta.json",
+                                          "configs.json"] or [r["epoch"] for r in epochs] != [0, 1]:
+            fail(f"run_training wrote {sorted(os.listdir(ckpt_b))}, epochs {epochs}")
+        phases = [m for m in records if m.startswith("host phases:")]
+        start = marks["ready"][0]
+        for e in range(2):
+            ev, sv = marks["evals"][e], marks["saves"][e]
+            train_s = ev["t0"] - start
+            promo = ev["promotion"]
+            log(f"run_training epoch {e} ({'cold: ground, place, fill the store' if e == 0 else 'warm: gather from the store'}): "
+                f"{sv['t1'] - start:.3f} s wall = train {train_s:.3f} s "
+                f"({AG_VIDEOS * N_FRAMES / train_s:.1f} frames/s) + eval {ev['t1'] - ev['t0']:.3f} s "
+                f"(promoted {promo.promoted} after {promo.checked} videos) + checkpoint "
+                f"{(sv['t1'] - sv['t0']) * 1e3:.1f} ms ({sv['bytes']} bytes); mean R@20 "
+                f"{epochs[e]['mean_r20']:.6f}, lr after the scheduler {sv['lr']:.3e}; device "
+                f"store {sv['store']} bytes; card {card}")
+            log("  PhaseTimer (cumulative): " + phases[e].split("\n", 1)[1].replace("\n", "; "))
+            start = sv["t1"]
+        log(f"run_training: {wall_b:.3f} s in all (datasets, model, {st_b.step} steps, 2 evals, "
+            f"2 checkpoints); launches {got} = 4 + 4 + 4 a step and 4 an eval batch")
+        last_eval = marks["evals"][1]
+
+        # ---- 2. resume: 1 epoch, then a second run to 2 ----
+        run_a = os.path.join(root, "p14_A")
+        train(run_a, ts.build_model, nepoch=1)
+        meta_1 = load_meta(os.path.join(run_a, "ckpt"))
+        st_a, _, wall_a = train(run_a, ts.build_model)
+        resumed = [m for m in records if m.startswith("resumed from checkpoint")]
+        if resumed != ["resumed from checkpoint epoch 0 (step 2)"] \
+                or any("Inference in Epoch (0)" in m for m in records) \
+                or len(marks["saves"]) != 1 or st_a.step != st_b.step:
+            fail(f"resume: logged {resumed}, step {st_a.step}, saves {len(marks['saves'])}")
+        sched_a = load_meta(os.path.join(run_a, "ckpt"))["scheduler"]
+        sched_b = load_meta(ckpt_b)["scheduler"]
+        if (sched_a["lr"], sched_a["num_bad"]) != (sched_b["lr"], sched_b["num_bad"]) \
+                or abs(sched_a["best"] - sched_b["best"]) > ROWS_ATOL \
+                or marks["saves"][0]["lr"] != st_b.optimizer.param_groups[0]["lr"]:
+            fail(f"resume: scheduler {sched_a} against the straight run's {sched_b} (restored "
+                 f"from {meta_1['scheduler']})")
+        a, b = load_state(os.path.join(run_a, "ckpt")), load_state(ckpt_b)
+        params = tensors_apart(a["model"], b["model"], "resume: parameters")
+        moments = tensors_apart(
+            {f"{i}.{k}": s[k] for i, s in a["optimizer"]["state"].items()
+             for k in ("exp_avg", "exp_avg_sq")},
+            {f"{i}.{k}": s[k] for i, s in b["optimizer"]["state"].items()
+             for k in ("exp_avg", "exp_avg_sq")}, "resume: AdamW moments")
+        log(f"resume: 1 epoch, then a second run logged 'resumed from checkpoint epoch 0 "
+            f"(step 2)', ran epoch 1 only (step counter 2 -> {st_a.step}, the scheduler "
+            f"{meta_1['scheduler']} restored, after epoch 1 {sched_a} = the straight run's "
+            f"{sched_b}) in {wall_a:.3f} s; its final "
+            f"checkpoint against the straight run's: parameters {params}, AdamW moments "
+            f"{moments} (tol {RESUME_REL} of each tensor's largest magnitude)")
+        del a, b, st_a
+
+        # ---- 3. the test CLI, sgdet, on the straight run's checkpoint ----
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        ev_cli = test_sttran.main(["--model_path", ckpt_b, "--device_eval"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        add("masked_mha", ma.LAUNCHES["fwd"])
+        if last_eval["promotion"].promoted:   # its host rows cover the burn-in only
+            ref_ev = epoch_mod.evaluate_epoch(st_b.model, epoch_mod.grounded_batches(
+                lambda i: ts.ground_video(ds_test, i, cfg_b, False, cfg_b.buckets),
+                ds_test.gt_annotations, range(len(ds_test)), B, 4), device=dev,
+                zero_union=True)
+            against = "a host evaluation of the same weights (the last epoch was promoted)"
+        else:
+            ref_ev, against = last_eval["ev"], "the last training epoch's evaluator"
+        diff = same_rows(ev_cli, ref_ev, "test_sttran sgdet")
+        log(f"test_sttran sgdet ({len(ds_test)} videos, --device_eval): {cli_s:.3f} s; "
+            + recall_line(ev_cli) + f"; rows = {against} (largest difference {diff:.1e})")
+
+        # ---- 4. predcls and sgcls with the VinVL detector ----
+        pth = os.path.join(root, "vinvl_phase8.pth")
+        t0 = time.perf_counter()
+        torch.save(to_maskrcnn_state_dict(detector_weights(5, dev)), pth)
+        log(f"phase 8's detector weights (seed 5) saved as a VinVL .pth ({os.path.getsize(pth)} "
+            f"bytes) in {time.perf_counter() - t0:.3f} s")
+
+        def read_frames(ds, idx):
+            rng = np.random.default_rng(AG_SEED + 100 + idx)
+            return [rng.integers(0, 256, (*UNION_HW, 3), dtype=np.uint8)
+                    for _ in ds.video_list[idx]]
+
+        calls = {"c4": 0, "head": 0}
+        real_union, real_box = attr.AttrRCNNTorch.make_union_feature_fn, \
+            attr.AttrRCNNTorch.extract_box_features
+
+        def union_counted(self, frames, bucket_hw=None):
+            calls["c4"] += 1
+            fn = real_union(self, frames, bucket_hw)
+
+            def counted(f, boxes):
+                calls["head"] += 1
+                return fn(f, boxes)
+            return counted
+
+        def box_counted(self, image, boxes, preprocessed=False):
+            calls["c4"] += 1
+            calls["head"] += 1
+            return real_box(self, image, boxes, preprocessed)
+
+        def gt_cli(mode, tool, extra):
+            cfg = load_config(os.path.join(ckpt_b, "configs.json")).replace(
+                mode=mode, ckpt=pth, vinvl_dtype="bfloat16")
+            path = os.path.join(root, f"p14_{mode}.json")
+            with open(path, "w") as f:
+                f.write(cfg.to_json())
+            calls.update(c4=0, head=0)
+            ra.reset_launches()
+            gc.reset_launches()
+            ma.reset_launches()
+            t0 = time.perf_counter()
+            ev, rec = record_detector_kernels(lambda: tool.main(
+                ["--cfg", path, "--max_videos", str(P14_GT_VIDEOS), *extra],
+                read_frames=read_frames))
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            launched = {"roi_align": ra.LAUNCHES["roi_align"],
+                        "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+            want = {"roi_align": calls["head"],
+                    "grouped_conv3x3": TRUNK_CONVS * calls["c4"] + HEAD_CONVS * calls["head"]}
+            if launched != want or not calls["c4"]:
+                fail(f"{tool.__name__} {mode}: launches {launched}, expected {want} from "
+                     f"{calls}")
+            lines = check_recorded(rec, f"{tool.__name__} {mode}")
+            rows = sorted_rows(ev)
+            if not all(np.isfinite(r).all() and ((r >= 0) & (r <= 1)).all()
+                       for r in rows.values()) or len(rows["recall", 20]) != \
+                    P14_GT_VIDEOS * N_FRAMES:
+                fail(f"{tool.__name__} {mode}: R@K rows out of range or miscounted")
+            add("roi_align", launched["roi_align"])
+            add("grouped_conv3x3", launched["grouped_conv3x3"])
+            log(f"{tool.__name__.rsplit('.', 1)[1]} {mode} ({P14_GT_VIDEOS} videos, GT boxes, "
+                f"VinVL bf16 features from frames of the injected reader): {s:.3f} s; "
+                + recall_line(ev) + f"; detector calls {calls}, launches {launched}; attention "
+                f"{dict(ma.LAUNCHES)}")
+            log(f"  first call of each shape vs plain (tol {KERNEL_TOL['torch.bfloat16']}): "
+                + "; ".join(lines))
+            return dict(ma.LAUNCHES)
+
+        attr.AttrRCNNTorch.make_union_feature_fn = union_counted
+        attr.AttrRCNNTorch.extract_box_features = box_counted
+        try:
+            got = gt_cli("predcls", test_sttran, ["--model_path", ckpt_b])
+            add("masked_mha", got["fwd"])
+            got = gt_cli("sgcls", test_sttran, ["--model_path", ckpt_b])
+            if got["fwd"] != 4 * 2 * P14_GT_VIDEOS:
+                fail(f"test_sttran sgcls launched {got}: 4 a stage, 2 stages a video")
+            add("masked_mha", got["fwd"])
+
+            # ---- 5. DSG-DETR: train 1 epoch, then its sgcls test flow ----
+            ma.reset_launches()
+            st_d, _, wall_d = train(os.path.join(root, "p14_dsg"), train_dsg_detr.build_model,
+                                    nepoch=1)
+            got = dict(ma.LAUNCHES)
+            want = {"fwd": 4 * st_d.step + 4 * n_eval_batches, "bwd_dq": 4 * st_d.step,
+                    "bwd_dkv": 4 * st_d.step}
+            if got != want or st_d.skipped:
+                fail(f"train_dsg_detr: launches {got}, expected {want}; skipped {st_d.skipped}")
+            add("masked_mha_dsg_detr", got["fwd"] - 4 * st_d.step)
+            add("masked_mha_fwd_train_dsg_detr", 4 * st_d.step)
+            add("masked_mha_bwd_dq_dsg_detr", got["bwd_dq"])
+            add("masked_mha_bwd_dkv_dsg_detr", got["bwd_dkv"])
+            log(f"train_dsg_detr (1 local + 3 global layers, 1 epoch): {wall_d:.3f} s, "
+                f"{st_d.step} steps, launches {got}; mean R@20 "
+                f"{marks['evals'][0]['promotion'].score(20):.6f}")
+            del st_d
+            by_dim = {}
+
+            def dsg_sgcls():
+                by_dim.update(launches_by_head_dim(ma, lambda: gt_cli(
+                    "sgcls", test_dsg_detr, [])))
+            dsg_sgcls()
+            d297, d242 = by_dim.get(TRACKLET_D, {}), by_dim.get(HEAD_DIM, {})
+            if d297.get("fwd") != 6 * P14_GT_VIDEOS or d242.get("fwd") != 8 * P14_GT_VIDEOS:
+                fail(f"test_dsg_detr sgcls launches by head dim {by_dim}: expected "
+                     f"{6 * P14_GT_VIDEOS} at {TRACKLET_D} (3 tracklet layers, 2 stages a "
+                     f"video) and {8 * P14_GT_VIDEOS} at {HEAD_DIM}")
+            add("masked_mha_d297_tracklet", d297["fwd"])
+            add("masked_mha_dsg_detr", d242["fwd"])
+            log(f"test_dsg_detr sgcls launches by head dim {by_dim} (6 tiled a video at "
+                f"D = {TRACKLET_D})")
+        finally:
+            attr.AttrRCNNTorch.make_union_feature_fn = real_union
+            attr.AttrRCNNTorch.extract_box_features = real_box
+
+        # ---- 6. predict against serve.predict ----
+        out = os.path.join(root, "p14_predict.jsonl")
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        n = predict.main(["--model_path", ckpt_b, "--features_dir", ff, "--batch",
+                          str(PREDICT_BATCH), "--out", out])
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        want = {"fwd": 4 * -(-AG_VIDEOS // PREDICT_BATCH), "bwd_dq": 0, "bwd_dkv": 0}
+        if dict(ma.LAUNCHES) != want:
+            fail(f"predict launched {dict(ma.LAUNCHES)}, expected {want}")
+        add("masked_mha", want["fwd"])
+        with open(out) as f:
+            lines = {g["video"]: g for g in map(json.loads, f)}
+        ds_u = predict.UnlabeledVideos(ff)
+        if n != AG_VIDEOS or sorted(lines) != sorted(ds_u.video_ids):
+            fail(f"predict wrote {n} lines for {len(set(lines))} videos of {AG_VIDEOS}")
+        cfg_p = dataclasses.replace(cfg_b, mode="sgdet", frame_features_path=ff)
+        entries = [ts.ground_video(ds_u, i, cfg_p, False, cfg_p.buckets)
+                   for i in range(len(ds_u))]
+        model = test_sttran.load_weights(ts.build_model(cfg_p, schema.load_taxonomy(), dev),
+                                         ckpt_b)
+        graphs = serve.predict(model, entries, PREDICT_BATCH, device=dev,
+                               video_ids=ds_u.video_ids)
+        worst = 0.0
+        for g in graphs:
+            p = lines[g["video"]]
+            if p["objects"] != g["objects"] or p["num_frames"] != g["num_frames"]:
+                fail(f"predict {g['video']}: objects differ from serve.predict's")
+            key = lambda t: (t["frame"], t["subject"], t["object"], t["predicate"])  # noqa: E731
+            ref = {key(t): t["ranking_score"] for t in g["triplets"]}
+            cut = min(ref.values())
+            seen_scores = []
+            for t in p["triplets"]:
+                r = ref.get(key(t))
+                if r is None:   # past serve.predict's cut: a tie at the cut only
+                    r = cut
+                worst = max(worst, abs(r - t["ranking_score"]))
+                seen_scores.append(r)
+            # the order: serve.predict's scores along predict's list fall but
+            # for steps within the tolerance
+            rises = max((b - a for a, b in zip(seen_scores, seen_scores[1:])), default=0.0)
+            if worst > PREDICT_TOL or rises > PREDICT_TOL or len(p["triplets"]) != \
+                    len(g["triplets"]):
+                fail(f"predict {g['video']}: ranking scores {worst:.3e} from serve.predict's, "
+                     f"order rises {rises:.3e} (tol {PREDICT_TOL})")
+        log(f"predict ({AG_VIDEOS} videos, --batch {PREDICT_BATCH}, features uploaded bf16): "
+            f"{pred_s:.3f} s, {AG_VIDEOS / pred_s:.2f} videos/s (grounding from the entry "
+            f"cache, checkpoint load and model build included); one line a video = "
+            f"serve.predict on the same entries and weights: objects equal, ranking scores "
+            f"within {worst:.3e} (tol {PREDICT_TOL}), the same order")
+        del model, graphs, entries
+
+        # ---- 7. the relation-checkpoint converter ----
+        ref_path = os.path.join(root, "p14_reference.tar")
+        sd = {k: v.detach().cpu() for k, v in st_b.model.state_dict().items()}
+        torch.save({"state_dict": sd}, ref_path)
+        conv_dir = os.path.join(root, "p14_converted")
+        conv.main(["--ckpt", ref_path, "--out", conv_dir, "--cfg",
+                   os.path.join(ckpt_b, "configs.json")])
+        ma.reset_launches()
+        ev_conv = test_sttran.main(["--model_path", conv_dir])
+        add("masked_mha", ma.LAUNCHES["fwd"])
+        diff = same_rows(ev_conv, ev_cli, "converted checkpoint")
+        gone = "subj_fc.bias"
+        torch.save({"state_dict": {k: v for k, v in sd.items() if k != gone}}, ref_path)
+        try:
+            conv.main(["--ckpt", ref_path, "--out", conv_dir + "_bad", "--cfg",
+                       os.path.join(ckpt_b, "configs.json")])
+            fail("the converter took a state dict without subj_fc.bias")
+        except ValueError as e:
+            if gone not in str(e):
+                fail(f"the converter's error does not name {gone}: {e}")
+        log(f"convert_relation_ckpt: the trained STTran as {{'state_dict': ...}} -> step-0 "
+            f"checkpoint; test_sttran on it = step 3's rows (largest difference {diff:.1e}); "
+            f"without {gone}: refused, naming it")
+    finally:
+        ts.make_train_step, ts.evaluate_epoch, ts.save_checkpoint, ts.DeviceEntryStore = (
+            real["make_train_step"], real["evaluate_epoch"], real["save_checkpoint"],
+            real["DeviceEntryStore"])
+        logger.handlers, logger.level, logger.propagate = saved
+    log(f"phase 14 launches by kernels row: {counts}")
+    log(f"entry-point phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+    return counts
 
 
 def main() -> None:
@@ -2783,8 +3284,8 @@ def main() -> None:
     from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
     from nl_vsgg_tpu_torch.models.sttran import STTran
     from nl_vsgg_tpu_torch.ops import _build, masked_attention as ma
-    from nl_vsgg_tpu_torch.serve import place_batch, predict
-    from nl_vsgg_tpu_torch.train.step import eval_step
+    from nl_vsgg_tpu_torch.serve import predict
+    from nl_vsgg_tpu_torch.train.step import eval_step, place_entries
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2914,8 +3415,8 @@ def main() -> None:
     if not all(np.isfinite(t["score"]) for gr in graphs for t in gr["triplets"]):
         fail("non-finite triplet scores")
 
-    batches = {"float32": place_batch(entries, dev),
-               "bfloat16": place_batch(entries, dev, torch.bfloat16)}
+    batches = {"float32": place_entries(entries, device=dev),
+               "bfloat16": place_entries(entries, rel_bf16=True, device=dev)}
     for dname, batch in batches.items():
         ker = eval_step(models[dname, True], batch)
         pln = eval_step(models[dname, False], batch)
@@ -3046,12 +3547,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     dsg_rows = dsg_detr_phases(dev, card, entries)
 
-    # ---- 13. the data path: Action Genome on disk -> grounding -> training ----
+    # ---- 13. the data path: Action Genome on disk -> grounding -> training, ----
+    # ---- 14. then the entry points on the same dataset ----
     torch.cuda.empty_cache()
-    data_phases(dev, card, det16)
+    p14 = {}
+    data_phases(dev, card, det16, then=lambda ag, root: p14.update(
+        entry_point_phases(dev, card, ag, root)))
     del det16
 
-    # ---- 14. result lines ----
+    # ---- 15. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),
@@ -3060,6 +3564,8 @@ def main() -> None:
                attention_row("masked_mha_bwd_dkv", 157, train_launches[True]["bwd_dkv"],
                              train_rows["bwd_dkv"])]
     kernels += det_rows + probe_rows + dsg_rows
+    for row in kernels:               # phase 14's launches, 0 off its path
+        row["launches_entry_points"] = p14.get(row["name"], 0)
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ nl_vsgg_tpu/data/pipeline.py).
 The reference's train loop grounds one video on the host, then steps the
 GPU, strictly in turn (tools/train_STTran.py:121-195). Here a thread pool
 grounds videos ahead of the card and a bucketer groups same-shape Entries
-into batches, so host IO and grounding overlap the card's work.
+into batches, so host IO and grounding overlap the card's work;
+`DoubleBuffer` holds one queued batch so the host post-processes the
+previous one while the card computes.
 """
 
 from __future__ import annotations
@@ -45,13 +47,18 @@ class TruncationCounter:
 
 class GroundingPrefetcher:
     """Runs `ground_fn(index) -> Entry | None` for each index on worker
-    threads, yielding results in completion order with bounded lookahead."""
+    threads, yielding results in completion order with bounded lookahead,
+    or, with `ordered=True`, in the order of `indices` (results that finish
+    early wait for the ones before them; `indices` then distinct), so that
+    what a consumer builds from them does not depend on the workers'
+    timing."""
 
     def __init__(self, ground_fn: Callable[[int], Entry | None],
                  indices: Sequence[int], num_workers: int = 4,
-                 prefetch: int = 16):
+                 prefetch: int = 16, ordered: bool = False):
         self.ground_fn = ground_fn
         self.indices = list(indices)
+        self.ordered = ordered
         self.num_workers = max(1, num_workers)
         self.out: queue.Queue = queue.Queue(maxsize=prefetch)
         self._in: queue.Queue = queue.Queue()
@@ -59,6 +66,7 @@ class GroundingPrefetcher:
             self._in.put(i)
         self._threads = []
         self._errors: list[BaseException] = []
+        self._pos = {i: p for p, i in enumerate(self.indices)}
 
     def _worker(self):
         while True:
@@ -84,16 +92,26 @@ class GroundingPrefetcher:
                          for _ in range(self.num_workers)]
         for t in self._threads:
             t.start()
-        for _ in range(len(self.indices)):
-            item = self.out.get()
-            if self._errors:
-                # fail loud NOW — deferring to end-of-epoch would score the
-                # rest of the split as skips first, and a consumer that stops
-                # early would never see the error at all
-                raise self._errors[0]
+        early: dict[int, tuple] = {}   # ordered: finished before their turn
+        for pos in range(len(self.indices)):
+            while self.ordered and pos not in early:
+                item = self.out.get()
+                early[self._pos[item[0]]] = item
+                self._raise_first()
+            if self.ordered:
+                item = early.pop(pos)
+            else:
+                item = self.out.get()
+                self._raise_first()
             yield item
         for t in self._threads:
             t.join()
+        self._raise_first()
+
+    def _raise_first(self) -> None:
+        # fail loud now: deferring to the end of the epoch would score the
+        # rest of the split as skips first, and a consumer that stops early
+        # would never see the error at all
         if self._errors:
             raise self._errors[0]
 
@@ -116,3 +134,20 @@ def bucket_events(pairs: Iterator[tuple[int, Entry | None]], batch_size: int
             yield ("batch", pending.pop(key))
     for key in list(pending):
         yield ("batch", pending.pop(key))
+
+
+class DoubleBuffer:
+    """Hold one in-flight batch so host post-processing overlaps device
+    compute: `push(x)` returns the previously pushed value (process it after
+    queueing the next batch), `flush()` returns the last pending one."""
+
+    def __init__(self):
+        self._pending = None
+
+    def push(self, item):
+        prev, self._pending = self._pending, item
+        return prev
+
+    def flush(self):
+        prev, self._pending = self._pending, None
+        return prev

@@ -8,6 +8,8 @@
     (scale, bias) with the reference's eps=0 form
     scale = weight / sqrt(running_var). The attribute head
     (roi_heads.attribute.*) is not used by any path and is skipped.
+  * `to_maskrcnn_state_dict(sd)`: the inverse, a port state_dict in the
+    checkpoint's layout (FrozenBatchNorm2d with running stats 0 and 1);
   * `from_jax_variables(variables)`: the JAX package's {'params': ...}
     tree (numpy leaves): HWIO -> OIHW, Dense (in, out) -> (out, in), and the
     EFF_GROUPS block-diagonal conv2 kernels unpacked back to
@@ -85,6 +87,46 @@ def from_maskrcnn_state_dict(sd: Mapping) -> dict[str, torch.Tensor]:
     for name in ("cls_score", "bbox_pred"):
         _copy(out, f"box_head.predictor.{name}", sd, f"roi_heads.box.predictor.{name}",
               bias=True)
+    return out
+
+
+def to_maskrcnn_state_dict(sd: Mapping) -> dict[str, torch.Tensor]:
+    """The inverse of `from_maskrcnn_state_dict`: a port state_dict in the
+    VinVL checkpoint's layout (float32, on the host). Each folded
+    (scale, bias) becomes a FrozenBatchNorm2d of weight = scale, bias,
+    running_mean 0 and running_var 1, which folds back to the same pair."""
+    out: dict[str, torch.Tensor] = {}
+
+    def put(dst: str, src: str, bias: bool = False) -> None:
+        out[dst + ".weight"] = sd[src + ".weight"].detach().float().cpu()
+        if bias:
+            out[dst + ".bias"] = sd[src + ".bias"].detach().float().cpu()
+
+    def bn(dst: str, src: str) -> None:
+        scale = sd[src + ".scale"].detach().float().cpu()
+        out.update({dst + ".weight": scale, dst + ".bias": sd[src + ".bias"].detach().float().cpu(),
+                    dst + ".running_mean": torch.zeros_like(scale),
+                    dst + ".running_var": torch.ones_like(scale)})
+
+    def stage(dst: str, src: str, n_blocks: int) -> None:
+        for i in range(n_blocks):
+            d, s = f"{dst}.{i}", f"{src}.block{i}"
+            for j in (1, 2, 3):
+                put(f"{d}.conv{j}", f"{s}.conv{j}")
+                bn(f"{d}.bn{j}", f"{s}.bn{j}")
+            if s + ".downsample_conv.weight" in sd:
+                put(f"{d}.downsample.0", f"{s}.downsample_conv")
+                bn(f"{d}.downsample.1", f"{s}.downsample_bn")
+
+    put("backbone.body.stem.conv1", "backbone.stem_conv1")
+    bn("backbone.body.stem.bn1", "backbone.stem_bn1")
+    for k in (1, 2, 3):
+        stage(f"backbone.body.layer{k}", f"backbone.layer{k}", R152_BLOCKS[k - 1])
+    for name in ("conv", "cls_logits", "bbox_pred"):
+        put(f"rpn.head.{name}", f"rpn_head.{name}", bias=True)
+    stage("roi_heads.box.feature_extractor.head.layer4", "box_head.head.layer4", R152_BLOCKS[3])
+    for name in ("cls_score", "bbox_pred"):
+        put(f"roi_heads.box.predictor.{name}", f"box_head.predictor.{name}", bias=True)
     return out
 
 

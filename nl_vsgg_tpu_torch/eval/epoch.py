@@ -126,17 +126,18 @@ class DeviceEvalPromotion:
         return float(r[:, col].mean()) if len(r) else 0.0
 
 
-def _start_fetch(out: dict, device: torch.device) -> Callable[[], dict]:
-    """Start copying a batch's EVAL_KEYS outputs to the host; the returned
+def start_fetch(out: dict, device: torch.device, keys: Sequence[str] = EVAL_KEYS
+                ) -> Callable[[], dict]:
+    """Start copying a batch's `keys` outputs to the host; the returned
     function waits for them and gives host numpy. On the card the copies go
     into pinned memory with non_blocking=True and an event is recorded
     behind them: started before the next batch's forward is queued, the
     wait does not wait for that forward (a plain `.cpu()` issued after it
     would, on the one stream)."""
     if device.type != "cuda":
-        return lambda: {k: to_numpy(out[k]) for k in EVAL_KEYS}
+        return lambda: {k: to_numpy(out[k]) for k in keys}
     host = {k: torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=True)
-            .copy_(out[k], non_blocking=True) for k in EVAL_KEYS}
+            .copy_(out[k], non_blocking=True) for k in keys}
     done = torch.cuda.Event()
     done.record()
 
@@ -243,12 +244,12 @@ def evaluate_epoch(model: torch.nn.Module,
                 items.append((gt, e))
         if not items:
             continue
-        fetch = _start_fetch(pending[1], device) if pending else None
+        fetch = start_fetch(pending[1], device) if pending else None
         out = eval_step(model, place_entries([e for _, e in items], zero_union=zero_union,
                                              rel_bf16=dtype == torch.bfloat16, device=device))
         if pending:
             score(pending[0], fetch())
         pending = (items, out)
     if pending:
-        score(pending[0], _start_fetch(pending[1], device)())
+        score(pending[0], start_fetch(pending[1], device)())
     return evaluator

@@ -80,18 +80,6 @@ def scene_graph_json(video_id: str, entry: Entry, pred: dict, tax, topk: int) ->
             "objects": objects, "triplets": out_trip}
 
 
-def place_batch(entries: Sequence[Entry], device: torch.device, dtype=None) -> Entry:
-    """Stack same-bucket Entries and move them to `device` for a model of
-    compute dtype `dtype` (None: float32; bfloat16): `place_entries` with
-    `union_feat` and `spatial_masks` cast to bfloat16 on the device. Only
-    compute-dtype layers read them, so the cast is the model's own and later
-    reads move half the bytes. `features` stays float32 (the object
-    classifier reads it in float32)."""
-    if dtype not in (None, torch.float32, torch.bfloat16):
-        raise ValueError(f"compute dtype {dtype}: expected None, float32 or bfloat16")
-    return place_entries(list(entries), rel_bf16=dtype == torch.bfloat16, device=device)
-
-
 def predict(model: torch.nn.Module, entries: Sequence[Entry], batch: int,
             device=None, video_ids: Sequence[str] | None = None,
             topk: int = 100, tax=None) -> list[dict]:
@@ -108,7 +96,8 @@ def predict(model: torch.nn.Module, entries: Sequence[Entry], batch: int,
         chunk = list(entries[start:start + batch])
         n = len(chunk)
         chunk += [chunk[0]] * (batch - n)
-        pred = eval_step(model, place_batch(chunk, device, getattr(model, "dtype", None)))
+        pred = eval_step(model, place_entries(chunk, rel_bf16=getattr(model, "dtype", None)
+                                              == torch.bfloat16, device=device))
         host = {k: pred[k][:n].float().cpu().numpy() for k in NEEDED}
         for i in range(n):
             graphs.append(scene_graph_json(ids[start + i], chunk[i],

@@ -1,33 +1,77 @@
-"""The grounding glue of the training tool (port of tools/train_STTran.py's
-`make_union_provider`, `ground_video` and their helpers, :98-301).
+"""Train STTran on Action Genome with weak supervision (port of
+tools/train_STTran.py):
+
+    python -m nl_vsgg_tpu_torch.tools.train_sttran --cfg configs/nl_vsgg_config.yml \
+        [--nepoch N] [--bce_loss] [--max_videos N] [--device cpu]
+
+`run_training(cfg, args, build_model)` is the loop; tools/train_dsg_detr.py
+runs it with its own builder. Per epoch: the videos in a seeded order are
+grounded on prefetch workers (`ground_video`, yielded in that order, so
+the batches do not depend on the workers' timing), grouped by bucket
+(`bucket_events`), placed on the card (`place_entries`) and stepped
+(`train_step`, clipped AdamW with the NaN/empty skip); with
+cfg.device_entry_store_gb the cold epoch's batches stay on the card
+(`DeviceEntryStore.add_batch`) and warm epochs gather them from video
+indices alone. Then `evaluate_epoch` scores the test split (with
+cfg.device_eval / cfg.device_eval_promote), the plateau scheduler steps on
+mean R@20 and a checkpoint is written to <save_path>/ckpt/<epoch>
+(utils/checkpoint.py). A run whose <save_path>/ckpt holds a checkpoint
+resumes from it: the TrainState, the scheduler (from the sidecar), the step
+counter and the epoch. Each step's dropout generator is seeded from
+(cfg.seed, step), so a resumed run draws what a straight run draws.
+
+Single process, single device. Refused, each with a ValueError naming why:
+sgcls / predcls training and non-wks sgdet (as the JAX tool refuses them),
+and, not ported yet (ROADMAP Queue 1 item 4), cfg.distributed and a
+cfg.mesh over more than one device; cfg.remat (the port's models do not
+rematerialise).
 
 `ground_video(ds, idx, cfg, is_train, buckets, union_provider, on_truncate)`
 turns one video of an `AGTrain` / `AGTest` split into a padded Entry (or
 None when it grounds to no relation): the packed-Entry cache first
 (cfg.entry_cache), then the native engine (cfg.use_native_grounding and
 use_native_io) with the python path behind it when the library or the
-dets_f32.npy sidecars are missing. The training loop that calls it
-(`run_training`) is not ported yet.
+dets_f32.npy sidecars are missing.
 
 Union features (cfg.union_box_feature) come from a provider(ds, idx) ->
 union_feat_fn | None that runs the VinVL detector on the video's frames:
-`make_union_provider` builds one from cfg.vinvl_ckpt, `detector_union_provider`
-from any detector. The provider's card work runs under one lock on a side
-stream: prefetch workers call it while the main thread queues train steps,
-and its host copies then wait for its own work, not for a queued step.
+`make_union_provider` builds one from cfg.vinvl_ckpt and a frame reader
+(by default `cv2_frame_reader`, which imports cv2 when it is built, never in
+a worker), `detector_union_provider` from any detector. The provider's card
+work runs under one lock on a side stream: prefetch workers call it while
+the main thread queues train steps, and its host copies then wait for its
+own work, not for a queued step.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import os
 import threading
+import time
 
+import numpy as np
 import torch
 
+from ..data import schema
+from ..data.action_genome import AGTest, AGTrain
+from ..data.device_store import DeviceEntryStore
 from ..data.entry_cache import MISS, EntryCache, entry_cache_key
 from ..data.grounding import (_NATIVE_UNAVAILABLE, load_frame_features, pack_gt_annotation,
                               wk_forward, wk_forward_native)
+from ..data.pipeline import GroundingPrefetcher, TruncationCounter, bucket_events
+from ..device import resolve_device
+from ..eval.epoch import DeviceEvalPromotion, evaluate_epoch, grounded_batches
+from ..eval.recall import SceneGraphEvaluator
+from ..models.sttran import STTran
+from ..train.state import PlateauScheduler, create_train_state, set_learning_rate
+from ..train.step import make_train_step, place_entries
+from ..utils.checkpoint import latest_step, load_meta, restore_checkpoint, save_checkpoint
+from ..utils.config import load_config
+from ..utils.glove import obj_edge_vectors
+from ..utils.logging import MetricWriter, setup_logger
+from ..utils.profiling import PhaseTimer, trace
 
 
 def load_vinvl_state_dict(path: str) -> dict:
@@ -41,15 +85,11 @@ def load_vinvl_state_dict(path: str) -> dict:
     return from_maskrcnn_state_dict(sd.get("model", sd))
 
 
-def detector_union_provider(get_detector, read_frames):
-    """provider(ds, idx) -> union_feat_fn | None over a detector.
-
-    `get_detector()` returns the AttrRCNNTorch (called under the provider's
-    lock, so a lazy build happens once); `read_frames(ds, idx)` returns the
-    video's BGR frames, or None when they are missing (the video's union
-    features then fall back to zeros and are not cached). Each video's C4
-    pass and each union_feat_fn call hold the lock and run on one side
-    stream of the detector's card."""
+def on_card_runner(get_detector):
+    """on_card(fn, *args) -> fn(detector, *args) under one lock, on one side
+    stream of the detector's card: prefetch workers share the detector
+    while the main thread queues model steps on the default stream.
+    `get_detector()` is called under the lock (a lazy build happens once)."""
     lock = threading.Lock()
     streams: dict = {}
 
@@ -64,6 +104,19 @@ def detector_union_provider(get_detector, read_frames):
             with ctx:
                 return fn(det, *args)
 
+    return on_card
+
+
+def detector_union_provider(get_detector, read_frames):
+    """provider(ds, idx) -> union_feat_fn | None over a detector.
+
+    `get_detector()` returns the AttrRCNNTorch; `read_frames(ds, idx)`
+    returns the video's BGR frames, or None when they are missing (the
+    video's union features then fall back to zeros and are not cached).
+    Each video's C4 pass and each union_feat_fn call run through
+    `on_card_runner`."""
+    on_card = on_card_runner(get_detector)
+
     def provider(ds, idx):
         imgs = read_frames(ds, idx)
         if imgs is None:
@@ -74,12 +127,46 @@ def detector_union_provider(get_detector, read_frames):
     return provider
 
 
-def make_union_provider(cfg, logger):
+def cv2_frame_reader(frames_root: str, logger=None):
+    """read_frames(ds, idx) -> the video's BGR frames from
+    <frames_root>/<frame path>, or None (with one warning) when one is
+    missing. cv2 is imported here, when the reader is built: without it
+    this raises, naming it, before any worker runs."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            "reading frame images needs cv2 (opencv-python), which is not installed; "
+            "install it or pass read_frames= (a function (ds, idx) -> list of BGR "
+            "uint8 frames | None)") from e
+    warned: set = set()
+
+    def read_frames(ds, idx):
+        imgs = []
+        for f in ds.video_list[idx]:
+            img = cv2.imread(os.path.join(frames_root, f))
+            if img is None:
+                if logger is not None and "frames" not in warned:
+                    warned.add("frames")
+                    logger.warning(
+                        f"frame images are missing under {frames_root!r} (e.g. {f!r}): "
+                        f"union features fall back to ZEROS for affected videos")
+                return None
+            imgs.append(img)
+        return imgs
+
+    return read_frames
+
+
+def make_union_provider(cfg, logger, read_frames=None, device=None):
     """Live union-feature extraction, honoring cfg.union_box_feature (the
     shipped recipe extracts 2048 x 7 x 7 VinVL features at every
     person-object union box, lib/assign_pseudo_label.py:1320-1342). None
     when the flag is off or the checkpoint is missing, with a warning:
-    Entry.union_feat is then zeros."""
+    Entry.union_feat is then zeros. `read_frames(ds, idx)` gives a video's
+    BGR frames (None: missing); by default `cv2_frame_reader` over
+    cfg.frames_path or <data_path>/frames. The detector is built on `device`
+    (None: the card) at its first extraction."""
     if not cfg.union_box_feature:
         return None
     if not cfg.vinvl_ckpt or not os.path.isfile(str(cfg.vinvl_ckpt)):
@@ -90,32 +177,17 @@ def make_union_provider(cfg, logger):
         return None
     from ..detector.attr_rcnn import AttrRCNNTorch
 
-    frames_root = cfg.frames_path or os.path.join(cfg.data_path, "frames")
+    if read_frames is None:
+        read_frames = cv2_frame_reader(cfg.frames_path or os.path.join(cfg.data_path, "frames"),
+                                       logger)
     det_box: list = []
-    warned: set = set()
 
     def get_detector():
         if not det_box:
             dt = None if cfg.vinvl_dtype == "float32" else cfg.vinvl_dtype
             det_box.append(AttrRCNNTorch(load_vinvl_state_dict(str(cfg.vinvl_ckpt)),
-                                         compute_dtype=dt))
+                                         compute_dtype=dt, device=device))
         return det_box[0]
-
-    def read_frames(ds, idx):
-        import cv2
-        imgs = []
-        for f in ds.video_list[idx]:
-            img = cv2.imread(os.path.join(frames_root, f))
-            if img is None:
-                if "frames" not in warned:
-                    warned.add("frames")
-                    logger.warning(
-                        f"union_box_feature=true but frame images are missing "
-                        f"under {frames_root!r} (e.g. {f!r}): union features "
-                        f"fall back to ZEROS for affected videos")
-                return None
-            imgs.append(img)
-        return imgs
 
     return detector_union_provider(get_detector, read_frames)
 
@@ -238,3 +310,325 @@ def _ground_video_uncached(ds, idx, cfg, is_train, buckets, union_provider=None,
                       compute_spatial_masks=not cfg.device_spatial_masks,
                       on_truncate=on_truncate, union_cache_path=cache_path,
                       union_cache_dtype=cfg.union_feat_cache_dtype, union_cache_key=cache_key)
+
+
+# ------------------------------------------------------------------ the loop
+
+ROADMAP_PARALLEL = "ROADMAP.md Queue 1 item 4 (the parallel layer)"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="weak-supervision training")
+    p.add_argument("--cfg", dest="cfg_file", default=None, help="config yaml")
+    p.add_argument("--bce_loss", action="store_true", default=None)
+    p.add_argument("--nepoch", type=int, default=None)
+    p.add_argument("--max_videos", type=int, default=0,
+                   help="debug: cap videos per epoch (0 = all)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU; 'cpu' runs on the CPU)")
+    return p.parse_args(argv)
+
+
+def config_from_args(args):
+    overrides = {}
+    if args.bce_loss:
+        overrides["bce_loss"] = True
+    if args.nepoch is not None:
+        overrides["nepoch"] = args.nepoch
+    return load_config(args.cfg_file, overrides)
+
+
+def compute_dtype(cfg):
+    """cfg.dtype -> the models' compute dtype (parameters stay float32)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else None
+
+
+def glove_tables(cfg, tax) -> tuple[np.ndarray, np.ndarray]:
+    """The (36, 200) and (37, 200) class embeddings the models start from."""
+    return (obj_edge_vectors(list(tax.object_classes[1:]), 200, cfg.glove_path),
+            obj_edge_vectors(list(tax.object_classes), 200, cfg.glove_path))
+
+
+def build_model(cfg, tax, device=None) -> STTran:
+    """STTran for `cfg` on `device` (None: the card), weights drawn from a
+    generator seeded cfg.seed, class embeddings from GloVe (or the fixed
+    fallback vectors). 'wk' and 'org' are one implementation (org is wk
+    without the empty-frame row removal, the same function on every input
+    org can process); the reference's 'new' / 'seq2seq' do not exist."""
+    if cfg.transformer_mode not in ("wk", "org"):
+        raise ValueError(
+            f"transformer_mode={cfg.transformer_mode!r} is not supported: 'wk' and 'org' "
+            "share one implementation, and the reference's 'new'/'seq2seq' classes do not "
+            "exist in its tree")
+    g36, g37 = glove_tables(cfg, tax)
+    model = STTran(mode=cfg.mode, obj_classes=tuple(tax.object_classes),
+                   enc_layer_num=cfg.enc_layer, dec_layer_num=cfg.dec_layer,
+                   feat_dim=cfg.feat_dim, transformer_variant=cfg.transformer_mode,
+                   dtype=compute_dtype(cfg), device=device,
+                   generator=torch.Generator().manual_seed(cfg.seed))
+    with torch.no_grad():
+        if cfg.mode != "predcls":
+            model.object_classifier.obj_embed.weight.copy_(torch.as_tensor(g36))
+        model.obj_embed.weight.copy_(torch.as_tensor(g37))
+        model.obj_embed2.weight.copy_(torch.as_tensor(g37))
+    return model
+
+
+def check_trainable(cfg, device: torch.device) -> None:
+    """The JAX tool's refusals, and what the port does not run yet."""
+    if cfg.mode == "sgdet" and not cfg.is_wks:
+        # the reference's non-wks sgdet needs an AG-trained detector; the
+        # shipped NL-VSGG recipe is weak supervision only
+        raise ValueError("is_wks=false sgdet training is not a shipped NL-VSGG recipe; "
+                         "see models/sgdet_infer for the non-wks inference path")
+    if cfg.mode != "sgdet":
+        # the reference prints "error! we do not train predcls and sgcls
+        # task!" and its GT-box train path then cannot run
+        raise ValueError(
+            f"mode={cfg.mode!r} training is not a shipped NL-VSGG recipe (the reference "
+            "prints 'error! we do not train predcls and sgcls task!' and its GT-box train "
+            "path cannot run); use tools/test_sttran for sgcls/predcls evaluation")
+    if cfg.distributed:
+        raise ValueError(f"distributed=true: multi-process training is not ported yet "
+                         f"({ROADMAP_PARALLEL})")
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cfg.mesh.model != 1 or (n_dev > 1 and cfg.mesh.data not in (1, -1)):
+        raise ValueError(
+            f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: training on more than one "
+            f"device is not ported yet ({ROADMAP_PARALLEL}); use mesh data 1 (or -1), model 1")
+    if cfg.remat:
+        raise ValueError("remat=true: the port's models do not rematerialise their layers "
+                         "(ROADMAP.md Queue 1 item 3); set remat false")
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The train step's generator (dropout masks, attention seeds, label
+    samples), seeded from (seed, step) alone."""
+    s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def log_device_recalls(logger, device_recalls) -> None:
+    for name in ("recall", "recall_nogc", "semi"):
+        r = np.concatenate([d[name] for d in device_recalls])
+        logger.info("device %s: R@10 %.4f R@20 %.4f R@50 %.4f" % (name, *r.mean(0)))
+    dropped = sum(d.get("gt_dropped", 0) for d in device_recalls)
+    if dropped:
+        logger.warning(
+            f"device R@K excluded {dropped} GT relations past the frame/relation buckets; "
+            f"the host numbers are the source of truth")
+
+
+def ag_test_split(cfg) -> AGTest:
+    """The test split's annotations under cfg.data_path."""
+    return AGTest(cfg.data_path if cfg.data_path.endswith("annotations")
+                  else os.path.join(cfg.data_path, "annotations"))
+
+
+def run_training(cfg, args, build_model_fn, device=None):
+    """The training loop (STTran and DSG-DETR differ only in
+    `build_model_fn(cfg, tax, device)`). `device` (None: args.device, then
+    the card) is where the model, its batches and the Entry store live.
+    Returns the final TrainState."""
+    device = resolve_device(device if device is not None else getattr(args, "device", None))
+    check_trainable(cfg, device)
+    logger = setup_logger(save_dir=cfg.save_path)
+    os.makedirs(cfg.save_path, exist_ok=True)
+    with open(os.path.join(cfg.save_path, "configs.json"), "w") as f:
+        f.write(cfg.to_json())
+    metrics = MetricWriter(cfg.save_path)
+    tax = schema.load_taxonomy()
+
+    logger.info("loading datasets")
+    ds_train = AGTrain(cfg.data_path, pseudo_label_path=cfg.pseudo_localized_SG_path,
+                       remove_one_frame_video=cfg.remove_one_frame_video,
+                       auto_download=cfg.auto_download, logger=logger, save_path=cfg.save_path)
+    ds_test = ag_test_split(cfg)
+    logger.info(f"train videos: {len(ds_train)}, test videos: {len(ds_test)}")
+
+    model = build_model_fn(cfg, tax, device)
+    union_provider = make_union_provider(cfg, logger, device=device)
+    # separate counters: eval-split truncations must not read as lost
+    # training labels in the next epoch's warning
+    trunc, trunc_eval = TruncationCounter(), TruncationCounter()
+    timer = PhaseTimer()
+
+    def ground(ds, idx, is_train):
+        with timer("grounding(host)"):
+            return ground_video(ds, int(idx), cfg, is_train, cfg.buckets,
+                                union_provider=union_provider,
+                                on_truncate=trunc.add if is_train else trunc_eval.add)
+
+    # the first groundable video: the split must hold one, and its features
+    # must have the model's width
+    sample = None
+    for i in range(len(ds_train)):
+        sample = ground(ds_train, i, True)
+        if sample is not None:
+            break
+    if sample is None:
+        raise ValueError("no groundable training video")
+    if sample.features.shape[-1] != cfg.feat_dim:
+        raise ValueError(f"features of width {sample.features.shape[-1]} for a model of "
+                         f"feat_dim {cfg.feat_dim}")
+    state = create_train_state(model, cfg.lr, cfg.weight_decay, cfg.grad_clip_norm)
+
+    # auto-resume from the newest checkpoint
+    ckpt_dir = os.path.join(cfg.save_path, "ckpt")
+    start_epoch, resume_meta = 0, None
+    resumed = latest_step(ckpt_dir)
+    if resumed is not None:
+        state = restore_checkpoint(ckpt_dir, state)
+        resume_meta = load_meta(ckpt_dir, resumed)
+        start_epoch = resumed + 1
+        logger.info(f"resumed from checkpoint epoch {resumed} (step {state.step})")
+    train_step = make_train_step(model, state.optimizer, bce=cfg.bce_loss)
+    scheduler = PlateauScheduler(cfg.lr)
+    if resume_meta and "scheduler" in resume_meta:
+        # the decayed lr and the plateau history: without them the first
+        # epoch after a resume would write cfg.lr back
+        scheduler.load_state_dict(resume_meta["scheduler"])
+        state = set_learning_rate(state, scheduler.lr)
+
+    n_train = min(args.max_videos, len(ds_train)) if args.max_videos else len(ds_train)
+    n_test = min(args.max_videos, len(ds_test)) if args.max_videos else len(ds_test)
+    rel_bf16 = cfg.dtype == "bfloat16"
+    zero_union = union_provider is None
+    # the device-resident Entry store: the cold epoch adopts each placed
+    # batch (no second upload); later epochs gather from video indices
+    entry_store = (DeviceEntryStore(budget_bytes=int(cfg.device_entry_store_gb * 1e9),
+                                    device=device) if cfg.device_entry_store_gb else None)
+
+    def batch_iter(order):
+        stream_order = order
+        n_stored = 0
+        if entry_store is not None:
+            stored, stream_order = entry_store.plan_batches(order, cfg.batch_videos)
+            for idxs in stored:
+                with timer("store_gather"):
+                    batch = entry_store.gather(idxs)
+                if batch is None:  # plan and store disagree: stream them
+                    stream_order.extend(idxs)
+                    continue
+                n_stored += 1
+                yield len(idxs), batch
+        # in the epoch's order, whatever the workers' timing: the batches,
+        # and so the run, are the same in every run of the seed
+        prefetcher = GroundingPrefetcher(lambda idx: ground(ds_train, idx, True), stream_order,
+                                         num_workers=cfg.num_workers, ordered=True)
+        for kind, payload in bucket_events(iter(prefetcher), cfg.batch_videos):
+            if kind == "skip":
+                continue
+            with timer("batch_build"):
+                batch = place_entries([e for _, e in payload], zero_union=zero_union,
+                                      rel_bf16=rel_bf16, device=device)
+            if entry_store is not None and not entry_store.overflow:
+                with timer("store_build"):
+                    entry_store.add_batch([i for i, _ in payload], batch)
+            yield len(payload), batch
+        if entry_store is not None and (n_stored or entry_store.overflow):
+            logger.info(f"device entry store: {n_stored} gathered batches this epoch, "
+                        f"{entry_store.bytes / 1e9:.2f} GB resident"
+                        + (", over budget: the rest streams" if entry_store.overflow else ""))
+
+    # a resume continues the step counter: metric keys stay unique and the
+    # per-step generators do not replay epoch 0's
+    global_step = state.step
+    for epoch in range(start_epoch, cfg.nepoch):
+        t0 = time.time()
+        order = np.random.default_rng(cfg.seed + epoch).permutation(n_train).tolist()
+        n_seen, trace_end = 0, None
+        with contextlib.ExitStack() as profiling:
+            for n_batch, batch in batch_iter(order):
+                n_seen += n_batch
+                if cfg.profile_steps and epoch == start_epoch and global_step == 2:
+                    profiling.enter_context(trace(os.path.join(cfg.save_path, "trace")))
+                    trace_end = global_step + cfg.profile_steps
+                with timer("train_step"):  # waits for the step's validity flag
+                    state, m = train_step(state, batch,
+                                          step_generator(cfg.seed, global_step, device))
+                global_step += 1
+                if global_step == trace_end:
+                    profiling.close()
+                    logger.info(f"wrote {cfg.profile_steps}-step trace to "
+                                f"{os.path.join(cfg.save_path, 'trace')}")
+                if global_step % 100 == 0:
+                    metrics.write(global_step, **{k: float(v) for k, v in m.items()})
+                    logger.info(f"e{epoch} step {global_step} loss {float(m['total']):.4f}")
+
+        tv, tb, tr = trunc.take()
+        if tv:
+            logger.warning(
+                f"epoch {epoch}: bucket truncation dropped {tb} boxes / {tr} relations "
+                f"across {tv} videos; enlarge cfg.buckets (max_boxes/max_rels) to keep "
+                f"those labels")
+            metrics.write(global_step, truncated_videos=tv, truncated_boxes=tb,
+                          truncated_rels=tr)
+        logger.info(f"epoch {epoch} done in {(time.time() - t0) / 60:.1f} min "
+                    f"({n_seen} videos, skipped {state.skipped})")
+        logger.info("host phases:\n" + timer.summary())
+
+        # ---- the epoch's evaluation, streamed ----
+        device_recalls = [] if cfg.device_eval else None
+        promotion = (DeviceEvalPromotion(cfg.device_eval_burnin, cfg.device_eval_recheck)
+                     if cfg.device_eval_promote else None)
+        evaluator = SceneGraphEvaluator(mode=cfg.mode, taxonomy=tax)
+        batches = grounded_batches(lambda i: ground(ds_test, i, False), ds_test.gt_annotations,
+                                   range(n_test), cfg.batch_videos, cfg.num_workers)
+        evaluate_epoch(model, batches, evaluator=evaluator, device_recalls=device_recalls,
+                       promotion=promotion, device=device, zero_union=zero_union)
+        if device_recalls:
+            log_device_recalls(logger, device_recalls)
+        ev, eb, er = trunc_eval.take()
+        if ev:
+            logger.warning(f"epoch {epoch} eval: bucket truncation dropped {eb} boxes / {er} "
+                           f"relations across {ev} test videos; enlarge cfg.buckets")
+        stats_note = ""
+        if promotion is not None and promotion.promoted:
+            score = promotion.score(20)
+            stats_note = (f"burn-in+recheck subset only ({promotion.checked} host-scored "
+                          f"videos), promoted epoch")
+            logger.info(
+                f"device evaluator promoted after {promotion.checked} burn-in videos of exact "
+                f"agreement: epoch metric (mean R@20 = {score:.4f}) is device-scored; host "
+                f"stats below cover only the burn-in; run tools/test_sttran for reported "
+                f"numbers")
+        elif promotion is not None and promotion.late_demoted:
+            score = promotion.score(20)
+            stats_note = "partial host coverage, demoted mid-epoch"
+            logger.warning(
+                f"device evaluator DEMOTED mid-epoch by a recheck mismatch after promotion: "
+                f"epoch metric (mean R@20 = {score:.4f}) mixes verified device rows and host "
+                f"rows, with up to {promotion.recheck_every - 1} unverified device-scored "
+                f"videos before the mismatch; treat this epoch's metric as suspect and run "
+                f"tools/test_sttran")
+        else:
+            if promotion is not None:
+                why = ("host/device mismatch during burn-in, demoted" if not promotion.ok
+                       else f"only {promotion.checked}/{promotion.burnin} comparable "
+                            f"burn-in videos in the split")
+                logger.warning(f"device evaluator NOT promoted ({why}); host eval covered "
+                               f"the full split as usual")
+            score = evaluator.mean_score(20)
+        evaluator.calculate_mean_recall()
+        logger.info(f"------------Inference in Epoch ({epoch})------------")
+        evaluator.print_stats(logger, note=stats_note)
+        new_lr = scheduler.step(score)
+        state = set_learning_rate(state, new_lr)
+        metrics.write(global_step, epoch=epoch, mean_r20=score, lr=new_lr)
+        # after the eval and the plateau step, so a resume continues with the
+        # epoch's scheduler decision applied (the sidecar holds the history)
+        save_checkpoint(ckpt_dir, epoch, state, config_json=cfg.to_json(),
+                        extra={"scheduler": scheduler.state_dict()})
+
+    metrics.close()
+    return state
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    return run_training(config_from_args(args), args, build_model)
+
+
+if __name__ == "__main__":
+    main()

@@ -39,8 +39,8 @@ LOSS_KEYS = ("object_loss", "attention_relation_loss", "spatial_relation_loss",
              "contact_relation_loss", "total")
 
 
-def place_entries(entries: list[Entry], zero_union: bool = False, rel_bf16: bool = False,
-                  device=None) -> Entry:
+def place_entries(entries: list[Entry], zero_union: bool = False, cast_bf16: bool = False,
+                  rel_bf16: bool = False, device=None) -> Entry:
     """A batch on `device` (None: the card) from same-bucket host Entries
     (nl_vsgg_tpu/train/step.py::place_entries).
 
@@ -52,9 +52,11 @@ def place_entries(entries: list[Entry], zero_union: bool = False, rel_bf16: bool
     neither stacked nor copied. `rel_bf16` casts union_feat and
     spatial_masks to bfloat16, the cast a bf16-compute model makes of them
     itself (only bf16 layers read them), so the step's math is unchanged.
-    The casts run on the device after the copy. (The JAX function's
-    `cast_bf16`, for the serving CLI, is not ported.)"""
+    `cast_bf16` (serving with a bf16-compute model) also casts `features`,
+    which the object classifier otherwise reads in float32. The casts run on
+    the device after the copy."""
     device = resolve_device(device)
+    rel_bf16 = rel_bf16 or cast_bf16
     big = torch.bfloat16 if rel_bf16 else torch.float32
     placed = {}
     for f in dataclasses.fields(Entry):
@@ -63,8 +65,9 @@ def place_entries(entries: list[Entry], zero_union: bool = False, rel_bf16: bool
             placed[f.name] = torch.zeros(shape, dtype=big, device=device)
             continue
         v = torch.stack([getattr(e, f.name) for e in entries]).to(device)
-        if f.name in ("union_feat", "spatial_masks") and rel_bf16:
-            v = v.to(big)
+        if (f.name in ("union_feat", "spatial_masks") and rel_bf16) or \
+                (f.name == "features" and cast_bf16):
+            v = v.to(torch.bfloat16)
         placed[f.name] = v
     return Entry(**placed)
 

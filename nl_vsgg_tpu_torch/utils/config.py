@@ -5,8 +5,9 @@ package's `Config`, so one YAML file (`configs/nl_vsgg_config.yml`) or one
 set of overrides configures either package, and `dataclasses.asdict` of the
 two agree. Configs are immutable values passed down the stack.
 
-`yaml` is imported only when a file is read: `load_config(None, overrides)`
-needs nothing beyond the standard library.
+`yaml` is imported only when a YAML file is read: `load_config(None,
+overrides)` and a `.json` file (a run's `configs.json` snapshot) need
+nothing beyond the standard library.
 """
 
 from __future__ import annotations
@@ -184,14 +185,18 @@ def _coerce_nested(k: str, v: Any):
 def load_config(path: str | None = None, overrides: dict[str, Any] | None = None) -> Config:
     """A Config from an optional YAML file plus keyword overrides.
 
-    Unknown YAML keys are ignored, as the reference's merge ignores them;
+    A path ending in `.json` is read as JSON (`Config.to_json`'s snapshot).
+    Unknown file keys are ignored, as the reference's merge ignores them;
     an unknown override raises KeyError."""
     cfg = Config()
     merged: dict[str, Any] = {}
     if path:
-        import yaml
         with open(path) as f:
-            raw = yaml.safe_load(f) or {}
+            if path.endswith(".json"):
+                raw = json.load(f)
+            else:
+                import yaml
+                raw = yaml.safe_load(f) or {}
         for k, v in raw.items():
             if k in ("buckets", "mesh"):
                 merged[k] = _coerce_nested(k, v)

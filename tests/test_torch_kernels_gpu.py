@@ -18,6 +18,8 @@ one bf16 ulp; the packed conv's float32 instantiation against cuDNN's
 groups-8 conv at 1e-5 of the output's largest magnitude (9 * 128 products).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -32,7 +34,7 @@ from nl_vsgg_tpu_torch.ops import probe_copy as pc
 from nl_vsgg_tpu_torch.ops import probe_matmul as pm
 from nl_vsgg_tpu_torch.ops import roi_align as ra
 from nl_vsgg_tpu_torch.train.state import create_train_state
-from nl_vsgg_tpu_torch.train.step import make_train_step
+from nl_vsgg_tpu_torch.train.step import make_train_step, place_entries
 
 pytestmark = pytest.mark.cuda
 
@@ -594,12 +596,11 @@ def test_dsg_detr_train_steps_on_gpu(gpu):
     the kernels (4 + 4 + 4 launches a step; the float32 tracklet head's 3
     on the tiled route), finite losses, no skip."""
     from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
-    from nl_vsgg_tpu_torch.serve import place_batch
 
     rng = np.random.default_rng(0)
     entries = [make_synthetic_entry(rng, n_frames=6, objs_per_frame=3, bucket_boxes=32,
                                     bucket_rels=24) for _ in range(4)]
-    batch = place_batch(entries, "cuda", torch.bfloat16)
+    batch = place_entries(entries, rel_bf16=True, device="cuda")
     model = DSGDETR(mode="sgdet", dtype=torch.bfloat16, device="cuda")
     st = create_train_state(model, lr=1e-5)
     step = make_train_step(model, st.optimizer)
@@ -623,7 +624,6 @@ def test_device_store_gather_equals_place_entries_on_gpu(gpu):
     and gathered in another order equal place_entries over the same videos,
     bit for bit."""
     from nl_vsgg_tpu_torch.data.device_store import DeviceEntryStore
-    from nl_vsgg_tpu_torch.train.step import place_entries
     rng = np.random.default_rng(12)
     es = [make_synthetic_entry(rng, n_frames=8, objs_per_frame=3, bucket_boxes=32,
                                bucket_rels=24, feat_dim=2048) for _ in range(6)]
@@ -680,3 +680,31 @@ def test_native_grounding_equals_python_on_the_gpu_host(gpu, tmp_path):
                   "attention_gt", "spatial_gt", "contacting_gt", "num_frames"):
             a, b = getattr(nat, f), getattr(py, f)
             assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f
+
+
+def test_run_training_one_epoch_on_gpu(gpu, tmp_path):
+    """`tools.train_sttran.run_training` on the card at a narrow width: a
+    synthetic Action Genome split of 4 videos (chip_smoke.write_synthetic_ag),
+    1 epoch of bf16 STTran (1 + 1 layers, feat 64) through the attention
+    kernels, the device Entry store, the epoch eval and a checkpoint."""
+    import types
+
+    from chip_smoke import write_synthetic_ag
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.utils.checkpoint import latest_step
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    ag = write_synthetic_ag(str(tmp_path), 4, 4, 64, 2, 6, 3)
+    cfg = load_config(None, {
+        "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
+        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+        "save_path": str(tmp_path / "out"), "feat_dim": 64, "enc_layer": 1, "dec_layer": 1,
+        "dtype": "bfloat16", "batch_videos": 2, "num_workers": 2, "nepoch": 1,
+        "device_entry_store_gb": 1.0, "remove_one_frame_video": False,
+        "buckets": {"max_boxes": [16], "max_rels": [8]}})
+    ma.reset_launches()
+    st = ts.run_training(cfg, types.SimpleNamespace(max_videos=0, device=None), ts.build_model)
+    assert next(st.model.parameters()).is_cuda and st.step == 2 and st.skipped == 0
+    # 2 train steps of 2 attention layers, then the eval's 2 forwards
+    assert dict(ma.LAUNCHES) == {"fwd": 2 * 2 + 2 * 2, "bwd_dq": 2 * 2, "bwd_dkv": 2 * 2}
+    assert latest_step(str(tmp_path / "out" / "ckpt")) == 0

@@ -27,7 +27,7 @@ from nl_vsgg_tpu_torch import serve
 from nl_vsgg_tpu_torch.data.entry import Entry, empty_entry, stack_entries
 from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
 from nl_vsgg_tpu_torch.models.sttran import STTran
-from nl_vsgg_tpu_torch.train.step import eval_step
+from nl_vsgg_tpu_torch.train.step import eval_step, place_entries
 from tests.fixtures import load_tool
 
 FEAT = 2048
@@ -192,7 +192,7 @@ def test_bf16_compute_follows_fp32():
     b16 = STTran(feat_dim=FEAT, device="cpu", dtype=torch.bfloat16)
     b16.load_state_dict(f32.state_dict())
     batch = stack_entries(entries)
-    ref, out = eval_step(f32, batch), eval_step(b16, serve.place_batch(entries, "cpu", torch.bfloat16))
+    ref, out = eval_step(f32, batch), eval_step(b16, place_entries(entries, rel_bf16=True, device="cpu"))
     for k in ("attention_distribution", "spatial_distribution", "contacting_distribution"):
         assert out[k].dtype == torch.float32
         np.testing.assert_allclose(out[k].numpy(), ref[k].numpy(), atol=5e-2, err_msg=k)
