@@ -48,10 +48,12 @@ class TruncationCounter:
 class GroundingPrefetcher:
     """Runs `ground_fn(index) -> Entry | None` for each index on worker
     threads, yielding results in completion order with bounded lookahead,
-    or, with `ordered=True`, in the order of `indices` (results that finish
-    early wait for the ones before them; `indices` then distinct), so that
-    what a consumer builds from them does not depend on the workers'
-    timing."""
+    or, with `ordered=True`, in the order of `indices` (`indices` then
+    distinct), so that what a consumer builds from them does not depend on
+    the workers' timing. Ordered, results that finish early wait for the
+    ones before them, and no worker starts a position `prefetch` or more
+    past the next one to yield: a slow video stalls the stream, but at
+    most `prefetch` results are held, grounded or grounding, meanwhile."""
 
     def __init__(self, ground_fn: Callable[[int], Entry | None],
                  indices: Sequence[int], num_workers: int = 4,
@@ -59,6 +61,7 @@ class GroundingPrefetcher:
         self.ground_fn = ground_fn
         self.indices = list(indices)
         self.ordered = ordered
+        self._ahead = threading.Semaphore(prefetch) if ordered else None
         self.num_workers = max(1, num_workers)
         self.out: queue.Queue = queue.Queue(maxsize=prefetch)
         self._in: queue.Queue = queue.Queue()
@@ -70,9 +73,13 @@ class GroundingPrefetcher:
 
     def _worker(self):
         while True:
+            if self._ahead is not None:
+                self._ahead.acquire()
             try:
                 idx = self._in.get_nowait()
             except queue.Empty:
+                if self._ahead is not None:
+                    self._ahead.release()
                 return
             try:
                 self.out.put((idx, self.ground_fn(idx)))
@@ -100,6 +107,7 @@ class GroundingPrefetcher:
                 self._raise_first()
             if self.ordered:
                 item = early.pop(pos)
+                self._ahead.release()
             else:
                 item = self.out.get()
                 self._raise_first()

@@ -27,12 +27,11 @@ import torch
 
 from ..data import schema
 from ..device import resolve_device
-from ..models.dsg_detr import DSGDETR
 from ..train.state import create_train_state
 from ..utils.checkpoint import load_model_state, save_checkpoint
 from ..utils.config import load_config
 from ..utils.logging import setup_logger
-from .train_sttran import build_model, compute_dtype
+from . import train_dsg_detr, train_sttran
 
 _DEPTH_KEYS = {"sttran": (r"glocal_transformer\.local_attention\.layers\.(\d+)\.",
                           r"glocal_transformer\.global_attention\.layers\.(\d+)\."),
@@ -96,12 +95,8 @@ def main(argv=None) -> str:
                     f"(the config said {cfg.enc_layer}/{cfg.dec_layer}/{cfg.feat_dim}; the "
                     f"checkpoint wins)")
     cfg = cfg.replace(enc_layer=enc, dec_layer=dec, feat_dim=feat_dim)
-    if family == "sttran":
-        model = build_model(cfg, schema.load_taxonomy(), device)
-    else:
-        model = DSGDETR(mode=cfg.mode, obj_classes=tuple(schema.load_taxonomy().object_classes),
-                        enc_layer_num=enc, dec_layer_num=dec, feat_dim=feat_dim,
-                        dtype=compute_dtype(cfg), device=device)
+    builder = train_sttran if family == "sttran" else train_dsg_detr
+    model = builder.build_model(cfg, schema.load_taxonomy(), device)
     unused = load_model_state(model, sd)
     path = save_checkpoint(args.out, 0, create_train_state(model, cfg.lr, cfg.weight_decay,
                                                            cfg.grad_clip_norm),

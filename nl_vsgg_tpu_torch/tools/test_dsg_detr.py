@@ -39,8 +39,7 @@ def main(argv=None, read_frames=None):
     cfg = base_test.config_for(args)
     if cfg.mode == "sgcls":
         return base_test.evaluate_sgcls(cfg, args, setup_logger(), build_model_fn=build_model,
-                                        group_id_fn=sgcls_group_ids, read_frames=read_frames,
-                                        device=args.device)
+                                        group_id_fn=sgcls_group_ids, read_frames=read_frames)
     return base_test.main(argv, build_model_fn=build_model, read_frames=read_frames)
 
 

@@ -102,7 +102,7 @@ def make_gt_entry_builder(cfg, read_frames=None, device=None):
 
 
 def evaluate_sgcls(cfg, args, logger, build_model_fn=build_model, group_id_fn=None,
-                   read_frames=None, device=None) -> SceneGraphEvaluator:
+                   read_frames=None) -> SceneGraphEvaluator:
     """SGCLS evaluation with the reference's eval-time reassignment
     (lib/sttran.py:93-170, lib/dsg_detr.py:185-275), as two model passes:
 
@@ -115,8 +115,9 @@ def evaluate_sgcls(cfg, args, logger, build_model_fn=build_model, group_id_fn=No
     The evaluator reads the rebuilt Entry's labels and scores.
     `group_id_fn(entry, ds, idx) -> (n_boxes,) int32` gives DSG-DETR's
     tracklet ids (tools/test_dsg_detr); the box table is the same in both
-    stages, so one tracker pass serves both."""
-    device = resolve_device(device)
+    stages, so one tracker pass serves both. The model runs on
+    `args.device` (None: the card)."""
+    device = resolve_device(args.device)
     tax = schema.load_taxonomy()
     ds_test = ag_test_split(cfg)
     logger.info(f"test videos: {len(ds_test)}")
@@ -191,7 +192,7 @@ def main(argv=None, build_model_fn=build_model, read_frames=None) -> SceneGraphE
     logger = setup_logger()
     if cfg.mode == "sgcls":
         return evaluate_sgcls(cfg, args, logger, build_model_fn=build_model_fn,
-                              read_frames=read_frames, device=device)
+                              read_frames=read_frames)
     if not args.model_path:
         raise ValueError("--model_path is required for sgdet / predcls evaluation")
     tax = schema.load_taxonomy()

@@ -5,7 +5,8 @@ tools/train_DSG_DETR.py):
         [--nepoch N] [--bce_loss] [--max_videos N] [--device cpu]
 
 The loop is `tools.train_sttran.run_training` with the DSG-DETR builder:
-1 local and 3 global encoder layers, as the JAX tool builds it. In the
+cfg.enc_layer local and cfg.dec_layer global encoder layers, 1 and 3 in
+the shipped config, the depths the JAX tool builds. In the
 shipped sgdet path the reference calls its tracker after the model has
 consumed the entry, so tracklets never reach training; the model derives
 its temporal groups from the object classes.
@@ -23,8 +24,9 @@ def build_model(cfg, tax, device=None) -> DSGDETR:
     """DSG-DETR for `cfg` on `device` (None: the card), weights drawn from a
     generator seeded cfg.seed, class embeddings from GloVe."""
     g36, g37 = glove_tables(cfg, tax)
-    return DSGDETR(mode=cfg.mode, obj_classes=tuple(tax.object_classes), enc_layer_num=1,
-                   dec_layer_num=3, feat_dim=cfg.feat_dim, glove_obj36=g36, glove_obj37=g37,
+    return DSGDETR(mode=cfg.mode, obj_classes=tuple(tax.object_classes),
+                   enc_layer_num=cfg.enc_layer, dec_layer_num=cfg.dec_layer,
+                   feat_dim=cfg.feat_dim, glove_obj36=g36, glove_obj37=g37,
                    dtype=compute_dtype(cfg), device=device,
                    generator=torch.Generator().manual_seed(cfg.seed))
 

@@ -425,12 +425,12 @@ def ag_test_split(cfg) -> AGTest:
                   else os.path.join(cfg.data_path, "annotations"))
 
 
-def run_training(cfg, args, build_model_fn, device=None):
+def run_training(cfg, args, build_model_fn):
     """The training loop (STTran and DSG-DETR differ only in
-    `build_model_fn(cfg, tax, device)`). `device` (None: args.device, then
-    the card) is where the model, its batches and the Entry store live.
-    Returns the final TrainState."""
-    device = resolve_device(device if device is not None else getattr(args, "device", None))
+    `build_model_fn(cfg, tax, device)`). `args.device` (None: the card) is
+    where the model, its batches and the Entry store live. Returns the final
+    TrainState."""
+    device = resolve_device(args.device)
     check_trainable(cfg, device)
     logger = setup_logger(save_dir=cfg.save_path)
     os.makedirs(cfg.save_path, exist_ok=True)

@@ -1,17 +1,23 @@
 """The port's entry points against the JAX tools on a micro Action Genome
 (4 videos x 4 frames, feat 64) with a narrow model (1 + 1 layers):
 
-- `run_training`, 2 epochs, against the JAX tool's `run_training` (its mesh
-  {data: 1, model: 1}, the single-device path; dropout off on both sides;
-  the port starts from the JAX tool's initial weights through
-  `models/convert.sttran_from_jax`): the lr after each epoch, `step` and
-  `skipped` equal; each epoch's mean R@20 within 0.5 points
-  (tools/acceptance.py's GATE_PTS); the final parameters and BatchNorm
-  buffers within 2e-4 of each tensor's largest magnitude (optax and torch
-  form AdamW's bias correction in other precisions, about 7e-6 of an
-  update, tests/test_torch_optim.py) or of Adam's excursion, 2 lr a step:
-  Adam moves an element whose gradient is rounding noise (a bias feeding a
-  train-mode BatchNorm) by up to lr a step in either package;
+- `run_training`, 2 epochs of 2 steps, against the JAX tool's
+  `run_training` (its mesh {data: 1, model: 1}, the single-device path;
+  dropout off on both sides; the port starts from the JAX tool's initial
+  weights through `models/convert.sttran_from_jax`), at lr 1e-3 so that
+  4 Adam steps move the weights far past float32 drift: each step's four
+  losses and total, recorded from both tools' `make_train_step`, within
+  4e-4 relative (tests/test_torch_train.py's tolerance), which holds the
+  loop to the same batches in the same order and the same updates; the lr
+  after each epoch, `step` and `skipped` equal; each epoch's mean R@20
+  within 0.5 points (tools/acceptance.py's GATE_PTS); each tensor's
+  training change (final - initial) within 1e-2 of the JAX tool's change
+  in L2 norm, relative to that change's norm (Adam gives an element whose
+  gradient is rounding noise a full step of either sign, so an elementwise
+  bound would not hold), and the port's own weights moved. The one
+  exception is the bias of a Linear that feeds a train-mode BatchNorm
+  directly: its gradient is zero but for rounding, so both tools move it
+  by noise, each by less than one Adam step (lr);
 - resume, port only: 1 epoch then a resumed run to 2 equals a straight
   2-epoch run exactly on the CPU (parameters, AdamW's moments and step
   counts, `step`, the scheduler's state), dropout on, the device Entry
@@ -63,10 +69,12 @@ from tests.test_torch_gt_entry import classify_fn, feature_fn, union_fn
 
 FEAT, VIDEOS = 64, 4
 GATE_PTS = 0.5          # tools/acceptance.py:65, in R@20 points
-LR, STEPS = 1e-5, 4      # the config's lr; 2 steps an epoch
-PARAM_TOL = 2e-4        # of each tensor's largest magnitude, or Adam's excursion:
-ADAM_TOL = 2 * LR * STEPS  # an element whose gradient is rounding noise moves up to lr a
-# step in either package (tests/test_torch_train.py's bound)
+LR, STEPS = 1e-3, 4      # the config's lr; 2 steps an epoch
+LOSS_RTOL = 4e-4        # tests/test_torch_train.py: float32 reduction-order drift
+DELTA_TOL = 1e-2        # of the L2 norm of each tensor's training change
+BN_FED = ("object_classifier.decoder_lin.0.bias",)  # Linear -> train-mode BatchNorm
+LOSSES = ("object_loss", "attention_relation_loss", "spatial_relation_loss",
+          "contact_relation_loss", "total")
 
 
 class _Args:
@@ -120,8 +128,19 @@ def jax_run(micro, jtools, tmp_path_factory):
     jtool = jtools["train_STTran"]
     out = str(tmp_path_factory.mktemp("jrun"))
     jcfg = j_load_config(None, _overrides(micro, out, mesh={"data": 1, "model": 1}))
-    init = {}
+    init, losses = {}, []
     real = jtool.create_train_state
+    real_step = jtool.make_train_step
+
+    def recording_step(model, tx, bce=True):
+        step = real_step(model, tx, bce=bce)
+
+        def wrapped(state, batch, rng):
+            state, m = step(state, batch, rng)
+            jax.debug.callback(lambda m: losses.append({k: float(v) for k, v in m.items()}),
+                               {k: m[k] for k in LOSSES}, ordered=True)
+            return state, m
+        return wrapped
 
     def capture(model, sample, rng, tx=None):
         state, tx = real(model, sample, rng, tx=tx)
@@ -130,11 +149,12 @@ def jax_run(micro, jtools, tmp_path_factory):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtool, "create_train_state", capture)
+        mp.setattr(jtool, "make_train_step", recording_step)
         _no_flax_dropout(mp)
         state = jtool.run_training(jcfg, _Args(), jtool.build_model)
     records = _epoch_records(out)
     shutil.rmtree(out, ignore_errors=True)
-    return dict(init, state=state, records=records)
+    return dict(init, state=state, records=records, losses=losses)
 
 
 def _jax_weights(params, stats):
@@ -146,17 +166,36 @@ def _jax_weights(params, stats):
     return build
 
 
-def test_run_training_matches_jax(micro, jax_run, tmp_path):
+def test_run_training_matches_jax(micro, jax_run, tmp_path, monkeypatch):
     out = str(tmp_path / "run")
     cfg = load_config(None, _overrides(micro, out))
+    losses = []
+    real_step = ts.make_train_step
+
+    def recording_step(model, optimizer, bce=True):
+        step = real_step(model, optimizer, bce=bce)
+
+        def wrapped(state, batch, generator):
+            state, m = step(state, batch, generator)
+            losses.append({k: float(m[k]) for k in LOSSES})
+            return state, m
+        return wrapped
+
+    monkeypatch.setattr(ts, "make_train_step", recording_step)
     st = ts.run_training(cfg, _Args(), _jax_weights(jax_run["params"], jax_run["stats"]))
+    ref_losses = jax_run["losses"]
+    assert len(losses) == len(ref_losses) == STEPS
+    for i, (a, b) in enumerate(zip(losses, ref_losses)):
+        for k in LOSSES:
+            np.testing.assert_allclose(a[k], b[k], rtol=LOSS_RTOL, atol=1e-6,
+                                       err_msg=f"step {i} {k}")
     ours, ref = _epoch_records(out), jax_run["records"]
     assert [r["epoch"] for r in ours] == [r["epoch"] for r in ref] == [0, 1]
     for a, b in zip(ours, ref):
         assert a["lr"] == b["lr"] and a["step"] == b["step"]
         assert abs(a["mean_r20"] - b["mean_r20"]) * 100 <= GATE_PTS, (a, b)
     jst = jax_run["state"]
-    assert st.step == int(jst.step) == 4 and st.skipped == int(jst.skipped) == 0
+    assert st.step == int(jst.step) == STEPS and st.skipped == int(jst.skipped) == 0
     want = sttran_from_jax(jax.device_get(jst.params), jax.device_get(jst.batch_stats))
     start = sttran_from_jax(jax_run["params"], jax_run["stats"])
     got = st.model.state_dict()
@@ -164,10 +203,14 @@ def test_run_training_matches_jax(micro, jax_run, tmp_path):
     for k, v in want.items():
         if not v.is_floating_point():
             continue
-        tol = max(PARAM_TOL * float(v.abs().max()), ADAM_TOL)
-        assert float((got[k] - v).abs().max()) <= tol, k
-        moved += not torch.equal(start[k], v)
-    assert moved > 10  # the weights trained
+        d_want, d_got = v - start[k], got[k] - start[k]
+        if k in BN_FED:
+            assert float(d_want.abs().max()) < LR and float(d_got.abs().max()) < LR, k
+            continue
+        scale = float(d_want.norm())
+        assert float((d_got - d_want).norm()) <= DELTA_TOL * scale, k
+        moved += scale > 0 and not torch.equal(got[k], start[k])
+    assert moved > 50  # the port's weights trained
 
 
 def _read_log(records):
@@ -315,7 +358,7 @@ def test_evaluate_sgcls_matches_jax(micro, jtools, family, monkeypatch, tmp_path
             m = STTran(mode="sgcls", feat_dim=FEAT, dec_layer_num=1, device=device)
             m.load_state_dict(sttran_from_jax(init["params"], init["stats"]), strict=True)
             return m
-        ev = test_sttran.evaluate_sgcls(cfg, _Args(), log, build_model_fn=build, device="cpu")
+        ev = test_sttran.evaluate_sgcls(cfg, _Args(), log, build_model_fn=build)
     else:
         jdsg = jtools["test_DSG_DETR"]
         jev = jtest.evaluate_sgcls(jcfg, _Args(), log, build_model_fn=lambda c, t: JDSGDETR(
@@ -326,8 +369,7 @@ def test_evaluate_sgcls_matches_jax(micro, jtools, family, monkeypatch, tmp_path
             m.load_state_dict(dsg_detr_from_jax(init["params"], init["stats"]), strict=True)
             return m
         ev = test_sttran.evaluate_sgcls(cfg, _Args(), log, build_model_fn=build,
-                                        group_id_fn=test_dsg_detr.sgcls_group_ids,
-                                        device="cpu")
+                                        group_id_fn=test_dsg_detr.sgcls_group_ids)
     for name in ("recall", "recall_nogc", "semi_recall"):
         for k in (10, 20, 50):
             a, b = getattr(ev, name)[k], getattr(jev, name)[k]

@@ -125,3 +125,32 @@ def test_ordered_prefetcher_yields_in_index_order():
     assert got == [(i, i * 10) for i in order]
     free = list(GroundingPrefetcher(ground, order, num_workers=6))
     assert sorted(free) == sorted(got)
+
+
+def test_ordered_prefetcher_holds_at_most_prefetch_behind_a_slow_video():
+    """Ordered, a slow video at the head of the stream stalls it, and the
+    workers do not ground the rest of the epoch meanwhile: at most
+    `prefetch` positions are started and not yet yielded at any time."""
+    import threading
+    import time
+
+    from nl_vsgg_tpu_torch.data.pipeline import GroundingPrefetcher
+
+    prefetch, lock = 3, threading.Lock()
+    held = {"now": 0, "peak": 0}
+
+    def ground(i):
+        with lock:
+            held["now"] += 1
+            held["peak"] = max(held["peak"], held["now"])
+        time.sleep(0.3 if i in (0, 10) else 1e-3)
+        return i
+
+    got = []
+    for idx, e in GroundingPrefetcher(ground, range(20), num_workers=6, prefetch=prefetch,
+                                      ordered=True):
+        got.append(e)
+        with lock:
+            held["now"] -= 1
+    assert got == list(range(20))
+    assert held["peak"] == prefetch
