@@ -175,9 +175,28 @@ Phases, in order; any failure exits non-zero before the result line:
      DSG-DETR trained 1 epoch and its sgcls test flow (6 tiled launches a
      video at D = 297); `predict` = `serve.predict` (PREDICT_TOL); the
      relation-checkpoint converter round trip, and a removed key refused;
- 15. the `kernels` JSON line (each row with `launches_entry_points`, phase
-     14's launches), then the device JSON line, last; the line before them
-     prints the card and the script's total wall time.
+ 15. the offline label pipeline (`offline_phases`): a synthetic DAC
+     LLM_cp.pt (CLIP ViT-B/32, about 151 M weights, rank-4 LoRA adapters in
+     all three spellings, seeded) converted with the LoRA merged, both towers
+     on the card in float32; `encode_for_adv` on 8 videos x 32 frames (256
+     images of 224x224x3) and 3 caption groups a video of 1-3 sentences,
+     tokenised to 77 by the port's SimpleTokenizer over a synthetic merge
+     table, once through the attention kernel (12 per-element launches an
+     image forward, 12 tiled a text forward, counted by route, or the run
+     fails) and once through plain attention (unit embeddings within
+     CLIP_TOL); the towers' images/s and sentences/s on both paths, one
+     attention launch at each tower's shape beside its plain version, SDPA
+     and the bound; `validate_ckpt clip` on the file (_ok 1) and on a copy
+     with an orphan adapter (_ok 0); `preprocess` tcs -> triplets -> adv ->
+     negatives and img-info with stub LLMs and a frame reader, every pickle
+     in its schema; phase 8's detector weights as a VinVL .pth ->
+     `convert_vinvl` -> .npz -> `preprocess features` on 2 videos x 4 frames,
+     equal to `detect_video` with the state dict bitwise, with its RoIAlign
+     and grouped-conv launches counted;
+ 16. the `kernels` JSON line (each row with `launches_entry_points`, phase
+     14's launches, and `launches_offline`, phase 15's), then the device
+     JSON line, last; the line before them prints the card and the script's
+     total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -602,26 +621,13 @@ def det_kernel_err(out, ref) -> tuple[float, bool]:
 
 
 def detector_weights(seed: int, dev) -> dict:
-    """Random full-width AttrRCNN weights from a seeded generator: convs at
-    fan-in scale (He), the residual branches' last FrozenBN scales (bn3,
-    downsample) 0.2 so that the C4 map stays O(1) through 50 blocks, other
-    FrozenBN scales 1, biases 0, predictor weights N(0, 0.01^2)."""
-    import torch
-    from nl_vsgg_tpu_torch.detector.attr_rcnn import AttrRCNNModule
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in AttrRCNNModule().state_dict().items()}
-    g = torch.Generator(device=dev).manual_seed(seed)
-    sd = {}
-    for k, shp in shapes.items():
-        if k.endswith(".weight"):
-            std = (2.0 / float(np.prod(shp[1:]))) ** 0.5 if len(shp) == 4 else 0.01
-            sd[k] = torch.randn(shp, generator=g, device=dev) * std
-        elif k.endswith(".scale"):
-            small = k.endswith(("bn3.scale", "downsample_bn.scale"))
-            sd[k] = torch.full(shp, 0.2 if small else 1.0, device=dev)
-        else:
-            sd[k] = torch.zeros(shp, device=dev)
-    return sd
+    """Random full-width AttrRCNN weights from a generator on the card
+    (`detector.attr_rcnn.random_state_dict`): convs at fan-in scale (He),
+    the residual branches' last FrozenBN scales (bn3, downsample) 0.2 so
+    that the C4 map stays O(1) through 50 blocks, other FrozenBN scales 1,
+    biases 0, predictor weights N(0, 0.01^2)."""
+    from nl_vsgg_tpu_torch.detector.attr_rcnn import random_state_dict
+    return random_state_dict(seed, dev)
 
 
 def path_rois(g, n_frames: int, per_frame: int, H: int, W: int, dev):
@@ -3268,6 +3274,406 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
     return counts
 
 
+P15_VIDEOS, P15_FRAMES = 8, 32   # encode_for_adv's videos x frames (256 images of 224x224x3)
+P15_GROUPS = 3                   # caption groups a video, of 1-3 sentences each
+P15_DET_VIDEOS, P15_DET_FRAMES = 2, 4  # `preprocess features` from the converted .npz
+CLIP_TOL = 1e-4                  # unit embeddings, kernel path vs plain path, float32
+P15_PREDICATES = ("holding", "looking at", "touching", "sitting on", "in front of", "wearing",
+                  "beneath", "carrying")
+
+
+def dac_checkpoint(path: str, seed: int) -> dict:
+    """A synthetic DAC LLM_cp.pt at ViT-B/32's full width (about 151 M
+    weights) written with torch.save under 'state_dict': open_clip's keys,
+    LayerNorms at 1 and 0, zero biases, weights N(0, 0.02^2) from a seeded
+    CPU generator, and rank-4 LoRA adapters N(0, 0.1^2) in all three
+    spellings on every block (out_proj.lora_A, c_fc.lora_A.weight,
+    in_proj.lora_A; tests/test_validate_ckpt.py's key set). Returns it."""
+    import torch
+
+    from nl_vsgg_tpu_torch.pipelines import clip as C
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, s=0.02):
+        return torch.randn(shape, generator=g) * s
+
+    sd = {"visual.conv1.weight": rnd(C.VISION_WIDTH, 3, C.PATCH, C.PATCH),
+          "visual.class_embedding": rnd(C.VISION_WIDTH),
+          "visual.positional_embedding": rnd(50, C.VISION_WIDTH),
+          "visual.proj": rnd(C.VISION_WIDTH, C.EMBED_DIM),
+          "token_embedding.weight": rnd(C.VOCAB, C.TEXT_WIDTH),
+          "positional_embedding": rnd(C.CONTEXT, C.TEXT_WIDTH),
+          "text_projection": rnd(C.TEXT_WIDTH, C.EMBED_DIM)}
+    for key, w in (("visual.ln_pre", C.VISION_WIDTH), ("visual.ln_post", C.VISION_WIDTH),
+                   ("ln_final", C.TEXT_WIDTH)):
+        sd[key + ".weight"], sd[key + ".bias"] = torch.ones(w), torch.zeros(w)
+    for prefix, w, n in (("visual.transformer.resblocks", C.VISION_WIDTH, C.VISION_LAYERS),
+                         ("transformer.resblocks", C.TEXT_WIDTH, C.TEXT_LAYERS)):
+        for i in range(n):
+            p = f"{prefix}.{i}"
+            for ln in ("ln_1", "ln_2"):
+                sd[f"{p}.{ln}.weight"], sd[f"{p}.{ln}.bias"] = torch.ones(w), torch.zeros(w)
+            sd.update({p + ".attn.in_proj_weight": rnd(3 * w, w),
+                       p + ".attn.in_proj_bias": torch.zeros(3 * w),
+                       p + ".attn.out_proj.weight": rnd(w, w),
+                       p + ".attn.out_proj.bias": torch.zeros(w),
+                       p + ".mlp.c_fc.weight": rnd(4 * w, w), p + ".mlp.c_fc.bias": torch.zeros(4 * w),
+                       p + ".mlp.c_proj.weight": rnd(w, 4 * w), p + ".mlp.c_proj.bias": torch.zeros(w),
+                       p + ".attn.out_proj.lora_A": rnd(4, w, s=0.1),
+                       p + ".attn.out_proj.lora_B": rnd(w, 4, s=0.1),
+                       p + ".mlp.c_fc.lora_A.weight": rnd(4, w, s=0.1),
+                       p + ".mlp.c_fc.lora_B.weight": rnd(4 * w, 4, s=0.1),
+                       p + ".attn.in_proj.lora_A": rnd(4, w, s=0.1),
+                       p + ".attn.in_proj.lora_B": rnd(3 * w, 4, s=0.1)})
+    torch.save({"state_dict": sd}, path)
+    return sd
+
+
+def merge_table(words) -> list[tuple[str, str]]:
+    """A synthetic BPE merge table that builds each word left to right
+    (the real CLIP vocabulary file is not in the repository)."""
+    merges, seen = [], set()
+    for w in words:
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        cur = parts[0]
+        for p in parts[1:]:
+            if (cur, p) not in seen:
+                seen.add((cur, p))
+                merges.append((cur, p))
+            cur += p
+    return merges
+
+
+def launches_by_route(ma, run) -> dict:
+    """The forward launches one `run()` makes, by route ("staged", "tiled",
+    "per-element"), read from LAUNCHES around each call of the forward
+    launch (`_forward_cuda`)."""
+    counts = {}
+    orig = ma._forward_cuda
+
+    def counting(q, k, v, *args, **kw):
+        before = ma.LAUNCHES["fwd"]
+        res = orig(q, k, v, *args, **kw)
+        route = ma.fwd_route(q, k, v)
+        counts[route] = counts.get(route, 0) + ma.LAUNCHES["fwd"] - before
+        return res
+
+    ma._forward_cuda = counting
+    try:
+        run()
+    finally:
+        ma._forward_cuda = orig
+    return counts
+
+
+def offline_phases(dev, card) -> tuple[dict, list[dict]]:
+    """Phase 15: the offline label pipeline. A synthetic DAC LLM_cp.pt
+    (ViT-B/32, rank-4 LoRA) converted and run at full width on the card:
+    `encode_for_adv` on P15_VIDEOS videos x P15_FRAMES frames and
+    P15_GROUPS caption groups a video, tokenised by the port's
+    SimpleTokenizer, through the attention kernel (12 per-element launches
+    an image forward, 12 tiled a text forward, or the run fails) and
+    through plain attention (unit embeddings within CLIP_TOL); the towers
+    and one attention launch of each timed; `validate_ckpt clip` on the
+    file (and an orphan adapter refused); the preprocess chain tcs ->
+    triplets -> adv -> negatives and img-info with stub LLMs and a frame
+    reader; a VinVL .pth -> `convert_vinvl` -> .npz -> `preprocess
+    features` equal to `detect_video` bitwise. Returns the phase's launch
+    counts by `kernels` row name and the two CLIP attention rows."""
+    import pickle
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.detector.attr_rcnn import AttrRCNNTorch
+    from nl_vsgg_tpu_torch.detector.convert import to_maskrcnn_state_dict
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, masked_attention as ma, roi_align as ra
+    from nl_vsgg_tpu_torch.pipelines import clip as C
+    from nl_vsgg_tpu_torch.pipelines.tokenizer import SimpleTokenizer
+    from nl_vsgg_tpu_torch.tools import convert_vinvl, preprocess, validate_ckpt
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase15_", dir=os.path.join(HERE, "build"))
+    counts = {}
+    try:
+        # ---- 1. CLIP at full width: the DAC checkpoint, converted, both towers ----
+        ckpt = os.path.join(root, "LLM_cp.pt")
+        t0 = time.perf_counter()
+        raw = dac_checkpoint(ckpt, seed=15)
+        n_weights = sum(v.numel() for k, v in raw.items() if ".lora_" not in k)
+        log(f"synthetic DAC LLM_cp.pt: {n_weights} weights + "
+            f"{sum(v.numel() for k, v in raw.items() if '.lora_' in k)} LoRA, "
+            f"{os.path.getsize(ckpt)} bytes, written in {time.perf_counter() - t0:.3f} s")
+        del raw
+        t0 = time.perf_counter()
+        loaded = torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"]
+        visual_sd, text_sd = C.convert_clip_state_dict(loaded)
+        del loaded
+        towers = {fused: C.build_towers(visual_sd, text_sd, dev, fused=fused)
+                  for fused in (True, False)}
+        torch.cuda.synchronize()
+        log(f"convert_clip_state_dict (LoRA merged) and both towers on the card, kernel and "
+            f"plain attention: {time.perf_counter() - t0:.3f} s")
+
+        tax = schema.load_taxonomy()
+        oi_to_ag, ag_to_oi = schema.load_oi_ag_maps()
+        names = list(tax.object_classes_pipeline)
+        objects = [n for i, n in enumerate(names) if i >= 2 and "/" not in n and ag_to_oi.get(i)
+                   and oi_to_ag[ag_to_oi[i][0]][:1] == [i]]
+        words = sorted({w for p in P15_PREDICATES for w in p.split()} | set(objects)
+                       | {"the", "person", "is", "a"})
+        tok = SimpleTokenizer(merges=merge_table(words))
+        rng = np.random.default_rng(15)
+        videos = [f"p15_{v:03d}.mp4" for v in range(P15_VIDEOS)]
+        pairs = [(p, o) for p in P15_PREDICATES for o in objects]
+        groups = {}
+        for vid in videos:          # distinct sentences within a video, 1-3 a group
+            sizes = rng.integers(1, 4, P15_GROUPS)
+            picked = iter(rng.choice(len(pairs), int(sizes.sum()), replace=False))
+            groups[vid] = [["The person is {} a {}".format(*pairs[next(picked)])
+                            for _ in range(n)] for n in sizes]
+        tokens = {vid: [tok.tokenize(g) for g in groups[vid]] for vid in videos}
+        images = {vid: rng.standard_normal((P15_FRAMES, C.IMAGE_SIZE, C.IMAGE_SIZE, 3),
+                                           dtype=np.float32) for vid in videos}
+        n_sent = sum(len(g) for vid in videos for g in groups[vid])
+        log(f"captions: {n_sent} sentences in {P15_VIDEOS * P15_GROUPS} groups, "
+            f"tokenised to {C.CONTEXT} over a {len(tok.bpe_ranks)}-merge table (EOT id "
+            f"{tok.eot}); images: {P15_VIDEOS} x {P15_FRAMES} of {C.IMAGE_SIZE}x{C.IMAGE_SIZE}x3")
+
+        emb, walls, routes = {}, {}, {}
+        for fused in (True, False):
+            image_tower, text_tower = towers[fused]
+            out = {}
+
+            def encode():
+                for vid in videos:
+                    out[vid] = C.encode_for_adv(image_tower, text_tower, images[vid], tokens[vid])
+
+            ma.reset_launches()
+            t0 = time.perf_counter()
+            routes[fused] = launches_by_route(ma, encode)
+            torch.cuda.synchronize()
+            walls[fused] = time.perf_counter() - t0
+            if sum(routes[fused].values()) != ma.LAUNCHES["fwd"]:
+                fail(f"CLIP launches by route {routes[fused]} do not sum to {dict(ma.LAUNCHES)}")
+            emb[fused] = out
+        want = {"per-element": 12 * P15_VIDEOS, "tiled": 12 * P15_VIDEOS * P15_GROUPS}
+        log(f"encode_for_adv (fp32, TF32 off: kernel and plain paths' linears in full float32): "
+            f"kernel path {walls[True]:.3f} s wall, attention launches by route {routes[True]}; "
+            f"plain path {walls[False]:.3f} s, launches {routes[False]}")
+        if routes[True] != want or routes[False]:
+            fail(f"CLIP attention launched {routes[True]} (kernel path) and {routes[False]} "
+                 f"(plain path); expected {want}: 12 per-element an image forward, 12 tiled a "
+                 f"text forward, none on the plain path")
+        worst = 0.0
+        for vid in videos:
+            (fk, tk), (fp, tp) = emb[True][vid], emb[False][vid]
+            if fk.shape != (P15_FRAMES, C.EMBED_DIM) or [t.shape[0] for t in tk] != \
+                    [len(g) for g in groups[vid]]:
+                fail(f"encode_for_adv shapes {fk.shape}, {[t.shape for t in tk]}")
+            for a, b in zip([fk] + tk, [fp] + tp):
+                if not np.isfinite(a).all() or np.abs(np.linalg.norm(a, axis=1) - 1).max() > 1e-5:
+                    fail("encode_for_adv gave non-finite or non-unit embeddings")
+                worst = max(worst, float(np.abs(a - b).max()))
+        log(f"CLIP unit embeddings, kernel vs plain attention: max |d| {worst:.3e} "
+            f"(tol {CLIP_TOL})")
+        if worst > CLIP_TOL:
+            fail(f"CLIP kernel path differs from the plain path by {worst:.3e} > {CLIP_TOL}")
+        counts["masked_mha_clip_vision"] = routes[True]["per-element"]
+        counts["masked_mha_clip_text"] = routes[True]["tiled"]
+
+        # ---- 2. times: the towers, and one attention launch at each tower's shape ----
+        x32 = torch.as_tensor(images[videos[0]], device=dev)
+        big = max((t for vid in videos for t in tokens[vid]), key=len)
+        t3 = torch.as_tensor(big, device=dev)
+        with torch.inference_mode():
+            for fused in (True, False):
+                image_tower, text_tower = towers[fused]
+                ims = cuda_ms(lambda: image_tower(x32), iters=10)
+                tms = cuda_ms(lambda: text_tower(t3), iters=10)
+                log(f"CLIP {'kernel' if fused else 'plain'} attention: image tower {ims:.3f} ms "
+                    f"a {P15_FRAMES}-frame forward = {P15_FRAMES / ims * 1e3:.1f} images/s; "
+                    f"text tower {tms:.3f} ms a {len(big)}-sentence forward = "
+                    f"{len(big) / tms * 1e3:.1f} sentences/s")
+            vis_calls = capture_attention(towers[True][0], lambda: towers[True][0](x32))
+            txt_calls = capture_attention(towers[True][1], lambda: towers[True][1](t3))
+        if len(vis_calls) != 12 or len(txt_calls) != 12:
+            fail(f"captured {len(vis_calls)} / {len(txt_calls)} CLIP attention calls, expected 12")
+        rows = {"vision": time_eval_calls(ma, vis_calls[:1], "per-element", "CLIP vision attention"),
+                "text": time_eval_calls(ma, txt_calls[:1], "tiled", "CLIP text attention")}
+        clip_rows = [attention_row("masked_mha_clip_vision", 143, counts["masked_mha_clip_vision"],
+                                   rows["vision"]),
+                     attention_row("masked_mha_clip_text", 143, counts["masked_mha_clip_text"],
+                                   rows["text"])]
+        for name, r in rows.items():
+            log(f"CLIP {name} attention, one launch: kernel {r['ms']:.4f} ms, at "
+                f"{r['bound_ms'] / r['ms'] * 100:.1f}% of its bound {r['bound_ms']:.4f} ms, "
+                f"SDPA {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        del towers
+
+        # ---- 3. validate_ckpt clip on the card ----
+        t0 = time.perf_counter()
+        diffs = C.validate_checkpoint(ckpt, device=dev, log=log)
+        if diffs.pop("_ok") != 1.0 or validate_ckpt.main(["clip", ckpt]) != 0:
+            fail(f"validate_ckpt clip refused the synthetic DAC checkpoint: {diffs}")
+        orphan = torch.load(ckpt, map_location="cpu", weights_only=False)
+        orphan["state_dict"]["visual.unknown_module.lora_A"] = torch.zeros(4, C.VISION_WIDTH)
+        bad = os.path.join(root, "LLM_cp_orphan.pt")
+        torch.save(orphan, bad)
+        del orphan
+        bad_diffs = C.validate_checkpoint(bad, device=dev, log=lambda m: None)
+        if bad_diffs["_ok"] != 0.0 or bad_diffs.get("unconsumed_lora_keys") != 1.0:
+            fail(f"validate_ckpt clip took an orphan LoRA adapter: {bad_diffs}")
+        log(f"validate_ckpt clip on the card: {diffs}, _ok 1; the orphan-adapter file _ok 0 "
+            f"({time.perf_counter() - t0:.3f} s)")
+
+        # ---- 4. the CLI chain with stub LLMs ----
+        t0 = time.perf_counter()
+        frame_names = [f"{i + 1:06d}.png" for i in range(P15_FRAMES)]
+        with open(os.path.join(root, "captions.csv"), "w") as f:
+            f.write("id,descriptions\n" + "".join(
+                f"{vid[:-4]},{';'.join(' then '.join(g) for g in groups[vid])}\n"
+                for vid in videos))
+        with open(os.path.join(root, "ids.pkl"), "wb") as f:
+            pickle.dump({vid: frame_names for vid in videos}, f)
+        with open(os.path.join(root, "emb.pkl"), "wb") as f:
+            pickle.dump({vid: {"text": emb[True][vid][1], "frames": emb[True][vid][0]}
+                         for vid in videos}, f)
+        sentence = re.compile(r"Input: The person is (.+?) a (\S+?)\. Output: ")
+
+        def tcs_llm(prompt):
+            caption = prompt.rsplit("Input: ", 1)[1].rsplit(". \n", 1)[0]
+            return "Output:  " + " >> ".join(s + "." for s in caption.split(" then "))
+
+        def triplet_llm(prompt):
+            return "\n".join(
+                f"Input: The person is {p} a {o}. Output: Step 1: <person, {p}, {o}>. "
+                f"Step 2: <1.person, 1.{p}, 1.{o}>." for p, o in sentence.findall(prompt))
+
+        def out(name):
+            return os.path.join(root, name)
+
+        preprocess.main(["tcs", "--captions", out("captions.csv"), "--frame_ids", out("ids.pkl"),
+                         "--output", out("split.pkl")], llm=tcs_llm)
+        preprocess.main(["triplets", "--split_actions", out("split.pkl"), "--frame_ids",
+                         out("ids.pkl"), "--output", out("tri.pkl")], llm=triplet_llm)
+        preprocess.main(["adv", "--triplets", out("tri.pkl"), "--embeddings", out("emb.pkl"),
+                         "--semi_output", out("semi.pkl"), "--output", out("final.pkl")])
+        for vid in videos:                   # a person, each triplet object leaving it
+            objs = sorted({o for g in groups[vid] for s in g for o in [s.rsplit(" ", 1)[1]]})
+            for i, fr in enumerate(frame_names):
+                d = os.path.join(root, "frame_features", vid, fr)
+                os.makedirs(d)
+                dets = [{"class": ag_to_oi[1][0], "conf": np.float32(0.9),
+                         "rect": np.array([10, 10, 100, 200], np.float32)}]
+                for j, o in enumerate(objs):
+                    x0 = 10 + (20 + 5 * j) * i
+                    dets.append({"class": ag_to_oi[names.index(o)][0], "conf": np.float32(0.8),
+                                 "rect": np.array([x0, 10, x0 + 90, 200], np.float32)})
+                np.save(os.path.join(d, "dets.npy"), np.asarray(dets, object), allow_pickle=True)
+        preprocess.main(["negatives", "--final", out("final.pkl"), "--semi", out("semi.pkl"),
+                         "--features", out("frame_features"), "--output", out("neg.pkl")])
+        for vid in videos:
+            os.makedirs(os.path.join(root, "frames", vid))
+            open(os.path.join(root, "frames", vid, frame_names[0]), "w").close()
+        preprocess.main(["img-info", "--frames", out("frames"), "--output", out("info.pkl")],
+                        read_image=lambda p: np.zeros((480, 640, 3), np.uint8))
+        got = {n: pickle.load(open(out(n + ".pkl"), "rb"))
+               for n in ("split", "tri", "semi", "final", "neg", "info")}
+        problems = []
+        if got["split"] != {vid: groups[vid] for vid in videos}:
+            problems.append("split_action_dict is not the caption groups")
+        for vid in videos:
+            rec = got["tri"].get(vid, {})
+            if rec.get("frame_list") != frame_names or not all(
+                    t for g in rec.get("triplets", []) for t in g):
+                problems.append(f"{vid}: triplets record {sorted(rec)}")
+            semi = got["semi"].get(vid, {})
+            if len(semi.get("mapped_frame", [])) != sum(len(g) for g in groups[vid]):
+                problems.append(f"{vid}: semi record {sorted(semi)}")
+            if len(got["neg"].get(vid, [])) != P15_FRAMES or not any(
+                    {"class", "bbox", "attention_relationship", "spatial_relationship",
+                     "contacting_relationship"} <= set(d) for fr in got["neg"][vid] for d in fr):
+                problems.append(f"{vid}: final_ag_data_w_neg frames")
+            info = got["info"].get(vid)
+            if info is None or tuple(info.shape) != (1, 3) or info.dtype != torch.float32 or \
+                    info.tolist() != [[600.0, 800.0, 1.25]]:
+                problems.append(f"{vid}: ag_img_info {info}")
+        if problems:
+            fail(f"the preprocess chain: {problems[:4]}")
+        negs = sum(1 in d["attention_relationship"] for vid in videos for fr in got["neg"][vid]
+                   for d in fr if "class" in d)
+        log(f"preprocess tcs -> triplets -> adv -> negatives, img-info ({P15_VIDEOS} videos, "
+            f"stub LLMs, a frame reader): every pickle in schema, {negs} negative "
+            f"'not looking at' labels; {time.perf_counter() - t0:.3f} s")
+
+        # ---- 5. detector checkpoints: .pth -> convert_vinvl -> .npz -> features ----
+        sd = detector_weights(5, dev)
+        pth, npz = os.path.join(root, "vinvl.pth"), os.path.join(root, "vinvl.npz")
+        t0 = time.perf_counter()
+        torch.save(to_maskrcnn_state_dict(sd), pth)
+        t_pth = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_arrays = convert_vinvl.main([pth, npz])
+        t_npz = time.perf_counter() - t0
+        frames = {vid: [rng.integers(0, 256, (*DET_HW, 3), dtype=np.uint8)
+                        for _ in range(P15_DET_FRAMES)]
+                  for vid in (f"det_{v}.mp4" for v in range(P15_DET_VIDEOS))}
+        for vid, imgs in frames.items():
+            os.makedirs(os.path.join(root, "det_frames", vid))
+            for i in range(len(imgs)):
+                open(os.path.join(root, "det_frames", vid, f"{i:06d}.png"), "w").close()
+
+        def read_image(path):
+            return frames[os.path.basename(os.path.dirname(path))][int(path[-10:-4])]
+
+        ra.reset_launches()
+        gc.reset_launches()
+        t0 = time.perf_counter()
+        preprocess.main(["features", "--frames", out("det_frames"), "--output", out("features"),
+                         "--checkpoint", npz], read_image=read_image)
+        torch.cuda.synchronize()
+        t_feat = time.perf_counter() - t0
+        launched = {"roi_align": ra.LAUNCHES["roi_align"],
+                    "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+        want = {"roi_align": P15_DET_VIDEOS,
+                "grouped_conv3x3": P15_DET_VIDEOS * (TRUNK_CONVS + HEAD_CONVS)}
+        if launched != want:
+            fail(f"preprocess features launched {launched}, expected {want}")
+        counts.update(launched)
+        det = AttrRCNNTorch(sd, device=dev)
+        for vid, imgs in frames.items():
+            for i, d in enumerate(det.detect_video(imgs)):
+                fdir = os.path.join(root, "features", vid, f"{i:06d}.png")
+                dets = np.load(os.path.join(fdir, "dets.npy"), allow_pickle=True).tolist()
+                v = d["valid"]
+                same = (len(dets) == int(v.sum())
+                        and [x["class"] for x in dets] == d["labels"][v].tolist()
+                        and np.array_equal([x["conf"] for x in dets], d["scores"][v])
+                        and np.array_equal(np.stack([x["rect"] for x in dets]), d["boxes"][v])
+                        and np.array_equal(np.load(os.path.join(fdir, "feat.npy")),
+                                           d["features"][v])
+                        and np.array_equal(np.load(os.path.join(fdir, "dets_f32.npy"))[:, 2:],
+                                           d["boxes"][v]))
+                if not same:
+                    fail(f"preprocess features from the .npz differs from detect_video with the "
+                         f"state dict at {vid} frame {i}")
+        log(f"detector checkpoints: phase 8's weights (seed 5) as a VinVL .pth in {t_pth:.3f} s "
+            f"({os.path.getsize(pth)} bytes), convert_vinvl -> {n_arrays} arrays in "
+            f"{t_npz:.3f} s ({os.path.getsize(npz)} bytes); preprocess features --checkpoint "
+            f".npz on {P15_DET_VIDEOS} x {P15_DET_FRAMES} frames of {DET_HW[0]}x{DET_HW[1]} "
+            f"in {t_feat:.3f} s (fp32), launches {launched}; dets.npy / dets_f32.npy / "
+            f"feat.npy = detect_video with the state dict, bitwise")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 15 launches by kernels row: {counts}")
+    log(f"offline phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+    return counts, clip_rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -3555,7 +3961,11 @@ def main() -> None:
         entry_point_phases(dev, card, ag, root)))
     del det16
 
-    # ---- 15. result lines ----
+    # ---- 15. the offline label pipeline ----
+    torch.cuda.empty_cache()
+    p15, clip_rows = offline_phases(dev, card)
+
+    # ---- 16. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),
@@ -3563,9 +3973,10 @@ def main() -> None:
                              train_rows["bwd_dq"]),
                attention_row("masked_mha_bwd_dkv", 157, train_launches[True]["bwd_dkv"],
                              train_rows["bwd_dkv"])]
-    kernels += det_rows + probe_rows + dsg_rows
-    for row in kernels:               # phase 14's launches, 0 off its path
+    kernels += det_rows + probe_rows + dsg_rows + clip_rows
+    for row in kernels:               # phases 14's and 15's launches, 0 off their paths
         row["launches_entry_points"] = p14.get(row["name"], 0)
+        row["launches_offline"] = p15.get(row["name"], 0)
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

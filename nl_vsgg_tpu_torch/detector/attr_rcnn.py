@@ -128,6 +128,28 @@ def _unpack(packed: np.ndarray, scale: np.ndarray) -> dict:
             "valid": packed[:, 7] > 0.5, "features": packed[:, 8:]}
 
 
+def random_state_dict(seed: int = 0, device="cpu") -> dict[str, torch.Tensor]:
+    """Random full-width weights from a generator on `device` seeded with
+    `seed` (a run without a checkpoint): convs at fan-in scale (He), the
+    residual branches' last FrozenBN scales (bn3, downsample) 0.2 so that
+    the C4 map stays O(1) through 50 blocks, other FrozenBN scales 1, biases
+    0, the predictor's weights N(0, 0.01^2)."""
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in AttrRCNNModule().state_dict().items()}
+    g = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+    for k, shp in shapes.items():
+        if k.endswith(".weight"):
+            std = (2.0 / float(np.prod(shp[1:]))) ** 0.5 if len(shp) == 4 else 0.01
+            sd[k] = torch.randn(shp, generator=g, device=device) * std
+        elif k.endswith(".scale"):
+            small = k.endswith(("bn3.scale", "downsample_bn.scale"))
+            sd[k] = torch.full(shp, 0.2 if small else 1.0, device=device)
+        else:
+            sd[k] = torch.zeros(shp, device=device)
+    return sd
+
+
 class AttrRCNNTorch:
     """Inference facade over AttrRCNNModule with the JAX facade's methods.
 
@@ -152,6 +174,12 @@ class AttrRCNNTorch:
         elif compute_dtype is not None:
             raise ValueError(f"compute_dtype must be None or 'bfloat16', got {compute_dtype!r}")
         self.module = module
+
+    @classmethod
+    def create(cls, seed: int = 0, **kw) -> "AttrRCNNTorch":
+        """A detector with `random_state_dict(seed)` weights (the JAX
+        facade's `create`); `kw` as the constructor's."""
+        return cls(random_state_dict(seed), **kw)
 
     # ------------------------------------------------------------ helpers
     def _prep(self, frames, bucket_hw=None):

@@ -13,7 +13,16 @@
   * `from_jax_variables(variables)`: the JAX package's {'params': ...}
     tree (numpy leaves): HWIO -> OIHW, Dense (in, out) -> (out, in), and the
     EFF_GROUPS block-diagonal conv2 kernels unpacked back to
-    (C, C/32, 3, 3).
+    (C, C/32, 3, 3); a kernel already in that compact layout (an .npz
+    written before the JAX package packed its groups) passes as it is;
+  * `to_jax_variables(sd)`: the inverse, the JAX tree with its conv2
+    kernels packed per stage (`NPZ_EFF_GROUPS`), the only place the port
+    packs: the .npz files carry the JAX package's layout;
+  * `save_npz` / `load_npz` / `load_checkpoint`: the JAX package's .npz
+    checkpoint (nl_vsgg_tpu/detector/convert.py:104-161), flat '/'-joined
+    keys, the same arrays, so either package reads the other's file;
+    `load_checkpoint(path)` reads an .npz or a VinVL .pth into the port's
+    state_dict.
 
 Name mapping (port <- checkpoint):
 
@@ -171,3 +180,86 @@ def from_jax_variables(variables: Mapping, groups: int = GROUPS) -> dict[str, to
             name = "weight"
         out[f"{module}.{name}"] = _t(np.ascontiguousarray(a))
     return out
+
+
+# the JAX package's per-stage block-diagonal packing of the conv2 kernels
+# (nl_vsgg_tpu/detector/resnet.py EFF_GROUPS): only the .npz files carry it
+NPZ_EFF_GROUPS = {"layer1": 1, "layer2": 4, "layer3": 8, "layer4": 32}
+
+
+def pack_grouped_kernel(w: np.ndarray, groups: int, eff_groups: int) -> np.ndarray:
+    """A grouped HWIO kernel (kh, kw, C/groups, C) -> the block-diagonal
+    (kh, kw, C/eff_groups, C) of the same convolution at eff_groups groups
+    (nl_vsgg_tpu/detector/resnet.py::pack_grouped_kernel); the inverse of
+    `unpack_grouped_kernel`."""
+    if eff_groups == groups:
+        return w
+    if groups % eff_groups:
+        raise ValueError(f"{groups} groups do not pack into {eff_groups}")
+    kh, kw, cg, c = w.shape
+    cg_out = c // groups
+    pack = groups // eff_groups
+    out = np.zeros((kh, kw, cg * pack, c), w.dtype)
+    for g in range(groups):
+        sub = g % pack
+        out[:, :, sub * cg:(sub + 1) * cg, g * cg_out:(g + 1) * cg_out] = \
+            w[:, :, :, g * cg_out:(g + 1) * cg_out]
+    return out
+
+
+def to_jax_variables(sd: Mapping[str, torch.Tensor], groups: int = GROUPS) -> dict:
+    """Port state_dict -> the JAX AttrRCNNModule's {'params': ...} tree of
+    float32 numpy arrays: OIHW -> HWIO (conv2 kernels packed per stage,
+    NPZ_EFF_GROUPS), (out, in) -> Dense (in, out), FrozenBN (scale, bias)
+    as they are."""
+    params: dict = {}
+    for key, t in sd.items():
+        module, name = key.rsplit(".", 1)
+        a = _np(t)
+        if name == "weight":
+            if a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+                if module.endswith("conv2"):
+                    stage = next(p for p in module.split(".") if p.startswith("layer"))
+                    a = pack_grouped_kernel(a, groups, NPZ_EFF_GROUPS[stage])
+            else:
+                a = a.T
+            name = "kernel"
+        node = params
+        for part in module.split("."):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(a)
+    return {"params": params}
+
+
+def save_npz(sd: Mapping[str, torch.Tensor], dst: str) -> int:
+    """Write a port state_dict as the JAX package's .npz checkpoint: the
+    `to_jax_variables` tree flattened to '/'-joined keys (params/backbone/
+    stem_conv1/kernel, ...), compressed. Returns the array count."""
+    flat = {key.replace(".", "/"): leaf for key, leaf in _flatten(to_jax_variables(sd))}
+    np.savez_compressed(dst, **dict(sorted(flat.items())))
+    return len(flat)
+
+
+def load_npz(path: str) -> dict:
+    """The nested variables dict of an .npz written by `save_npz` or by the
+    JAX package's tools/convert_vinvl.py."""
+    out: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            parts = key.split("/")
+            node = out
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return out
+
+
+def load_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """The port's detector state_dict from an .npz (either package's,
+    conv2 kernels packed or compact) or from a VinVL / maskrcnn .pth (its
+    'model' or 'state_dict' entry, or the dict itself)."""
+    if path.endswith(".npz"):
+        return from_jax_variables(load_npz(path))
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return from_maskrcnn_state_dict(ckpt.get("model", ckpt.get("state_dict", ckpt)))

@@ -708,3 +708,33 @@ def test_run_training_one_epoch_on_gpu(gpu, tmp_path):
     # 2 train steps of 2 attention layers, then the eval's 2 forwards
     assert dict(ma.LAUNCHES) == {"fwd": 2 * 2 + 2 * 2, "bwd_dq": 2 * 2, "bwd_dkv": 2 * 2}
     assert latest_step(str(tmp_path / "out" / "ckpt")) == 0
+
+
+@pytest.mark.parametrize("width,heads,length,causal,route", [
+    (768, 12, 50, False, "per-element"),     # the CLIP vision tower's blocks
+    (512, 8, 77, True, "tiled"),             # the CLIP text tower's blocks, causal
+])
+def test_clip_block_on_its_attention_route_on_gpu(gpu, width, heads, length, causal, route):
+    """A CLIP residual block in float32 through the attention kernel against
+    the plain path (1e-4, TF32 off), on the route its tower takes."""
+    from nl_vsgg_tpu_torch.pipelines import clip
+    torch.manual_seed(0)
+    fused = clip.ResidualBlock(width, heads).cuda().eval()
+    plain = clip.ResidualBlock(width, heads, fused=False).cuda().eval()
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(4, length, width, device="cuda", generator=gpu)
+    allow = clip.allow_mask(4, length, causal, "cuda")
+    h = fused.ln_1(x)
+    q, k, v = fused.attn.heads(h, h, h)
+    assert ma.fwd_route(q, k, v) == route
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ma.reset_launches()
+            out = fused(x, allow)
+            assert ma.LAUNCHES["fwd"] == 1
+            ref = plain(x, allow)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
