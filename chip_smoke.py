@@ -181,12 +181,17 @@ Phases, in order; any failure exits non-zero before the result line:
      on the card in float32; `encode_for_adv` on 8 videos x 32 frames (256
      images of 224x224x3) and 3 caption groups a video of 1-3 sentences,
      tokenised to 77 by the port's SimpleTokenizer over a synthetic merge
-     table, once through the attention kernel (12 per-element launches an
-     image forward, 12 tiled a text forward, counted by route, or the run
-     fails) and once through plain attention (unit embeddings within
-     CLIP_TOL); the towers' images/s and sentences/s on both paths, one
-     attention launch at each tower's shape beside its plain version, SDPA
-     and the bound; `validate_ckpt clip` on the file (_ok 1) and on a copy
+     table, once through the attention kernel (12 resident launches an
+     image forward and a text forward, counted by route and head count, or
+     the run fails) and once through plain attention (unit embeddings
+     within CLIP_TOL); the towers' images/s and sentences/s on both paths,
+     one attention launch at each tower's shape beside its plain version,
+     SDPA, the bound and the routes it had before (the per-element entry;
+     for the text tower also the tiled one, `row_order` included: the
+     `kernels` rows' `parent_route_ms`); the resident route's edge
+     (`RESIDENT_EDGE`: 16 heads of 128, 200 x 128, a random mask with
+     empty rows, dropout off and on, with and without lse);
+     `validate_ckpt clip` on the file (_ok 1) and on a copy
      with an orphan adapter (_ok 0); `preprocess` tcs -> triplets -> adv ->
      negatives and img-info with stub LLMs and a frame reader, every pickle
      in its schema; phase 8's detector weights as a VinVL .pth ->
@@ -1697,14 +1702,36 @@ def launches_by_head_dim(ma, run) -> dict:
     return counts
 
 
+def tiled_fwd_call(ma, q, k, v, allow, s):
+    """A callable that runs the tiled eval forward as its wrapper does,
+    `row_order` and the C entry, bypassing the wrappers' route choice (the
+    route the resident one replaced at CLIP's text tower, timed beside it).
+    Not counted in LAUNCHES."""
+    import torch
+    Bq, Lq, Hh, D = q.shape
+    out = torch.empty(Bq, Lq, Hh, D, dtype=q.dtype, device=q.device)
+
+    def launch():
+        order = ma.row_order(allow)
+        if ma._fn("masked_mha_fwd_tiled")(
+                ma._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), allow.data_ptr(),
+                order.data_ptr(), None, out.data_ptr(), None, Bq, Lq, k.shape[1], Hh, D,
+                q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1), s,
+                0, 1.0, torch.cuda.current_stream().cuda_stream):
+            fail(f"the tiled entry failed to launch on {tuple(q.shape)}")
+    return launch
+
+
 def time_eval_calls(ma, calls, want_route: str, what: str) -> dict:
     """Each captured eval forward against its plain version (KERNEL_TOL),
     on `want_route` or the run fails; kernel, plain, SDPA and bound times
-    summed over the calls. On the tiled route the per-element entry is
-    timed beside it on the same inputs (`per_element_ms`)."""
+    summed over the calls. Beside them, on the same inputs, the routes
+    this one replaced (`parent_ms`, by route): on the tiled and resident
+    routes the per-element entry, on the resident route also the tiled
+    wrapper's work where the tiled rule takes the inputs."""
     import torch.nn.functional as F
     row = _row_sums()
-    row["per_element_ms"] = 0.0
+    row["parent_ms"] = {}
     for q, k, v, allow, s in calls:
         route = ma.fwd_route(q, k, v)
         if route != want_route:
@@ -1722,11 +1749,17 @@ def time_eval_calls(ma, calls, want_route: str, what: str) -> dict:
         bound = attention_bound_ms(q, k, v, allow)
         pairs = float(allow.sum())
         _add(row, err, kms, pms, bound, lms, pairs)
+        parents = {}
+        if route in ("tiled", "resident"):
+            parents["per-element"] = per_element_calls(ma, q, k, v, allow, s, 0.0,
+                                                       None)["fwd eval"]
+        if route == "resident" and ma._tiled("fwd", (q, k, v)):
+            parents["tiled"] = tiled_fwd_call(ma, q, k, v, allow, s)
         extra = ""
-        if route == "tiled":
-            pe = cuda_ms(per_element_calls(ma, q, k, v, allow, s, 0.0, None)["fwd eval"])
-            row["per_element_ms"] += pe
-            extra = f", per-element {pe:.4f} ms"
+        for name, call in parents.items():
+            t_parent = cuda_ms(call)
+            row["parent_ms"][name] = row["parent_ms"].get(name, 0.0) + t_parent
+            extra += f", {name} {t_parent:.4f} ms"
         log(f"{what} {tuple(q.shape)} x Lk={k.shape[1]} {str(q.dtype)[6:]}, route {route}: "
             f"kernel {kms:.4f} ms{extra}, plain {pms:.4f} ms, sdpa {lms:.4f} ms, bound "
             f"{bound[0]:.4f} ms ({bound[1]}), allowed pairs {pairs / allow.numel():.4f} "
@@ -2154,7 +2187,8 @@ def dsg_detr_phases(dev, card, entries) -> list[dict]:
             + (f", per-element {r['per_element_ms']:.4f}" if r["per_element_ms"] else "") + ")"
             for n, r in d297_train.items())
         + f"; eval forward {d297['ms']:.4f} ms"
-        + (f" (per-element {d297['per_element_ms']:.4f})" if d297["per_element_ms"] else "")
+        + (f" (per-element {d297['parent_ms']['per-element']:.4f})" if d297["parent_ms"]
+           else "")
         + f"; card {card}")
 
     # ---- evaluation: evaluate_epoch with its promotion, set (b) ----
@@ -3345,17 +3379,18 @@ def merge_table(words) -> list[tuple[str, str]]:
 
 
 def launches_by_route(ma, run) -> dict:
-    """The forward launches one `run()` makes, by route ("staged", "tiled",
-    "per-element"), read from LAUNCHES around each call of the forward
-    launch (`_forward_cuda`)."""
+    """The forward launches one `run()` makes, by (route, heads): route
+    "staged", "resident", "tiled" or "per-element" and the call's head
+    count (12 at CLIP's image tower, 8 at its text tower), read from
+    LAUNCHES around each call of the forward launch (`_forward_cuda`)."""
     counts = {}
     orig = ma._forward_cuda
 
     def counting(q, k, v, *args, **kw):
         before = ma.LAUNCHES["fwd"]
         res = orig(q, k, v, *args, **kw)
-        route = ma.fwd_route(q, k, v)
-        counts[route] = counts.get(route, 0) + ma.LAUNCHES["fwd"] - before
+        key = (ma.fwd_route(q, k, v), q.shape[2])
+        counts[key] = counts.get(key, 0) + ma.LAUNCHES["fwd"] - before
         return res
 
     ma._forward_cuda = counting
@@ -3366,15 +3401,68 @@ def launches_by_route(ma, run) -> dict:
     return counts
 
 
+RESIDENT_EDGE = (8, 200, 128, 16, 128)  # videos, Lq (four 64-row tiles), Lk, heads, head dim
+
+
+def resident_edge_checks(ma, g, dev) -> None:
+    """The resident forward at the edge of its rule, RESIDENT_EDGE: float32
+    column blocks of a fused projection, a random 3% mask with some rows
+    fully allowed, some empty and some key columns unseen; dropout off and
+    on, with and without lse, against the plain version (out to KERNEL_TOL,
+    lse to GRAD_TOL), rows with no allowed key exactly 0 and LSE_EMPTY, one
+    launch a call."""
+    import torch
+    Bv, lq, lk, Hh, D = RESIDENT_EDGE
+    E = Hh * D
+    q = torch.randn(Bv, lq, 3 * E, device=dev, generator=g)[..., :E].unflatten(-1, (Hh, D))
+    kv = torch.randn(Bv, lk, 3 * E, device=dev, generator=g)
+    k, v = (kv[..., i * E:(i + 1) * E].unflatten(-1, (Hh, D)) for i in (1, 2))
+    allow = torch.rand(Bv, lq, lk, device=dev, generator=g) < 0.03
+    allow[:, ::9] = True
+    allow[:, 4::9] = False
+    allow[:, :, 5::11] = False
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (Bv,), generator=g, device=dev, dtype=torch.int32)
+    route = ma.fwd_route(q, k, v)
+    if route != "resident":
+        fail(f"resident edge {(Bv, lq, Hh, D)} x Lk={lk}: route {route}")
+    empty, scale, errs = ~allow.any(-1), D ** -0.5, {}
+    for rate in (0.0, RATE):
+        sd = seeds if rate else None
+        for with_lse in (False, True):
+            ma.reset_launches()
+            out, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, sd, with_lse)
+            torch.cuda.synchronize()
+            checks = [("out", out, ma.masked_mha_reference(q, k, v, allow, scale, rate, sd),
+                       KERNEL_TOL)]
+            if with_lse:
+                checks.append(("lse", lse, ma.masked_mha_lse_reference(q, k, allow, scale),
+                               GRAD_TOL))
+                if not bool((lse.transpose(1, 2)[empty] == ma.LSE_EMPTY).all()):
+                    fail("resident edge: rows with no allowed key lack the lse sentinel")
+            if ma.LAUNCHES["fwd"] != 1 or not bool((out[empty] == 0).all()):
+                fail(f"resident edge: launches {ma.LAUNCHES} or empty rows not 0")
+            for name, got, ref, tol in checks:
+                err, ok = kernel_err(got, ref, tol)
+                errs[name] = max(errs.get(name, 0.0), err)
+                if not ok:
+                    fail(f"resident edge: {name} disagrees with its plain version at rate "
+                         f"{rate}, lse {with_lse} (max_abs_err {err:.3e})")
+    log(f"fwd resident edge {(Bv, lq, Hh, D)} x Lk={lk} float32, random 3% mask: dropout "
+        f"off and on, with and without lse; max_abs_err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + "; empty rows exactly 0 and LSE_EMPTY, one launch a call")
+
+
 def offline_phases(dev, card) -> tuple[dict, list[dict]]:
     """Phase 15: the offline label pipeline. A synthetic DAC LLM_cp.pt
     (ViT-B/32, rank-4 LoRA) converted and run at full width on the card:
     `encode_for_adv` on P15_VIDEOS videos x P15_FRAMES frames and
     P15_GROUPS caption groups a video, tokenised by the port's
-    SimpleTokenizer, through the attention kernel (12 per-element launches
-    an image forward, 12 tiled a text forward, or the run fails) and
-    through plain attention (unit embeddings within CLIP_TOL); the towers
-    and one attention launch of each timed; `validate_ckpt clip` on the
+    SimpleTokenizer, through the attention kernel (12 resident launches
+    an image forward and a text forward, or the run fails) and through
+    plain attention (unit embeddings within CLIP_TOL); the towers and one
+    attention launch of each timed beside the routes it had before; the
+    resident route's edge (`resident_edge_checks`); `validate_ckpt clip` on the
     file (and an orphan adapter refused); the preprocess chain tcs ->
     triplets -> adv -> negatives and img-info with stub LLMs and a frame
     reader; a VinVL .pth -> `convert_vinvl` -> .npz -> `preprocess
@@ -3460,14 +3548,15 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
             if sum(routes[fused].values()) != ma.LAUNCHES["fwd"]:
                 fail(f"CLIP launches by route {routes[fused]} do not sum to {dict(ma.LAUNCHES)}")
             emb[fused] = out
-        want = {"per-element": 12 * P15_VIDEOS, "tiled": 12 * P15_VIDEOS * P15_GROUPS}
+        want = {("resident", C.VISION_HEADS): 12 * P15_VIDEOS,
+                ("resident", C.TEXT_HEADS): 12 * P15_VIDEOS * P15_GROUPS}
         log(f"encode_for_adv (fp32, TF32 off: kernel and plain paths' linears in full float32): "
             f"kernel path {walls[True]:.3f} s wall, attention launches by route {routes[True]}; "
             f"plain path {walls[False]:.3f} s, launches {routes[False]}")
         if routes[True] != want or routes[False]:
             fail(f"CLIP attention launched {routes[True]} (kernel path) and {routes[False]} "
-                 f"(plain path); expected {want}: 12 per-element an image forward, 12 tiled a "
-                 f"text forward, none on the plain path")
+                 f"(plain path); expected {want}: 12 resident an image forward and a text "
+                 f"forward, none on the plain path")
         worst = 0.0
         for vid in videos:
             (fk, tk), (fp, tp) = emb[True][vid], emb[False][vid]
@@ -3482,8 +3571,8 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
             f"(tol {CLIP_TOL})")
         if worst > CLIP_TOL:
             fail(f"CLIP kernel path differs from the plain path by {worst:.3e} > {CLIP_TOL}")
-        counts["masked_mha_clip_vision"] = routes[True]["per-element"]
-        counts["masked_mha_clip_text"] = routes[True]["tiled"]
+        counts["masked_mha_clip_vision"] = routes[True][("resident", C.VISION_HEADS)]
+        counts["masked_mha_clip_text"] = routes[True][("resident", C.TEXT_HEADS)]
 
         # ---- 2. times: the towers, and one attention launch at each tower's shape ----
         x32 = torch.as_tensor(images[videos[0]], device=dev)
@@ -3502,17 +3591,21 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
             txt_calls = capture_attention(towers[True][1], lambda: towers[True][1](t3))
         if len(vis_calls) != 12 or len(txt_calls) != 12:
             fail(f"captured {len(vis_calls)} / {len(txt_calls)} CLIP attention calls, expected 12")
-        rows = {"vision": time_eval_calls(ma, vis_calls[:1], "per-element", "CLIP vision attention"),
-                "text": time_eval_calls(ma, txt_calls[:1], "tiled", "CLIP text attention")}
+        rows = {"vision": time_eval_calls(ma, vis_calls[:1], "resident", "CLIP vision attention"),
+                "text": time_eval_calls(ma, txt_calls[:1], "resident", "CLIP text attention")}
         clip_rows = [attention_row("masked_mha_clip_vision", 143, counts["masked_mha_clip_vision"],
                                    rows["vision"]),
                      attention_row("masked_mha_clip_text", 143, counts["masked_mha_clip_text"],
                                    rows["text"])]
+        for row, r in zip(clip_rows, rows.values()):
+            row["parent_route_ms"] = r["parent_ms"]
         for name, r in rows.items():
-            log(f"CLIP {name} attention, one launch: kernel {r['ms']:.4f} ms, at "
+            log(f"CLIP {name} attention, one launch: resident {r['ms']:.4f} ms, at "
                 f"{r['bound_ms'] / r['ms'] * 100:.1f}% of its bound {r['bound_ms']:.4f} ms, "
-                f"SDPA {r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+                f"parent routes {r['parent_ms']} (same inputs, this run), SDPA "
+                f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
         del towers
+        resident_edge_checks(ma, torch.Generator(device=dev).manual_seed(15), dev)
 
         # ---- 3. validate_ckpt clip on the card ----
         t0 = time.perf_counter()

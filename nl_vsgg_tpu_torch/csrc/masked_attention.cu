@@ -53,13 +53,18 @@
 // few GFLOP against about 0.6 GB (forward) to 1 GB (backward) of q, k, v,
 // g and outputs to move once.
 //
-// Routes. Each kernel has three, one launch each, chosen by the wrapper
-// from dtype, shapes and alignment before the launch (ops/masked_attention
-// .py: fwd_route, dq_route, dkv_route, on two rules, staged_layout and
-// tiled_layout):
+// Routes. Each kernel has three, the forward four, one launch each, chosen
+// by the wrapper from dtype, shapes and alignment before the launch
+// (ops/masked_attention.py: fwd_route, dq_route, dkv_route, on three rules,
+// staged_layout, resident_layout and tiled_layout, tried in that order):
 //   - staged (bf16, H <= 8, D even, 16-byte aligned rows and token strides,
 //     H * D * 2 a multiple of 16; the serving and training paths' column
 //     blocks of the fused projection);
+//   - resident, the forward only (fp32, Lk <= 128, D <= 128, any number of
+//     heads, 16-byte aligned rows and token strides, H * D a multiple of 4;
+//     CLIP's towers): a block a (video, head, tile of 64 query rows) holds
+//     every key's k and v in shared memory and each warp its 16 rows'
+//     scores in registers; see "resident route" below;
 //   - tiled (fp32, H <= 8, D <= 320, odd D too, 16-byte aligned rows and
 //     token strides, H * D a multiple of 4; DSG-DETR's tracklet encoder):
 //     a block a (video, tile of 16 rows taken in the wrapper's row order,
@@ -1384,6 +1389,19 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 }
 
+// The A fragment of one k-step, split: rows g and g + 8 of x (row stride
+// ld) over dims 8 ks .. 8 ks + 7 of the head, 0 past D.
+__device__ __forceinline__ void rows_a(const float* x, int ld, int ks, int D, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int d0 = 8 * ks + t, d1 = d0 + 4;
+  const bool in0 = d0 < D, in1 = d1 < D;
+  const float a[4] = {in0 ? x[g * ld + d0] : 0.f, in0 ? x[(g + 8) * ld + d0] : 0.f,
+                      in1 ? x[g * ld + d1] : 0.f, in1 ? x[(g + 8) * ld + d1] : 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+}
+
 // One k-step of the scores: s (16 x 8: rows g, g + 8, columns 2t, 2t + 1)
 // += X rows . Y rows over dims 8 ks .. 8 ks + 7 of the head (row stride ld,
 // 0 past D).
@@ -1391,13 +1409,9 @@ __device__ __forceinline__ void dot_step(float (&s)[4], const float* x, const fl
                                          int ks, int D) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int d0 = 8 * ks + t, d1 = d0 + 4;
-  const bool in0 = d0 < D, in1 = d1 < D;
-  const float a[4] = {in0 ? x[g * ld + d0] : 0.f, in0 ? x[(g + 8) * ld + d0] : 0.f,
-                      in1 ? x[g * ld + d1] : 0.f, in1 ? x[(g + 8) * ld + d1] : 0.f};
   uint32_t ah[4], al[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
-  mma_3xtf32(s, ah, al, in0 ? y[g * ld + d0] : 0.f, in1 ? y[g * ld + d1] : 0.f);
+  rows_a(x, ld, ks, D, ah, al);
+  mma_3xtf32(s, ah, al, d0 < D ? y[g * ld + d0] : 0.f, d1 < D ? y[g * ld + d1] : 0.f);
 }
 
 // The B fragment of output tile nt from a chunk's TCK rows (row stride ld):
@@ -1753,6 +1767,199 @@ masked_mha_bwd_tiled_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
+// ------------------------------------------ forward, resident route (float32)
+// Short sequences and narrow heads: Lk <= RESIDENT_MAX_KEYS and D <=
+// RESIDENT_MAX_HEAD_DIM, any number of heads (CLIP's towers: ViT-B/32's 12
+// heads of 64 over 50 tokens, every pair allowed, and its text tower's 8
+// heads of 64 over 77 tokens, causal). A head's k and v windows for every
+// key fit one block's shared memory (2 x 80 rows of 68 floats at the text
+// tower), so one block of RPARTS warps takes (video, head, tile of RROWS
+// query rows), copies those windows and its rows' q windows once by 16-byte
+// cp.async (the tiled routes' windows and row stride), and syncs once. Each
+// warp then works alone on 16 rows:
+//   - S = Q K^T over all the keys, 16 x Lk in registers (3xTF32 mma.sync,
+//     as the tiled routes);
+//   - its rows' allow bytes read straight from the mask, an exact two-pass
+//     softmax over the whole row (the max, then the sum of exp, each over a
+//     lane quad), dropout with the same row key and bits as the other
+//     routes (the sum stays undropped);
+//   - acc = P~ V, P~ re-laid as A fragments through the warp's tile, V's
+//     fragments from shared memory; out = acc / sum, lse = max + log(sum),
+//     0 and LSE_EMPTY on a row with no allowed key.
+// No key list, no row order, no running rescale, no exchange between warps.
+// The warp's scores and outputs stay in registers: the kernel is
+// instantiated for 8 or 16 key tiles (Lk <= 64 or 128) and 8 or 16 output
+// tiles (D <= 64 or 128), the launch picking the smallest that holds them.
+// Bound: at the vision tower's (32, 50, 12, 64), 19.7 MB of q, k, v, out
+// and mask to move once against 0.4 GFLOP, so bytes (5.9 us at 3.35 TB/s);
+// 384 blocks of 45 KB make one wave on 132 SMs.
+constexpr int RESIDENT_MAX_KEYS = 128;      // a warp's 16 x Lk scores in registers
+constexpr int RESIDENT_MAX_HEAD_DIM = 128;  // and its 16 x D outputs
+constexpr int RROWS = 64;                   // query rows a block
+constexpr int RPARTS = 4;                   // warps a block: TT rows each
+static_assert(RROWS == RPARTS * TT, "a warp takes one 16-row tile");
+constexpr int RESIDENT_THREADS = RPARTS * 32;
+
+// Shared memory of one resident block: every key's v and k windows (Lk
+// rounded up to 8, the rows past Lk zero) and the tile's RROWS q windows,
+// `tiled_row` floats a row. The wrapper's resident_plan is the same sum.
+size_t resident_smem(int Lk, int D) {
+  return ((size_t)2 * ((Lk + 7) & ~7) + RROWS) * tiled_row(D) * sizeof(float);
+}
+
+// The kernel's own: each warp's 16 x 8 weight tile.
+constexpr size_t resident_static_smem() { return (size_t)RPARTS * TT * WT_LD * sizeof(float); }
+
+template <int NKT, int NDT, bool DROP, bool LSE>
+__global__ void __launch_bounds__(RESIDENT_THREADS)
+masked_mha_fwd_resident_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const unsigned char* __restrict__ allow,
+                               const int* __restrict__ seeds, float* __restrict__ out,
+                               float* __restrict__ lse, Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float wts[RPARTS][TT * WT_LD];
+  const int D = a.D, RS = tiled_row(D), KS = (D + 7) / 8, NK = (a.Lk + 7) / 8;
+  // v first: P V's fragment loads of dims past D may run past a row's window
+  float* vs = reinterpret_cast<float*>(smem);
+  float* ks = vs + 8 * NK * RS;
+  float* qs = ks + 8 * NK * RS;
+  const int tiles = (a.Lq + RROWS - 1) / RROWS;
+  const int tile = blockIdx.x % tiles, h = (blockIdx.x / tiles) % a.H;
+  const int b = blockIdx.x / (tiles * a.H);
+  const int part = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Window win = head_window(h, D);
+  const int q0 = tile * RROWS;
+  {
+    const int pieces = win.len / 4, rows = 16 * NK + RROWS;
+    const float* vb = v + b * a.v_sb + win.start;
+    const float* kb = k + b * a.k_sb + win.start;
+    const float* qb = q + b * a.q_sb + win.start;
+    for (int i = threadIdx.x; i < rows * pieces; i += RESIDENT_THREADS) {
+      const int j = i / pieces, e = 4 * (i - j * pieces);
+      const float* src;
+      bool in;
+      if (j < 8 * NK) {
+        in = j < a.Lk;
+        src = vb + (in ? j : 0) * a.v_sl;
+      } else if (j < 16 * NK) {
+        in = j - 8 * NK < a.Lk;
+        src = kb + (in ? j - 8 * NK : 0) * a.k_sl;
+      } else {
+        in = q0 + j - 16 * NK < a.Lq;
+        src = qb + (in ? q0 + j - 16 * NK : 0) * a.q_sl;
+      }
+      cp_async16(vs + j * RS + e, src + e, in);
+    }
+    cp_async_commit();
+  }
+
+  // while the copies fly: rows r0 (r = 0) and r0 + 8 (r = 1) of this lane,
+  // key 8 nt + 2 t + c allowed as bit 2 nt + c, and their dropout row keys
+  const int r0 = q0 + 16 * part + g;
+  uint32_t bits[2] = {0u, 0u}, rkey[2] = {0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= a.Lq) continue;
+    const unsigned char* arow = allow + ((long long)b * a.Lq + row) * a.Lk;
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = 8 * nt + 2 * t + c;
+        if (key < a.Lk && arow[key]) bits[r] |= 1u << (2 * nt + c);
+      }
+    if (DROP) rkey[r] = row_key(seeds[b], h, row);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (q0 + 16 * part >= a.Lq) return;  // every row of this warp lies past Lq
+
+  float s[NKT][4];
+#pragma unroll
+  for (int nt = 0; nt < NKT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+  const float* qw = qs + 16 * part * RS + win.shift;
+  const float* kw = ks + win.shift;
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t ah[4], al[4];
+    rows_a(qw, RS, kk, D, ah, al);
+    const int d0 = 8 * kk + t, d1 = d0 + 4;
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt) {
+      if (nt >= NK) break;
+      const float* kr = kw + (8 * nt + g) * RS;
+      mma_3xtf32(s[nt], ah, al, d0 < D ? kr[d0] : 0.f, d1 < D ? kr[d1] : 0.f);
+    }
+  }
+
+  float inv[2], L[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if ((bits[r] >> (2 * nt + c)) & 1u) m = fmaxf(m, s[nt][2 * r + c] * a.scale);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float l = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool on = (bits[r] >> (2 * nt + c)) & 1u;
+        float p = on ? __expf(s[nt][2 * r + c] * a.scale - m) : 0.f;
+        l += p;
+        // dropout acts on the normalized p: the sum l stays undropped
+        if (DROP) p = drop_bits(rkey[r], 8 * nt + 2 * t + c) >= a.threshold ? p * a.keep_scale : 0.f;
+        s[nt][2 * r + c] = p;
+      }
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = l > 0.f ? 1.f / l : 0.f;  // no allowed key -> 0
+    L[r] = l > 0.f ? m + logf(l) : LSE_EMPTY;
+  }
+
+  float acc[NDT][4];
+#pragma unroll
+  for (int nd = 0; nd < NDT; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  const float* vw = vs + win.shift;
+#pragma unroll
+  for (int nt = 0; nt < NKT; ++nt) {
+    if (nt >= NK) break;
+    uint32_t ph[4], pl[4];
+    weights_a(wts[part], s[nt], ph, pl);
+#pragma unroll
+    for (int nd = 0; nd < NDT; ++nd) {
+      if (nd >= KS) break;
+      const float2 bv = chunk_b(vw + 8 * nt * RS, RS, nd);
+      mma_3xtf32(acc[nd], ph, pl, bv.x, bv.y);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= a.Lq) continue;
+    float* o = out + (((long long)b * a.Lq + row) * a.H + h) * D;
+#pragma unroll
+    for (int nd = 0; nd < NDT; ++nd) {
+      const int d = 8 * nd + 2 * t;
+      if (d >= D) break;
+      const float x0 = acc[nd][2 * r] * inv[r], x1 = acc[nd][2 * r + 1] * inv[r];
+      if (D % 2 == 0) {  // d even: 8-byte aligned
+        *reinterpret_cast<float2*>(o + d) = make_float2(x0, x1);
+      } else {
+        o[d] = x0;
+        if (d + 1 < D) o[d + 1] = x1;
+      }
+    }
+    if (LSE && t == 0) lse[((long long)b * a.H + h) * a.Lq + row] = L[r];
+  }
+}
+
 unsigned blocks_for(long long warps) { return (unsigned)((warps + WARPS - 1) / WARPS); }
 
 bool bad_shape(int B, int Lq, int Lk, int H, int D) {
@@ -1933,6 +2140,45 @@ int bwd_tiled(const void* q, const void* k, const void* v, const void* g, const 
       static_cast<const float*>(r), static_cast<const int*>(seeds), static_cast<float*>(out0),
       static_cast<float*>(out1), a);
   return (int)cudaGetLastError();
+}
+
+// True for what the resident route cannot take: not float32, more keys
+// than RESIDENT_MAX_KEYS, a head dim past RESIDENT_MAX_HEAD_DIM, rows that
+// are not whole 16-byte pieces (H D a multiple of 4), pointers or token and
+// batch strides (or-ed together) off 16-byte alignment. Any number of heads.
+bool resident_refuses(int dtype, int B, int Lq, int Lk, int H, int D,
+                      std::initializer_list<const void*> ptrs, long long strides) {
+  bool off = false;
+  for (const void* p : ptrs) off |= reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  return dtype != 0 || bad_shape(B, Lq, Lk, H, D) || Lk > RESIDENT_MAX_KEYS ||
+         D > RESIDENT_MAX_HEAD_DIM || (H * D) % 4 || off || strides % 4 != 0;
+}
+
+template <int NKT, int NDT, bool DROP, bool LSE>
+int fwd_resident_at(const void* q, const void* k, const void* v, const void* allow,
+                    const void* seeds, void* out, void* lse, const Args& a, cudaStream_t s) {
+  auto kernel = masked_mha_fwd_resident_kernel<NKT, NDT, DROP, LSE>;
+  const size_t smem = resident_smem(a.Lk, a.D);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = (long long)a.B * a.H * ((a.Lq + RROWS - 1) / RROWS);
+  kernel<<<(unsigned)blocks, RESIDENT_THREADS, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const unsigned char*>(allow), static_cast<const int*>(seeds),
+      static_cast<float*>(out), static_cast<float*>(lse), a);
+  return (int)cudaGetLastError();
+}
+
+// the instantiation whose registers hold Lk keys' scores and D output dims
+template <bool DROP, bool LSE>
+int fwd_resident(const void* q, const void* k, const void* v, const void* allow,
+                 const void* seeds, void* out, void* lse, const Args& a, cudaStream_t s) {
+  if (a.Lk <= 64)
+    return a.D <= 64 ? fwd_resident_at<8, 8, DROP, LSE>(q, k, v, allow, seeds, out, lse, a, s)
+                     : fwd_resident_at<8, 16, DROP, LSE>(q, k, v, allow, seeds, out, lse, a, s);
+  return a.D <= 64 ? fwd_resident_at<16, 8, DROP, LSE>(q, k, v, allow, seeds, out, lse, a, s)
+                   : fwd_resident_at<16, 16, DROP, LSE>(q, k, v, allow, seeds, out, lse, a, s);
 }
 
 }  // namespace
@@ -2138,4 +2384,29 @@ extern "C" int masked_mha_bwd_dkv_tiled(int dtype, const void* q, const void* k,
   return seeds != nullptr
              ? bwd_tiled<true, true>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s)
              : bwd_tiled<false, true>(q, k, v, g, allow_t, order, lse, r, seeds, dk, dv, a, s);
+}
+
+// The resident forward route (float32 only): the arguments and outputs of
+// masked_mha_fwd. It refuses (cudaErrorInvalidValue) what resident_refuses
+// names and shared memory past a block's limit; the wrapper's
+// resident_layout and resident_plan check the same first.
+extern "C" int masked_mha_fwd_resident(int dtype, const void* q, const void* k, const void* v,
+                                       const void* allow, const void* seeds, void* out,
+                                       void* lse, int B, int Lq, int Lk, int H, int D,
+                                       long long q_sb, long long q_sl, long long k_sb,
+                                       long long k_sl, long long v_sb, long long v_sl,
+                                       float scale, unsigned threshold, float keep_scale,
+                                       void* stream) {
+  if (resident_refuses(dtype, B, Lq, Lk, H, D, {q, k, v},
+                       q_sb | q_sl | k_sb | k_sl | v_sb | v_sl) ||
+      resident_smem(Lk, D) + resident_static_smem() > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(B, Lq, Lk, H, D, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, 0, 0,
+                           scale, threshold, keep_scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seeds == nullptr)
+    return lse == nullptr ? fwd_resident<false, false>(q, k, v, allow, seeds, out, lse, a, s)
+                          : fwd_resident<false, true>(q, k, v, allow, seeds, out, lse, a, s);
+  return lse == nullptr ? fwd_resident<true, false>(q, k, v, allow, seeds, out, lse, a, s)
+                        : fwd_resident<true, true>(q, k, v, allow, seeds, out, lse, a, s);
 }

@@ -31,13 +31,13 @@ gradients and at rate 0 it is the eval forward: no lse, no hashing.
 `LAUNCHES` counts kernel launches by kernel ("fwd", "bwd_dq", "bwd_dkv");
 `reset_launches()` sets them to 0.
 
-Each kernel has three routes, one launch each, picked before the launch
-from dtype, shapes and alignment alone (`fwd_route`, `dq_route`,
-`dkv_route`). "staged" (rule `staged_layout`: bf16, at most 8 heads, an
-even head dim of at most 256, q/k/v/g rows and batch and token strides on
-16-byte boundaries, H * D * 2 bytes a multiple of 16; the serving and
-training paths' column blocks of the fused projection) brings token rows
-in by 16-byte copies:
+Each kernel has three routes, the forward four, one launch each, picked
+before the launch from dtype, shapes and alignment alone (`fwd_route`,
+`dq_route`, `dkv_route`; never from the mask's contents). "staged" (rule
+`staged_layout`: bf16, at most 8 heads, an even head dim of at most 256,
+q/k/v/g rows and batch and token strides on 16-byte boundaries, H * D * 2
+bytes a multiple of 16; the serving and training paths' column blocks of
+the fused projection) brings token rows in by 16-byte copies:
   - the forward and dK/dV: one block a (video, tile of 16 query or key
     rows, 2 heads; `fwd_plan`, `dkv_plan`); the block lists the union of
     its rows' allowed keys (queries), copies their rows' slices once a tile
@@ -56,9 +56,16 @@ slices once a tile (8 columns a cp.async chunk, the 16-byte window around
 a head's slice); the products run on the tensor cores in about float32
 accuracy (each operand a TF32 part and the rest, three mma.sync a
 product), dQ in one walk as on the staged route.
+"resident", the forward only, tried after "staged" (rule `resident_layout`:
+float32, Lk <= 128, D <= 128, any number of heads, the tiled rule's
+alignment; CLIP's towers, 12 heads of 64 over 50 tokens and 8 of 64 over
+77) runs one block a (video, head, tile of 64 query rows; `resident_plan`):
+every key's k and v slices copied once into shared memory, each warp's 16
+rows of scores in registers, an exact two-pass softmax over the whole row.
+No key list and no row order.
 "per-element" (bf16 with odd D or D above 256, other views, more than 8
-heads) runs one warp a (row, head) and loads a head's dims one by one, 8 a
-lane up to D = 256 and 10 up to 320.
+heads outside the resident rule) runs one warp a (row, head) and loads a
+head's dims one by one, 8 a lane up to D = 256 and 10 up to 320.
 """
 
 from __future__ import annotations
@@ -97,10 +104,16 @@ TILED_CHUNK = 8                  # columns a cp.async chunk
 TILED_CHUNKS = 1                 # chunks in the ring
 TILED_PARTS = 4                  # warps a block
 _WT_LD = 12                      # row stride of a warp's 16 x 8 weight tile
+# the resident forward (csrc/masked_attention.cu RESIDENT_MAX_KEYS,
+# RESIDENT_MAX_HEAD_DIM, RROWS, RPARTS, resident_smem and resident_static_smem)
+RESIDENT_MAX_KEYS = 128          # a warp's 16 x Lk scores in registers
+RESIDENT_MAX_HEAD_DIM = 128      # and its 16 x D outputs
+RESIDENT_ROWS = 64               # query rows a block, 16 a warp
+RESIDENT_PARTS = 4               # warps a block
 _DQ_ENTRY = {"staged": "masked_mha_bwd_dq_staged", "tiled": "masked_mha_bwd_dq_tiled",
              "per-element": "masked_mha_bwd_dq"}
-_FWD_ENTRY = {"staged": "masked_mha_fwd_staged", "tiled": "masked_mha_fwd_tiled",
-              "per-element": "masked_mha_fwd"}
+_FWD_ENTRY = {"staged": "masked_mha_fwd_staged", "resident": "masked_mha_fwd_resident",
+              "tiled": "masked_mha_fwd_tiled", "per-element": "masked_mha_fwd"}
 _DKV_ENTRY = {"staged": "masked_mha_bwd_dkv_staged", "tiled": "masked_mha_bwd_dkv_tiled",
               "per-element": "masked_mha_bwd_dkv"}
 
@@ -359,6 +372,36 @@ def tiled_layout(tensors) -> bool:
                     for t in tensors))
 
 
+def resident_layout(tensors) -> bool:
+    """Whether the resident forward can take these (B, L, H, D) q, k, v:
+    float32, at most RESIDENT_MAX_KEYS keys and a head dim of at most
+    RESIDENT_MAX_HEAD_DIM (odd too), any number of heads, rows of whole
+    16-byte pieces, and every tensor's pointer and batch and token strides
+    on 16 bytes (the 16-byte copies). `resident_refuses` in
+    csrc/masked_attention.cu is the same rule."""
+    _, _, H, D = tensors[0].shape
+    return (tensors[0].dtype == torch.float32 and tensors[1].shape[1] <= RESIDENT_MAX_KEYS
+            and D <= RESIDENT_MAX_HEAD_DIM and (H * D) % 4 == 0
+            and all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+                    for t in tensors))
+
+
+def resident_plan(lq: int, lk: int, head_dim: int) -> dict:
+    """A resident launch: one block of RESIDENT_PARTS warps a (video, head,
+    tile of RESIDENT_ROWS query rows), `blocks` tiles a (video, head), block
+    t taking rows [t * RESIDENT_ROWS, (t + 1) * RESIDENT_ROWS), 16 a warp.
+    `smem`: every key's v and k windows (Lk rounded up to 8) and the tile's
+    q windows, `tiled_row` floats a row; `static_smem`: each warp's 16 x 8
+    weight tile. `fits` also holds the route's shape limits."""
+    threads = 32 * RESIDENT_PARTS
+    smem = (2 * -(-lk // 8) * 8 + RESIDENT_ROWS) * tiled_row(head_dim) * 4
+    static = RESIDENT_PARTS * TILED_ROWS * _WT_LD * 4
+    return {"rows": RESIDENT_ROWS, "blocks": -(-lq // RESIDENT_ROWS), "threads": threads,
+            "smem": smem, "static_smem": static,
+            "fits": (lk <= RESIDENT_MAX_KEYS and head_dim <= RESIDENT_MAX_HEAD_DIM
+                     and smem + static <= BLOCK_SMEM_MAX)}
+
+
 def tiled_row(head_dim: int) -> int:
     """Floats a staged row of the tiled kernels: the widest 16-byte window
     of a head's slice, 4 mod 8 floats (bank-conflict-free fragment
@@ -497,11 +540,13 @@ def dq_route(q, k, v, g) -> str:
 
 def fwd_route(q, k, v) -> str:
     """The forward kernel's route, "staged" (query tiles, `fwd_plan`),
-    "tiled" (`tiled_plan`) or "per-element", from dtype, shapes and 16-byte
-    alignment alone."""
+    "resident" (`resident_plan`), "tiled" (`tiled_plan`) or "per-element",
+    tried in that order, from dtype, shapes and 16-byte alignment alone."""
     _, Lq, H, D = q.shape
     if staged_layout((q, k, v)) and fwd_plan(Lq, k.shape[1], H, D)["fits"]:
         return "staged"
+    if resident_layout((q, k, v)) and resident_plan(Lq, k.shape[1], D)["fits"]:
+        return "resident"
     return "tiled" if _tiled("fwd", (q, k, v)) else "per-element"
 
 
@@ -625,7 +670,8 @@ def _raise_on(rc: int, what: str) -> None:
 
 
 _ARGTYPES = {  # pointers after dtype; then sizes, strides, scale, threshold, keep scale, stream
-    "masked_mha_fwd": 7, "masked_mha_fwd_staged": 7, "masked_mha_fwd_tiled": 8,
+    "masked_mha_fwd": 7, "masked_mha_fwd_staged": 7, "masked_mha_fwd_resident": 7,
+    "masked_mha_fwd_tiled": 8,
     "masked_mha_bwd_dq": 9, "masked_mha_bwd_dq_staged": 9, "masked_mha_bwd_dq_tiled": 10,
     "masked_mha_bwd_dkv": 10, "masked_mha_bwd_dkv_staged": 10, "masked_mha_bwd_dkv_tiled": 11}
 

@@ -102,6 +102,16 @@ that leaves out work computes a wrong result and is timed only:
                          compiler in place of 5 and 3
     tiled-1xtf32         one TF32 mma a product in place of three (its
                          numbers keep about 3 digits: timed only)
+  and the resident forward at CLIP's towers' shapes (`clip_inputs`: the
+  image tower's (32, 50, 12, 64) with every pair allowed, the text
+  tower's (3, 77, 8, 64) causal; float32 column blocks of a fused
+  projection), the eval forward's C entry, the committed kernel also on
+  the per-element entry and (8 heads) the tiled one on a row order made
+  once, then the wrapper and SDPA on the same inputs:
+    resident-no-load     every k, v and q copy zero-filled, not read
+    resident-no-walk     the products (S = Q K^T, P V) left out
+    resident-no-mask     the allow bytes not read (every key allowed)
+    tiled-1xtf32         as above: what 3xTF32 costs the resident route
 
 Each row prints device us (or ms) a call, two-point differenced with the
 card kept busy while the host queues the calls (`tools.timing`), beside
@@ -264,11 +274,20 @@ VARIANTS = {
                                      ("BWD_TILED_BLOCKS = 3;", "BWD_TILED_BLOCKS = 2;")),
         "tiled-1xtf32": _edits(   # one TF32 mma a product (about 3 digits): what 3x costs
             ("  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", "")),
+        "resident-no-load": _edits(   # every copy zero-filled, not read
+            ("cp_async16(vs + j * RS + e, src + e, in);",
+             "cp_async16(vs + j * RS + e, src + e, false);")),
+        "resident-no-walk": _edits(   # the products left out
+            ("for (int kk = 0; kk < KS; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {"),
+            ("      if (nd >= KS) break;\n      const float2 bv = chunk_b(vw",
+             "      if (nd >= 0) break;\n      const float2 bv = chunk_b(vw")),
+        "resident-no-mask": _edits(   # the allow bytes not read: every key allowed
+            ("if (key < a.Lk && arow[key]) bits[r]", "if (key < a.Lk) bits[r]")),
     },
 }
 # the attention kernels each masked_attention variant is timed on, and the
 # dQ routes
-ATTENTION_KINDS = {"kernel": ("dq", "fwd", "dkv"), "no-kv-load": ("dq",),
+ATTENTION_KINDS = {"kernel": ("dq", "fwd", "dkv", "resident"), "no-kv-load": ("dq",),
                    "no-chunk-load": ("fwd", "dkv"), "stages-1": ("dq", "fwd", "dkv"),
                    "min-blocks-2": ("dq",), "fewer-blocks": ("fwd", "dkv"),
                    "more-blocks": ("fwd", "dkv"),
@@ -278,7 +297,8 @@ ATTENTION_KINDS = {"kernel": ("dq", "fwd", "dkv"), "no-kv-load": ("dq",),
                    "no-second-walk": ("dq",), "tiled-stages-2": ("tiled",),
                    "tiled-no-load": ("tiled",), "tiled-no-walk": ("tiled",),
                    "tiled-no-list": ("tiled",), "tiled-fewer-blocks": ("tiled",),
-                   "tiled-1xtf32": ("tiled",)}
+                   "tiled-1xtf32": ("tiled", "resident"), "resident-no-load": ("resident",),
+                   "resident-no-walk": ("resident",), "resident-no-mask": ("resident",)}
 DQ_ROUTES = {"kernel": ("staged", "per-element"), "no-second-walk": ("per-element",)}
 ROI_MAP, ROIS_PER_FRAME, ROI_OUT = (32, 38, 64, 1024), 300, (14, 14)
 DQ_SHAPES = ((96, 96), (192, 192), (192, 192), (96, 192))   # (Lq, Lk), one train step
@@ -359,6 +379,7 @@ def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> lis
         _run_dq(libs, add, dev, iters, clock, stream)
         _run_fwd_dkv(libs, add, log, dev, iters, clock, stream)
         _run_tiled(libs, add, dev, iters, clock, stream)
+        _run_resident(libs, add, dev, iters, clock, stream)
     return rows
 
 
@@ -760,6 +781,66 @@ def _run_tiled(libs, add, dev, iters, clock, stream):
     for kind, fn in wrappers.items():
         add(f"tracklet {kind}", "wrapper (order included)" if kind != "row_order" else "alone",
             timing.timed_delta(fn, iters, clock).device_s, "ms")
+
+
+CLIP_SHAPES = {"image": (32, 50, 12, False), "text": (3, 77, 8, True)}  # B, L, H, causal
+
+
+def clip_inputs(tower: str, dev, seed=0):
+    """One attention call of a CLIP tower at full width: q, k, v float32
+    column blocks of a fused (B, L, 3 H 64) projection, the tower's allow
+    mask (every pair, or causal) and the softmax scale."""
+    B, L, H, causal = CLIP_SHAPES[tower]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    E = H * 64
+    x = torch.randn(B, L, 3 * E, device=dev, generator=g)
+    q, k, v = (x[..., i * E:(i + 1) * E].unflatten(-1, (H, 64)) for i in range(3))
+    allow = torch.ones(L, L, dtype=torch.bool, device=dev)
+    allow = (allow.tril() if causal else allow).expand(B, L, L).contiguous()
+    return q, k, v, allow, 64 ** -0.5
+
+
+def _run_resident(libs, add, dev, iters, clock, stream):
+    """The resident eval forward at CLIP's two towers' shapes
+    (`clip_inputs`): each variant's C entry; the committed kernel also on
+    the per-element entry and, where the tiled rule takes the inputs, the
+    tiled entry on a row order made once; then the wrapper and SDPA."""
+    from ..ops import masked_attention as ma
+    for tower in CLIP_SHAPES:
+        q, k, v, allow, scale = clip_inputs(tower, dev)
+        B, L, H, D = q.shape
+        if ma.fwd_route(q, k, v) != "resident":
+            raise RuntimeError(f"the CLIP {tower} shapes no longer take the resident route")
+        out = torch.empty(B, L, H, D, device=dev)
+        order = ma.row_order(allow)
+        dims = (B, L, L, H, D, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                v.stride(0), v.stride(1), scale, 0, 1.0)
+        base = (0, q.data_ptr(), k.data_ptr(), v.data_ptr(), allow.data_ptr())
+        tail = (None, out.data_ptr(), None, *dims)
+        runs = []
+        for key, lib in libs.items():
+            if "resident" not in ATTENTION_KINDS[key]:
+                continue
+            runs.append((f"{key} resident", lib.masked_mha_fwd_resident, (*base, *tail)))
+            if key == "kernel":
+                runs.append(("kernel per-element", lib.masked_mha_fwd, (*base, *tail)))
+                if ma._tiled("fwd", (q, k, v)):
+                    runs.append(("kernel tiled (order made once)", lib.masked_mha_fwd_tiled,
+                                 (*base, order.data_ptr(), *tail)))
+        for key, fn, a in runs:
+            fn.argtypes, fn.restype = ma.entry_argtypes(fn.__name__), I
+
+            def call(fn=fn, a=(*a, stream), key=key):
+                if fn(*a):
+                    raise RuntimeError(f"{fn.__name__} variant {key} failed to launch")
+            add(f"clip {tower} fwd eval", key, timing.timed_delta(call, iters, clock).device_s,
+                "us")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        for key, fn in (("wrapper", lambda: ma.masked_mha(q, k, v, allow, scale)),
+                        ("sdpa", lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=allow[:, None], scale=scale))):
+            add(f"clip {tower} fwd eval", key, timing.timed_delta(fn, iters, clock).device_s,
+                "us")
 
 
 def main(argv=None) -> None:

@@ -42,13 +42,14 @@ def plain(q, k, v, allow, scale):
 
 
 def pallas(q, k, v, allow, scale):
-    pad = ((0, 0), (0, 0), (0, 0), (0, DP - D))
+    d = q.shape[-1]
+    pad = ((0, 0), (0, 0), (0, 0), (0, DP - d))
     bias = jnp.where(jnp.asarray(allow), 0.0, NEG_INF).astype(jnp.float32)
     seeds = jnp.zeros((q.shape[0], 1), jnp.int32)
     out = jax.vmap(lambda a, b, c, bi, s: fused_masked_mha(
         a, b, c, bi, s, sm_scale=scale, interpret=True))(
             jnp.pad(q, pad), jnp.pad(k, pad), jnp.pad(v, pad), bias, seeds)
-    return np.asarray(out[..., :D])
+    return np.asarray(out[..., :d])
 
 
 @pytest.mark.parametrize("b,lq,lk", [(3, 16, 16), (2, 8, 24), (3, 24, 8)])
@@ -63,6 +64,25 @@ def test_plain_matches_pallas_kernel(b, lq, lk, zero_rows):
     np.testing.assert_allclose(ours, ref, **TOL)
     if zero_rows:
         assert (ours[:, 1] == 0).all() and (ours[-1] == 0).all()
+    assert np.isfinite(ours).all()
+
+
+@pytest.mark.parametrize("heads,length,causal", [(12, 50, False), (8, 77, True)])
+def test_plain_matches_pallas_at_clip_head_layouts(heads, length, causal):
+    """CLIP's towers' attention, the resident route's shapes on a card: 12
+    heads of 64 over 50 tokens with every pair allowed (the image tower),
+    8 heads of 64 over 77 causal (the text tower); 2 videos, float32, the
+    heads padded to 128 for the JAX kernel as its MaskedMHA pads them.
+    Float32 on both sides, sums in another order: 1e-5."""
+    rng = np.random.default_rng(heads * length)
+    b, d = 2, 64
+    q, k, v = (rng.standard_normal((b, length, heads, d)).astype(np.float32) for _ in range(3))
+    allow = np.ones((b, length, length), bool)
+    if causal:
+        allow &= np.tril(np.ones((length, length), bool))
+    scale = 1.0 / np.sqrt(d)
+    ours = plain(q, k, v, allow, scale)
+    np.testing.assert_allclose(ours, pallas(q, k, v, allow, scale), rtol=1e-5, atol=1e-5)
     assert np.isfinite(ours).all()
 
 

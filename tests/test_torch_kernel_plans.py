@@ -5,14 +5,16 @@ map window, so the worst window, a roi over the whole 38 x 64 C4 map, takes
 no more than any other), the attention kernels' routes (`dq_route`,
 `fwd_route`, `dkv_route` on two rules: `staged_layout`, the staged routes
 for the serving and training paths' 16-byte aligned bf16 column blocks of
-the fused projection; `tiled_layout`, the tiled routes for float32 ones
-up to D = 320, DSG-DETR's tracklet heads of 297; the per-element routes for
-offset views, bf16 odd head dims, rows that are not whole 16-byte pieces
-and more than 8 heads), the tiled rule against the one the CUDA source
-states, the staged forward's and dK/dV's block plans (`fwd_plan`,
-`dkv_plan`: shared memory within a block's limit, 16-row tiles and head
-groups covering every row and head once), the tiled plans, and the tiled
-kernels' row order (`row_order`)."""
+the fused projection; `resident_layout`, the forward's resident route for
+float32 ones with Lk and D up to 128, any number of heads, CLIP's towers;
+`tiled_layout`, the tiled routes for float32 ones up to D = 320, DSG-DETR's
+tracklet heads of 297; the per-element routes for offset views, bf16 odd
+head dims, rows that are not whole 16-byte pieces and more than 8 heads),
+the tiled and resident rules against the ones the CUDA source states, the
+staged forward's and dK/dV's block plans (`fwd_plan`, `dkv_plan`: shared
+memory within a block's limit, 16-row tiles and head groups covering every
+row and head once), the tiled and resident plans, and the tiled kernels'
+row order (`row_order`)."""
 
 import os
 import re
@@ -241,6 +243,8 @@ def test_tiled_route_choices(kind, case, H, D, dtype, pad, L, route):
     shared memory."""
     q, k, v = _fused(2, L, H, D, dtype, pad)
     g = torch.zeros(q.shape, dtype=dtype)
+    if case == "16-heads" and kind == "fwd":
+        route = "resident"            # the forward's resident route takes any number of heads
     assert _ROUTES[kind](q, k, v, g) == route
     if case.startswith("tracklet"):
         assert q.stride(1) == 3 * 2376 and (k.data_ptr() - q.data_ptr()) == 9504
@@ -272,20 +276,21 @@ def test_tiled_constants_match_the_kernel():
         assert w % 8 == 4 and w >= D + 3 and w >= ((D + 6) & ~3) >= w - 4
 
 
-def _kernel_refuses(src):
-    """`tiled_refuses` of the CUDA source as a Python function of (dtype
-    code, B, Lq, Lk, H, D, pointer offsets, or-ed strides): its return
-    expression evaluated with the source's `bad_shape` and DMAX."""
-    body = re.search(r"bool tiled_refuses\(.*?\{(.*?)\n\}", src, re.S).group(1)
+def _kernel_refuses(src, name="tiled_refuses"):
+    """`name` (`tiled_refuses` or `resident_refuses`) of the CUDA source as a
+    Python function of (dtype code, B, Lq, Lk, H, D, pointer offsets, or-ed
+    strides): its return expression evaluated with the source's `bad_shape`
+    and its integer constants."""
+    body = re.search(rf"bool {name}\(.*?\{{(.*?)\n\}}", src, re.S).group(1)
     expr = re.search(r"return (.*?);", body, re.S).group(1)
     expr = " ".join(expr.split()).replace("||", " or ").replace("!=", " != ")
     bad = re.search(r"bool bad_shape\(.*?\{\s*return (.*?);", src, re.S).group(1)
     bad = " ".join(bad.split()).replace("||", " or ")
-    dmax, warps = _cu_int(src, "DMAX"), _cu_int(src, "WARPS")
+    consts = {n: int(x) for n, x in re.findall(r"constexpr int (\w+) = (\d+);", src)}
 
     def refuses(dtype, B, Lq, Lk, H, D, ptrs, strides):
-        env = dict(dtype=dtype, B=B, Lq=Lq, Lk=Lk, H=H, D=D, DMAX=dmax, WARPS=warps,
-                   strides=strides, off=any(p % 16 for p in ptrs))
+        env = dict(consts, dtype=dtype, B=B, Lq=Lq, Lk=Lk, H=H, D=D, strides=strides,
+                   off=any(p % 16 for p in ptrs))
         env["bad_shape"] = lambda B, Lq, Lk, H, D: eval(bad, {}, dict(env, B=B, Lq=Lq, Lk=Lk,
                                                                       H=H, D=D))
         return bool(eval(expr, {}, env))
@@ -413,3 +418,115 @@ def test_row_order_on_the_tracklet_masks_fills_tiles_with_one_tracklet():
         assert len(set(gid[rows].tolist())) == 1
         assert int(allow[0, rows].any(0).sum()) == 32
         assert bool(allow[0, rows][:, allow[0, rows].any(0)].all())
+
+
+# ---------------------------------------------------------- resident route
+def _clip_heads(B, L, heads, width=None):
+    """q, k, v as CLIP's MaskedMHA gives them: the (B, L, H, 64) column
+    blocks of its fused float32 in-projection."""
+    from nl_vsgg_tpu_torch.models.layers import MaskedMHA
+    mha = MaskedMHA(heads * 64, heads)
+    with torch.no_grad():
+        return mha.heads(*(torch.zeros(B, L, heads * 64),) * 3)
+
+
+@pytest.mark.parametrize("tower,B,L,heads,dq_dkv", [
+    ("vision", 32, 50, 12, "per-element"),    # ViT-B/32: 12 heads of 64 over 50 tokens
+    ("text", 3, 77, 8, "tiled")])             # the text tower: 8 heads of 64 over 77
+def test_resident_route_at_clips_layouts(tower, B, L, heads, dq_dkv):
+    """The forward takes the resident route at both CLIP towers' real
+    layouts (token stride 3 x H x 64 floats); dQ and dK/dV keep theirs."""
+    q, k, v = _clip_heads(B, L, heads)
+    assert q.shape == (B, L, heads, 64) and q.stride(1) == 3 * heads * 64
+    assert ma.fwd_route(q, k, v) == "resident"
+    g = torch.zeros(q.shape)
+    assert ma.dq_route(q, k, v, g) == ma.dkv_route(q, k, v, g) == dq_dkv
+
+
+@pytest.mark.parametrize("case,H,D,dtype,pad,lq,lk,fwd,bwd", [
+    ("D-129", 4, 129, torch.float32, 0, 64, 64, "tiled", "tiled"),
+    ("Lk-129", 8, 64, torch.float32, 0, 64, 129, "tiled", "tiled"),
+    ("Lk-129-12-heads", 12, 64, torch.float32, 0, 50, 129, "per-element", "per-element"),
+    ("bf16-8-heads", 8, 64, torch.bfloat16, 0, 77, 77, "staged", "staged"),
+    ("bf16-12-heads", 12, 64, torch.bfloat16, 0, 50, 50, "per-element", "per-element"),
+    ("misaligned-view", 12, 64, torch.float32, 1, 50, 50, "per-element", "per-element"),
+    ("odd-row-3-heads-of-63", 3, 63, torch.float32, 0, 50, 50, "per-element", "per-element"),
+    ("tracklet-8-heads-of-297", 8, 297, torch.float32, 0, 128, 128, "tiled", "tiled"),
+    ("sttran-bf16-8-heads-of-242", 8, 242, torch.bfloat16, 0, 192, 192, "staged", "staged"),
+    ("fp32-path-heads-of-242", 8, 242, torch.float32, 0, 192, 192, "tiled", "tiled"),
+    ("edge-16-heads-of-128", 16, 128, torch.float32, 0, 200, 128, "resident", "per-element"),
+    ("odd-D-4-heads-of-127", 4, 127, torch.float32, 0, 9, 128, "resident", "tiled")])
+def test_resident_route_choices(case, H, D, dtype, pad, lq, lk, fwd, bwd):
+    """The resident rule refuses D = 129, Lk = 129, bfloat16 (staged where
+    that takes it), a view 4 bytes off 16 and rows that are not whole
+    16-byte pieces; the tracklet heads of 297, STTran's bf16 heads of 242
+    and float32 heads of 242 keep their routes; dQ and dK/dV never take it."""
+    q, _, _ = _fused(2, lq, H, D, dtype, pad)
+    _, k, v = _fused(2, lk, H, D, dtype, pad)
+    g = torch.zeros(q.shape, dtype=dtype)
+    assert ma.fwd_route(q, k, v) == fwd
+    assert ma.resident_layout((q, k, v)) == (fwd == "resident")
+    assert ma.dq_route(q, k, v, g) == ma.dkv_route(q, k, v, g) == bwd
+
+
+@pytest.mark.parametrize("lq,lk,D", [(50, 50, 64), (77, 77, 64), (200, 128, 128),
+                                     (1, 1, 1), (128, 128, 128), (65, 9, 127)])
+def test_resident_plan_fits_and_covers(lq, lk, D):
+    """The plan fits a block's shared memory up to Lk = D = 128, its tiles of
+    64 rows take every query row once (16 a warp), and its shared memory is
+    the kernel's sum: v and k windows for Lk rounded up to 8, 64 q windows."""
+    p = ma.resident_plan(lq, lk, D)
+    assert p["fits"] and p["smem"] + p["static_smem"] <= ma.BLOCK_SMEM_MAX
+    assert p["threads"] == 32 * ma.RESIDENT_PARTS == 128
+    assert p["rows"] == ma.RESIDENT_ROWS == ma.RESIDENT_PARTS * ma.TILED_ROWS
+    assert p["smem"] == (2 * (-(-lk // 8) * 8) + 64) * ma.tiled_row(D) * 4
+    assert p["static_smem"] == 4 * 16 * 12 * 4
+    covered = [0] * lq
+    for t in range(p["blocks"]):
+        for row in range(t * p["rows"], min(lq, (t + 1) * p["rows"])):
+            covered[row] += 1
+    assert covered == [1] * lq
+    clip = ma.resident_plan(50, 50, 64)     # the image tower's blocks: 45 KB, 384 of them
+    assert clip["blocks"] == 1 and clip["smem"] == (112 + 64) * 68 * 4
+    assert not ma.resident_plan(50, 129, 64)["fits"]
+    assert not ma.resident_plan(50, 128, 129)["fits"]
+
+
+def test_resident_constants_match_the_kernel():
+    """The wrapper's resident constants and shared-memory sum are the CUDA
+    source's."""
+    src = _cu_source()
+    assert _cu_int(src, "RESIDENT_MAX_KEYS") == ma.RESIDENT_MAX_KEYS
+    assert _cu_int(src, "RESIDENT_MAX_HEAD_DIM") == ma.RESIDENT_MAX_HEAD_DIM
+    assert _cu_int(src, "RROWS") == ma.RESIDENT_ROWS
+    assert _cu_int(src, "RPARTS") == ma.RESIDENT_PARTS
+    assert "((size_t)2 * ((Lk + 7) & ~7) + RROWS) * tiled_row(D) * sizeof(float)" in src
+    assert "(size_t)RPARTS * TT * WT_LD * sizeof(float)" in src
+    assert ma._FWD_ENTRY["resident"] == "masked_mha_fwd_resident"
+    assert 'extern "C" int masked_mha_fwd_resident(' in src
+    assert len(ma.entry_argtypes("masked_mha_fwd_resident")) == len(
+        ma.entry_argtypes("masked_mha_fwd"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad", [0, 1, 4])
+def test_resident_rule_agrees_with_the_kernel(dtype, pad):
+    """`resident_layout` takes exactly what the kernel's `resident_refuses`
+    does not, over head counts (past 8 too), head dims and key counts
+    around 128, and views."""
+    refuses = _kernel_refuses(_cu_source(), "resident_refuses")
+    checked = 0
+    for H in (1, 3, 8, 12, 16):
+        for D in (1, 63, 64, 127, 128, 129):
+            for lk in (5, 128, 129):
+                q, _, _ = _fused(2, 5, H, D, dtype, pad)
+                _, k, v = _fused(2, lk, H, D, dtype, pad)
+                tensors = (q, k, v)
+                strides = 0
+                for t in tensors:
+                    strides |= t.stride(0) | t.stride(1)
+                kernel_takes = not refuses(ma._DTYPES[dtype], 2, 5, lk, H, D,
+                                           [t.data_ptr() for t in tensors], strides)
+                assert ma.resident_layout(tensors) == kernel_takes, (H, D, lk, pad, dtype)
+                checked += kernel_takes
+    assert (checked > 0) == (dtype == torch.float32 and pad % 4 == 0)

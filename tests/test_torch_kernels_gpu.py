@@ -252,7 +252,9 @@ def _attention_case(gen, lq, lk, H, D, pad, mask, rate, dtype="bf16"):
     clip that follows three objects, a few rows and key columns allowed
     nothing; "random": 3% with some query rows fully allowed, some empty,
     and some key columns empty, so that a tile of the tiled route's row
-    order meets a large union of keys) and the seeds."""
+    order meets a large union of keys; "all": every pair, as CLIP's image
+    tower; "causal": key j allowed to query i >= j, as its text tower) and
+    the seeds."""
     B, E, dt = 4, H * D, _DTYPE[dtype]
     xq = torch.randn(B, lq, 3 * E + pad, device="cuda", generator=gen).to(dt)[..., pad:]
     xk = torch.randn(B, lk, 3 * E + pad, device="cuda", generator=gen).to(dt)[..., pad:]
@@ -267,6 +269,10 @@ def _attention_case(gen, lq, lk, H, D, pad, mask, rate, dtype="bf16"):
         if dtype == "fp32":
             allow[:, 7::31] = False
             allow[:, :, 11::37] = False
+    elif mask in ("all", "causal"):
+        allow = torch.ones(B, lq, lk, dtype=torch.bool, device="cuda")
+        if mask == "causal":
+            allow = allow.tril()
     else:
         allow = torch.rand(B, lq, lk, device="cuda", generator=gen) < 0.03
         allow[:, ::9] = True
@@ -300,7 +306,14 @@ _ROUTE_CASES = [
     ("fp32-frames-96x192", 96, 192, 8, 242, 0, "frames", "tiled"),
     ("fp32-random-1x5", 1, 5, 8, 297, 0, "random", "tiled"),
     ("fp32-misaligned-view", 96, 96, 8, 297, 1, "classes", "per-element"),
-    ("fp32-3-heads-of-297", 96, 96, 3, 297, 0, "classes", "per-element")]
+    ("fp32-3-heads-of-297", 96, 96, 3, 297, 0, "classes", "per-element"),
+    ("fp32-clip-vision-12-heads-of-64", 50, 50, 12, 64, 0, "all", "resident"),
+    ("fp32-clip-text-8-heads-of-64", 77, 77, 8, 64, 0, "causal", "resident"),
+    ("fp32-random-200x128-16-heads-of-128", 200, 128, 16, 128, 0, "random", "resident")]
+# the backward routes of the resident cases (a route of the forward only)
+_RESIDENT_BWD = {"fp32-clip-vision-12-heads-of-64": "per-element",
+                 "fp32-clip-text-8-heads-of-64": "tiled",
+                 "fp32-random-200x128-16-heads-of-128": "per-element"}
 
 
 def _dtype_of(case):
@@ -343,7 +356,7 @@ def test_dkv_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route
     1e-5 |ref|), key rows no query may see exactly 0, one launch."""
     dtype = _dtype_of(case)
     q, k, v, gout, allow, seeds = _attention_case(gpu, lq, lk, H, D, pad, mask, rate, dtype)
-    assert ma.dkv_route(q, k, v, gout) == route
+    assert ma.dkv_route(q, k, v, gout) == _RESIDENT_BWD.get(case, route)
     scale = D ** -0.5
     _, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, seeds)
     _, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, seeds)
@@ -358,6 +371,64 @@ def test_dkv_routes_match_plain_on_gpu(gpu, case, lq, lk, H, D, pad, mask, route
     torch.testing.assert_close(dv.float(), ref_dv.float(), **_GRAD_TOL[dtype])
     unseen = ~allow.any(1)
     assert (dk[unseen] == 0).all() and (dv[unseen] == 0).all()
+
+
+@pytest.mark.parametrize("heads,length,mask,bwd", [(12, 50, "all", "per-element"),
+                                                   (8, 77, "causal", "tiled")])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_after_a_resident_forward_on_gpu(gpu, heads, length, mask, bwd, rate):
+    """masked_mha with gradients at CLIP's head layouts: the forward on the
+    resident route writes the lse that the dQ and dK/dV kernels (per-element
+    at 12 heads, tiled at 8) read; out and the gradients against the plain
+    version's (float32: 1e-4; gradients 2e-4 + 1e-5 |ref|), one launch of
+    each kernel."""
+    q, k, v, gout, allow, seeds = _attention_case(gpu, length, length, heads, 64, 0, mask,
+                                                  rate, "fp32")
+    assert ma.fwd_route(q, k, v) == "resident"
+    assert ma.dq_route(q, k, v, gout) == ma.dkv_route(q, k, v, gout) == bwd
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    ma.reset_launches()
+    out = ma.masked_mha(q, k, v, allow, 0.125, rate, seeds)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert dict(ma.LAUNCHES) == {"fwd": 1, "bwd_dq": 1, "bwd_dkv": 1}
+    ref_out = ma.masked_mha_reference(q.detach(), k.detach(), v.detach(), allow, 0.125, rate,
+                                      seeds)
+    torch.testing.assert_close(out.detach(), ref_out, **_OUT_TOL["fp32"])
+    ref = ma.masked_mha_bwd_reference(q.detach(), k.detach(), v.detach(), allow, 0.125, gout,
+                                      rate, seeds)
+    for t, r in zip((q, k, v), ref):
+        torch.testing.assert_close(t.grad, r, **_GRAD_TOL["fp32"])
+
+
+def test_resident_entry_refuses_what_the_rule_refuses_on_gpu(gpu):
+    """The resident C entry returns cudaErrorInvalidValue, launching
+    nothing, for what `resident_layout` refuses (bfloat16, a view 4 bytes
+    off 16, rows that are not whole 16-byte pieces, D = 129, Lk = 129) and
+    launches on what it takes (any number of heads)."""
+    def launch(q, k, v, allow):
+        B, Lq, H, D = q.shape
+        out = torch.empty(B, Lq, H, D, dtype=q.dtype, device="cuda")
+        fn = ma._fn("masked_mha_fwd_resident")
+        return fn(ma._DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  allow.data_ptr(), None, out.data_ptr(), None, B, Lq, k.shape[1], H, D,
+                  q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                  D ** -0.5, 0, 1.0, torch.cuda.current_stream().cuda_stream)
+
+    for H, D, pad, dtype, lk in ((12, 64, 0, torch.float32, 50), (12, 64, 0, torch.bfloat16, 50),
+                                 (12, 64, 1, torch.float32, 50), (3, 63, 0, torch.float32, 50),
+                                 (4, 129, 0, torch.float32, 50), (8, 64, 0, torch.float32, 129),
+                                 (16, 128, 0, torch.float32, 128)):
+        x = torch.randn(2, 16, 3 * H * D + pad, device="cuda", generator=gpu).to(dtype)[..., pad:]
+        y = torch.randn(2, lk, 3 * H * D + pad, device="cuda", generator=gpu).to(dtype)[..., pad:]
+        q = x[..., :H * D].unflatten(-1, (H, D))
+        k, v = (y[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)) for i in (1, 2))
+        allow = torch.ones(2, 16, lk, dtype=torch.bool, device="cuda")
+        takes = ma.resident_layout((q, k, v))
+        assert (launch(q, k, v, allow) == 0) == takes, (H, D, pad, dtype, lk)
+        assert takes == (dtype == torch.float32 and pad == 0 and H * D % 4 == 0 and D <= 128
+                         and lk <= 128)
+    torch.cuda.synchronize()
 
 
 def test_tiled_entries_refuse_what_the_rule_refuses_on_gpu(gpu):
@@ -711,8 +782,8 @@ def test_run_training_one_epoch_on_gpu(gpu, tmp_path):
 
 
 @pytest.mark.parametrize("width,heads,length,causal,route", [
-    (768, 12, 50, False, "per-element"),     # the CLIP vision tower's blocks
-    (512, 8, 77, True, "tiled"),             # the CLIP text tower's blocks, causal
+    (768, 12, 50, False, "resident"),        # the CLIP vision tower's blocks
+    (512, 8, 77, True, "resident"),          # the CLIP text tower's blocks, causal
 ])
 def test_clip_block_on_its_attention_route_on_gpu(gpu, width, heads, length, causal, route):
     """A CLIP residual block in float32 through the attention kernel against
