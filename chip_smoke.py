@@ -52,8 +52,10 @@ Phases, in order; any failure exits non-zero before the result line:
      conv at its four geometry classes (c = 8
      at 152x256, 16 at 76x128, 32 at 38x64, 64 at 7x7 over 1200 crops) and
      at the edges of the bf16 kernel's tiles (1201 crops, a 38x50 map), with
-     and without the bias + ReLU epilogue, float32, bfloat16, and bfloat16
-     in with a float32 output; bf16 storage off 16-byte alignment refused;
+     and without the bias + ReLU epilogue, float32 (on the 3xtf32 route),
+     bfloat16 (on the tc route), and bfloat16 in with a float32 output,
+     each call's route printed (or the run fails); bf16 storage off 16-byte
+     alignment refused;
   8. the detector path: `AttrRCNNTorch` (VinVL X152-C4 at full width and
      depth, random weights from a seeded generator) on 480x800 BGR frames
      (600x1000 after the resize, bucket 608x1024): in float32 on 4 frames
@@ -62,14 +64,23 @@ Phases, in order; any failure exits non-zero before the result line:
      proposals, relative to each tensor's largest magnitude; the detections
      matched by frame, label and corners), with the launch counts of the
      trunk (45 grouped convs) and the box head (1 RoIAlign, 2 grouped
-     convs); then the bf16 `detect_video` as a server answering two
-     32-frame requests and `extract_box_features_frames` for 96 union boxes
+     convs), every grouped conv on the 3xtf32 route; then the bf16
+     `detect_video` as a server answering two 32-frame requests and
+     `extract_box_features_frames` for 96 union boxes
      a video, each with the counts set to 0 just before and read just after
      (1 RoIAlign and 47 grouped convs a pass), ms per video, frames/s, peak
      memory, and bf16 union features against fp32 by correlation;
   9. both detector kernels timed on the inputs one bf16 `detect_video` gave
      them, beside their plain versions, cuDNN's grouped conv and the bound;
-     a torch.profiler table of one bf16 `detect_video`;
+     a torch.profiler table of one bf16 `detect_video`; then the float32
+     route (`fp32_conv_phase`): float32 `detect_video`s of a 32-frame
+     video with its 47 grouped convs on the 3xtf32 route and, patched in,
+     on the first kernel (fma), ms per video and frames/s for both (cuDNN's
+     TF32 on, as `preprocess features` runs); the 47 calls each held to the
+     plain version on both routes (1e-5 of the max, TF32 off), one a shape
+     class timed on both routes, the plain version and cuDNN with TF32 off
+     and on, beside the bound by bytes and by operations at TF32's rate, with
+     the CUDA-core term and the 3xtf32 design's three TF32 products logged;
  10. the probe path (`nl_vsgg_tpu_torch.tools.probe_overhead` and
      `probe_ablate`): its four kernels against their plain versions at the
      probes' full shapes (the copy exact in float32 and bfloat16 at (256,
@@ -197,11 +208,11 @@ Phases, in order; any failure exits non-zero before the result line:
      in its schema; phase 8's detector weights as a VinVL .pth ->
      `convert_vinvl` -> .npz -> `preprocess features` on 2 videos x 4 frames,
      equal to `detect_video` with the state dict bitwise, with its RoIAlign
-     and grouped-conv launches counted;
+     and grouped-conv launches counted (float32: all on the 3xtf32 route);
  16. the `kernels` JSON line (each row with `launches_entry_points`, phase
-     14's launches, and `launches_offline`, phase 15's), then the device
-     JSON line, last; the line before them prints the card and the script's
-     total wall time.
+     14's launches, and `launches_offline`, phase 15's; the grouped conv has
+     a bf16 row and a float32 row), then the device JSON line, last; the
+     line before them prints the card and the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -704,6 +715,170 @@ def roi_align_edge_checks(ra, g, dev) -> None:
             fail(f"roi_align edge case disagrees with its plain version: {dtype} C={C} S={S}")
 
 
+# TF32 on the tensor cores of one H100 SXM: the card's fastest rate for
+# float32 inputs, where the 3xtf32 route forms each product as three
+PEAK_TF32 = 495e12
+
+
+def fma_conv(x, w, groups, bias=None, relu=False, out_dtype=None):
+    """The first float32 grouped-conv kernel (route "fma", scalar FMAs on
+    the CUDA cores) through its own C entry, as the wrapper launches a
+    route: phase 9 times it beside the 3xtf32 route, which the path takes."""
+    import torch
+
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc
+    x, w = x.contiguous(), w.contiguous()
+    N, H, W, C = x.shape
+    out = torch.empty(x.shape, dtype=out_dtype or x.dtype, device=x.device)
+    b = None if bias is None else bias.float().contiguous()
+    rc = gc._fn("fma")(gc._DTYPES[out.dtype], x.data_ptr(), w.data_ptr(),
+                       None if b is None else b.data_ptr(), out.data_ptr(), N, H, W, C,
+                       C // groups, int(relu), 0, 0, 0, 0,
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"the fma grouped-conv entry failed at {tuple(x.shape)}: cudaError {rc}")
+    return out
+
+
+def fp32_conv_phase(det32, video, card) -> dict:
+    """Phase 9's float32 block: full-width float32 `detect_video`s of a
+    32-frame video on each grouped-conv route (3xtf32, the path's, and the
+    first kernel, fma, patched in; host clock after a warm-up, three each
+    in turns, with cuDNN's TF32 on as `preprocess features` runs it, at
+    PyTorch's default), then its 47 grouped-conv calls recorded, each held
+    to its plain version (DET_KERNEL_REL, TF32 off) on the 3xtf32 route and
+    on the fma entry, and one call a shape class timed on both, the plain
+    version and cuDNN `F.conv2d(groups=32)` with TF32 off (the same function
+    at the same accuracy) and on (PyTorch's default, about 3 digits). The
+    bound is the function's: its bytes, or its 18 c operations an output
+    element at TF32's rate, the card's fastest for float32 inputs; the
+    CUDA-core term and the 3xtf32 design's own (three TF32 products) are
+    logged beside it. Returns the `kernels` row of the float32 route."""
+    import torch
+    import torch.nn.functional as F
+
+    import nl_vsgg_tpu_torch.detector.resnet as dresnet
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc
+
+    orig = dresnet.grouped_conv3x3
+    torch.backends.cudnn.allow_tf32 = True                   # the CLI's default
+    det32.detect_video(video[:2])                            # warm-up, both routes
+    dresnet.grouped_conv3x3 = fma_conv
+    try:
+        det32.detect_video(video[:2])
+    finally:
+        dresnet.grouped_conv3x3 = orig
+    video_ms = {"3xtf32": [], "fma": []}
+    for route in ("3xtf32", "fma", "fma", "3xtf32", "3xtf32", "fma"):
+        gc.reset_launches()
+        dresnet.grouped_conv3x3 = orig if route == "3xtf32" else fma_conv
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = det32.detect_video(video)
+            video_ms[route].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            dresnet.grouped_conv3x3 = orig
+        want = {**dict.fromkeys(gc.ROUTES, 0), "3xtf32": 47 if route == "3xtf32" else 0}
+        if dict(gc.ROUTE_LAUNCHES) != want or len(out) != len(video):
+            fail(f"fp32 detect_video on the {route} route launched {dict(gc.ROUTE_LAUNCHES)}, "
+                 f"expected {want}")
+        if route == "3xtf32":
+            launches = gc.ROUTE_LAUNCHES["3xtf32"]
+    torch.backends.cudnn.allow_tf32 = False
+    for route, ms in video_ms.items():
+        log(f"detect_video fp32 (cuDNN TF32 on), grouped convs on {route}: "
+            f"{[round(t, 3) for t in ms]} ms per video of {len(video)} frames (host clock), "
+            f"{len(ms) * len(video) / sum(ms) * 1e3:.1f} frames/s")
+
+    # the pass's 47 calls, each against its plain version; one a class kept
+    classes = {}
+
+    def rec(x, w, groups, bias=None, relu=False, out_dtype=None):
+        out = orig(x, w, groups, bias, relu, out_dtype)
+        ref = gc.grouped_conv3x3_reference(x, w, groups, bias, relu, out_dtype)
+        err, ok = det_kernel_err(out, ref)
+        fma_err, fma_ok = det_kernel_err(fma_conv(x, w, groups, bias, relu, out_dtype), ref)
+        if not ok or not fma_ok:
+            fail(f"fp32 grouped_conv3x3 disagrees with its plain version on path inputs "
+                 f"{tuple(x.shape)} (max_abs_err 3xtf32 {err:.3e}, fma {fma_err:.3e})")
+        key = (tuple(x.shape), groups, relu, bias is not None)
+        if key not in classes:
+            classes[key] = [0, 0.0, 0.0, (x.clone(), w.clone(), None if bias is None else
+                                          bias.clone())]
+        classes[key][0] += 1
+        classes[key][1] = max(classes[key][1], err)
+        classes[key][2] = max(classes[key][2], fma_err)
+        return out
+
+    dresnet.grouped_conv3x3 = rec
+    try:
+        det32.detect_video(video)
+    finally:
+        dresnet.grouped_conv3x3 = orig
+    if sum(v[0] for v in classes.values()) != 47:
+        fail(f"recorded {sum(v[0] for v in classes.values())} fp32 grouped convs in a pass")
+
+    keys = ("ms", "fma_ms", "plain_ms", "library_ms", "library_tf32_ms", "bytes_ms",
+            "ops_ms", "fma_bound_ms", "tf32_bound_ms")
+    row = dict.fromkeys(keys, 0.0)
+    row["max_abs_err"] = row["fma_max_abs_err"] = 0.0
+    for (shape, groups, relu, _), (n, err, fma_err, (x, w, b)) in classes.items():
+        c = shape[3] // groups
+        if gc.conv_route(x, w) != "3xtf32":
+            fail(f"fp32 grouped conv {shape} off the 3xtf32 route")
+        xl = x.permute(0, 3, 1, 2)
+        wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        t = {"ms": cuda_ms(lambda: gc.grouped_conv3x3(x, w, groups, b, relu), iters=3,
+                           warmup=1),
+             "fma_ms": cuda_ms(lambda: fma_conv(x, w, groups, b, relu), iters=2, warmup=1),
+             "plain_ms": cuda_ms(lambda: gc.grouped_conv3x3_reference(x, w, groups, b, relu),
+                                 iters=2, warmup=1)}
+        for tf32, key in ((False, "library_ms"), (True, "library_tf32_ms")):
+            torch.backends.cudnn.allow_tf32 = tf32
+            t[key] = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1, groups=groups), iters=3,
+                             warmup=1)
+        torch.backends.cudnn.allow_tf32 = False
+        ops = 18.0 * c * x.numel()
+        t["bytes_ms"] = ((2 * x.numel() + w.numel() + shape[3]) * 4) / HBM_BYTES_PER_S * 1e3
+        t["ops_ms"] = ops / PEAK_TF32 * 1e3
+        t["fma_bound_ms"] = ops / PEAK_OPS["torch.float32"] * 1e3
+        t["tf32_bound_ms"] = 3 * ops / PEAK_TF32 * 1e3
+        for key in keys:
+            row[key] += n * t[key]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["fma_max_abs_err"] = max(row["fma_max_abs_err"], fma_err)
+        log(f"grouped_conv3x3 fp32 {shape} x {n}: 3xtf32 {n * t['ms']:.4f} ms "
+            f"({n * ops / (n * t['ms']) / 1e9:.1f} TFLOP/s of fp32 work), fma (first kernel) "
+            f"{n * t['fma_ms']:.4f}, plain {n * t['plain_ms']:.4f}, cuDNN TF32 off "
+            f"{n * t['library_ms']:.4f}, cuDNN TF32 on {n * t['library_tf32_ms']:.4f}; bound "
+            f"bytes {n * t['bytes_ms']:.4f}, operations at TF32's rate {n * t['ops_ms']:.4f}; "
+            f"CUDA-core operations {n * t['fma_bound_ms']:.4f}, three TF32 products "
+            f"{n * t['tf32_bound_ms']:.4f} ms; max_abs_err 3xtf32 {err:.3e}, fma {fma_err:.3e} "
+            f"(sums over the pass's {n} calls)")
+    bound = max(row["bytes_ms"], row["ops_ms"])
+    per_video = sum(video_ms["3xtf32"]) / len(video_ms["3xtf32"])
+    log(f"per fp32 pass (47 calls): 3xtf32 {row['ms']:.3f} ms "
+        f"({row['ms'] / per_video * 100:.1f}% of the {per_video:.3f} ms fp32 video), fma "
+        f"{row['fma_ms']:.3f}, plain {row['plain_ms']:.3f}, cuDNN TF32 off "
+        f"{row['library_ms']:.3f}, on {row['library_tf32_ms']:.3f}; bound {bound:.3f} ms "
+        f"(bytes {row['bytes_ms']:.3f}, operations at TF32's rate {row['ops_ms']:.3f}); "
+        f"CUDA-core operations {row['fma_bound_ms']:.3f}, the 3xtf32 design's three TF32 "
+        f"products {row['tf32_bound_ms']:.3f}; max_abs_err 3xtf32 {row['max_abs_err']:.3e}, "
+        f"fma {row['fma_max_abs_err']:.3e}; card {card}")
+    return {
+        "name": "grouped_conv3x3_fp32", "route": "cuda",
+        "source": "nl_vsgg_tpu_torch/csrc/grouped_conv.cu",
+        "replaces": "nl_vsgg_tpu/ops/pallas_grouped_conv.py:148",
+        "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": bound,
+        "bound_by": "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations",
+        "algorithm_bound_ms": row["tf32_bound_ms"], "library_ms": row["library_ms"],
+        "library_tf32_ms": row["library_tf32_ms"], "fma_ms": row["fma_ms"],
+        "fma_max_abs_err": row["fma_max_abs_err"], "video_ms": video_ms,
+    }
+
+
 def detector_phases(dev, card) -> list[dict]:
     """Phases 7-9: the detector kernels against their plain versions, the
     detector path (fp32 kernel vs plain, bf16 serving), the kernels timed on
@@ -725,7 +900,7 @@ def detector_phases(dev, card) -> list[dict]:
 
     def launches():
         return {"roi_align": ra.LAUNCHES["roi_align"],
-                "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+                "grouped_conv3x3": gc.launches()}
 
     # ---- 7. detector kernels vs plain versions at the path's shapes ----
     g = torch.Generator(device=dev).manual_seed(3)
@@ -756,13 +931,16 @@ def detector_phases(dev, card) -> list[dict]:
         for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
                                  (torch.bfloat16, torch.float32)):
             x, w = x32.to(dtype), w32.to(dtype)
+            route = gc.conv_route(x, w)
+            if route != ("tc" if dtype == torch.bfloat16 else "3xtf32"):
+                fail(f"grouped_conv3x3 {dtype} ({N}, {Hc}, {Wc}, {C}) takes route {route}")
             for b, relu in ((None, False), (bias, True)):
                 out = gc.grouped_conv3x3(x, w, 32, b, relu, out_dtype)
                 torch.cuda.synchronize()
                 err, ok = det_kernel_err(out, gc.grouped_conv3x3_reference(x, w, 32, b, relu,
                                                                            out_dtype))
                 log(f"grouped_conv3x3 {str(dtype)[6:]} -> {str(out.dtype)[6:]} ({N}, {Hc}, "
-                    f"{Wc}, {C}) c={c} bias+relu={relu}: max_abs_err {err:.3e}")
+                    f"{Wc}, {C}) c={c} bias+relu={relu}: route {route}, max_abs_err {err:.3e}")
                 if not ok:
                     fail(f"grouped_conv3x3 disagrees with its plain version at {dtype} -> "
                          f"{out.dtype} ({N}, {Hc}, {Wc}, {C}) relu={relu}")
@@ -793,6 +971,7 @@ def detector_phases(dev, card) -> list[dict]:
         reset()
         c4k = det32.module.features(images)
         trunk = launches()
+        trunk_routes = dict(gc.ROUTE_LAUNCHES)
         c4p = plain32.module.features(images)
         lk, dk = det32.module.rpn(c4k)
         lp, dp = plain32.module.rpn(c4p)
@@ -803,6 +982,7 @@ def detector_phases(dev, card) -> list[dict]:
         reset()
         box_k = det32.module.box(c4k, props.reshape(-1, 4), pidx)
         head = launches()
+        head_routes = dict(gc.ROUTE_LAUNCHES)
         box_p = plain32.module.box(c4p, props.reshape(-1, 4), pidx)
         if any(launches()[k] != head[k] for k in head):
             fail("the plain detector path launched a kernel")
@@ -815,11 +995,15 @@ def detector_phases(dev, card) -> list[dict]:
     log(f"detector fp32 kernel vs plain ({DET_CHECK_FRAMES} frames {tuple(images.shape)}, C4 "
         f"{tuple(c4k.shape)}, |C4| max {float(c4k.abs().max()):.3f}), error / max |ref|: "
         + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-        + f"; launches: trunk {trunk}, box head {head}")
+        + f"; launches: trunk {trunk}, box head {head}; grouped-conv routes: trunk "
+        f"{trunk_routes}, box head {head_routes}")
     if trunk != {"roi_align": 0, "grouped_conv3x3": 45} or \
             head != {"roi_align": 1, "grouped_conv3x3": 2}:
         fail(f"detector launches: trunk {trunk} (want 45 grouped convs), box head {head} "
              f"(want 1 roi_align + 2 grouped convs)")
+    if trunk_routes["3xtf32"] != 45 or head_routes["3xtf32"] != 2:
+        fail(f"fp32 grouped convs off the 3xtf32 route: trunk {trunk_routes}, head "
+             f"{head_routes}")
     worst = max(errs, key=errs.get)
     if errs[worst] > DET_PATH_TOL or not bool(pk.isfinite().all()):
         fail(f"detector fp32 kernel path differs from plain: {worst} {errs[worst]:.3e}")
@@ -891,7 +1075,6 @@ def detector_phases(dev, card) -> list[dict]:
         f"mean |f| ratio {ratio:.4f}")
     if corr < 0.99 or not 0.9 < ratio < 1.1:
         fail("bf16 union features do not track fp32")
-    del det32
 
     # ---- 9. detector kernels timed on one bf16 detect_video's own inputs ----
     convs, aligns = [], []
@@ -972,6 +1155,13 @@ def detector_phases(dev, card) -> list[dict]:
         f"{ams:.4f} ms; card {card}")
     profile_table(lambda: det16.detect_video(videos[1]), per_video, "bf16 detect_video", n=1)
 
+    # the float32 route (3xtf32) on one fp32 detect_video's own inputs
+    del convs, aligns, args, kw, out, ref
+    torch.cuda.empty_cache()
+    fp32_row = fp32_conv_phase(det32, videos[1], card)
+    del det32
+    torch.cuda.empty_cache()
+
     return det16, [{
         "name": "roi_align", "route": "cuda", "source": "nl_vsgg_tpu_torch/csrc/roi_align.cu",
         "replaces": "nl_vsgg_tpu/ops/pallas_roi_align.py:163",
@@ -987,7 +1177,7 @@ def detector_phases(dev, card) -> list[dict]:
         "bound_ms": conv_row["bound_ms"],
         "bound_by": max(conv_row["terms"], key=conv_row["terms"].get),
         "library_ms": conv_row["library_ms"],
-    }]
+    }, fp32_row]
 
 
 # ------------------------------------------------------------------ probes
@@ -1136,7 +1326,7 @@ def probe_phases(dev, card) -> list[dict]:
     over = probe_overhead.run(iters=PROBE_ITERS["overhead"], device=dev, log=log)
     abl = probe_ablate.run(iters=PROBE_ITERS["ablate"], device=dev, log=log)
     probe_s = time.perf_counter() - t0
-    got = {**pc.LAUNCHES, **pm.LAUNCHES, **ga.LAUNCHES, **gc.LAUNCHES}
+    got = {**pc.LAUNCHES, **pm.LAUNCHES, **ga.LAUNCHES, "grouped_conv3x3": gc.launches()}
     want = {k: sum(r["calls"] for r in over + abl if r["kernel"] == k) for k in got}
     log(f"probe entry points: {probe_s:.3f} s; launches {got}")
     if got != want or not all(got.values()):
@@ -2764,7 +2954,7 @@ def data_phases(dev, card, det, then=None) -> None:
             torch.cuda.synchronize()
             return es, (time.perf_counter() - t0) / UNION_VIDEOS * 1e3, {
                 "roi_align": ra.LAUNCHES["roi_align"],
-                "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+                "grouped_conv3x3": gc.launches()}
 
         # the first kernel call of each shape on this path (the C4 pass's
         # three conv classes, the head's, one frame's RoIAlign), held against
@@ -3154,7 +3344,7 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
             torch.cuda.synchronize()
             s = time.perf_counter() - t0
             launched = {"roi_align": ra.LAUNCHES["roi_align"],
-                        "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+                        "grouped_conv3x3": gc.launches()}
             want = {"roi_align": calls["head"],
                     "grouped_conv3x3": TRUNK_CONVS * calls["c4"] + HEAD_CONVS * calls["head"]}
             if launched != want or not calls["c4"]:
@@ -3731,11 +3921,12 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
         torch.cuda.synchronize()
         t_feat = time.perf_counter() - t0
         launched = {"roi_align": ra.LAUNCHES["roi_align"],
-                    "grouped_conv3x3": gc.LAUNCHES["grouped_conv3x3"]}
+                    "grouped_conv3x3_fp32": gc.ROUTE_LAUNCHES["3xtf32"]}
         want = {"roi_align": P15_DET_VIDEOS,
-                "grouped_conv3x3": P15_DET_VIDEOS * (TRUNK_CONVS + HEAD_CONVS)}
-        if launched != want:
-            fail(f"preprocess features launched {launched}, expected {want}")
+                "grouped_conv3x3_fp32": P15_DET_VIDEOS * (TRUNK_CONVS + HEAD_CONVS)}
+        if launched != want or gc.launches() != launched["grouped_conv3x3_fp32"]:
+            fail(f"preprocess features launched {launched} ({dict(gc.ROUTE_LAUNCHES)} by "
+                 f"route), expected {want}, every grouped conv on the 3xtf32 route")
         counts.update(launched)
         det = AttrRCNNTorch(sd, device=dev)
         for vid, imgs in frames.items():

@@ -23,9 +23,9 @@
 // under the 989 TFLOP/s of wgmma, the C5 head's c = 64 conv is bound by the
 // products as much as by its bytes.
 //
-// Design, bf16 inputs (the path detect_video serves). The TPU kernel packs
-// groups block-diagonally into 128-lane super-groups so that each tap is
-// one dense MXU matmul; on Hopper that would do 128/c times the needed
+// Design, bf16 inputs (route "tc", the path detect_video serves). The TPU
+// kernel packs groups block-diagonally into 128-lane super-groups so that
+// each tap is one dense MXU matmul; on Hopper that would do 128/c times the needed
 // products. Here each group is its own implicit GEMM on the tensor cores
 // (mma.sync.m16n8k16, bf16 in, fp32 sums): M is output pixels, N the
 // group's c output channels, K = 9 c ordered (tap, input channel), the row
@@ -70,18 +70,60 @@
 //    the 4 classes (one more barrier a tile; PERF.md), so it is not
 //    done.
 //
-// float32 inputs are the check path only (the chip check's fp32 detector
-// and its 1e-5 comparisons; TF32 would not hold 1e-5), so they run on the
-// CUDA cores with scalar FMAs: a block takes one tile of up to 128
-// output pixels for 64 output channels, stages it and the groups' weights
-// in fp32 in chunks of 16 input channels, and each thread sums 4 channels x
-// 8 pixels with scalar FMAs.
+// Design, float32 inputs (route "3xtf32": the default of `preprocess
+// features`, of the union provider and of the sgdet / sgcls test CLI, which
+// run the detector in float32). One TF32 product keeps about 3 digits, too
+// few for the 1e-5 the float32 path is held to, so each product is formed
+// as three (mma.sync.m16n8k8, tf32 in, fp32 sums; csrc/mma_tf32.cuh): each
+// operand split into hi = TF32(x) and lo = x - hi, A_lo B_hi + A_hi B_lo +
+// A_hi B_hi. The bound at the path's 47 calls a 32-frame pass (4.29 TFLOP,
+// 54.3 GB of fp32 x and out) is 16.2 ms of bytes: the operations take 8.7
+// ms even at TF32's 495 TFLOP/s (64.0 on the CUDA cores at 67). This
+// design's own floor, three TF32 products each, is 26.0 ms.
+// The implicit GEMM is the bf16 route's, with k8 steps: c = 8 is one tap a
+// k-step and 9 c is a multiple of 8, so no tap is padded and no fragment
+// straddles two taps.
+//  - Blocks, resident weights, persistent grid and cp.async ring as above,
+//    at 4 bytes an element. A block owns a 64-channel slab at c <= 32
+//    (weights 18, 36, 72 KB) and half of the one group at c = 64 (32
+//    output channels, all 64 inputs staged: 72 KB where the whole group's
+//    144 KB would leave room for only two 2-crop stages). Tiles of at most
+//    128 output pixels at c <= 32 (8 x 16 in the trunk) and 256 at c = 64
+//    (five 7x7 crops, 245 rows of 256), `ops/grouped_conv.tf32_plan`. A
+//    tile of whole images (the head's crops) stages only their pixels and
+//    reads its zero border from one zero pixel (each A row keeps a mask of
+//    the taps that fall inside its image); any other tile stages its halo.
+//  - Swizzle, no padding. A staged pixel's 64 channels and a weight row's
+//    columns are rows of floats whose 8-float groups are XOR-permuted:
+//    channel ch of the pixel at staged row y, column x of image n at
+//    ch ^ 8 ((x + (n TH + y) TW) & 3), weight column o of row r at
+//    o ^ 8 ((r / 2) & 3). A lane takes k = 2 t and 2 t + 1 of a step as its
+//    fragment columns t and t + 4, so an A row pair is one 8-byte load; the
+//    4 pixels a half-warp reads are 4 consecutive output pixels, whose
+//    swizzles differ, and the 4 weight rows a warp's B loads read differ in
+//    theirs: both conflict-free. The swizzle of a lane's A rows at a tap is
+//    (g + dx + dy TW) & 3 (less TW + 1 on whole-image tiles), the same for
+//    all four rows.
+//  - Warps. 8 warps, each 32 pixels (two m16 tiles) x 32 channels (four n8
+//    tiles, 32 fp32 accumulators a lane): 4 x 2 on a 64-channel slab, 8 x 1
+//    on a half group. Per k-step a warp loads and splits its two A tiles
+//    once and each n8 tile's B once, and runs 3 mma.sync a pair. At c = 8
+//    an A tile feeds one n8 tile, so the splits cost about as much as the
+//    products; at c = 32 and 64 it feeds four.
+//  - Epilogue as the bf16 route's, in fp32 or bf16.
+// Other group widths (c % 4 == 0, c dividing 64 or a multiple of it) take
+// route "fma", the first kernel, on the CUDA cores with scalar FMAs: a block
+// takes one tile of up to 128 output pixels for 64 output channels, stages
+// it and the groups' weights in fp32 in chunks of 16 input channels, and
+// each thread sums 4 channels x 8 pixels. Its own C entry also lets it be
+// timed beside the 3xtf32 route at the path's widths.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -310,6 +352,229 @@ int dispatch_tc(int c, const void* x, const void* w, const void* bias, void* out
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------ fp32: 3xTF32 tensor cores
+constexpr int TF_THREADS = 256;   // 8 warps, each 32 pixels x 32 channels
+constexpr int TF_ROW = 64;        // floats a staged pixel: the slab's (or the group's) inputs
+
+// output channels a block: a 64-channel slab, or half of c = 64's one
+// group, whose 144 KB of weights would leave room for no more than two
+// 2-crop stages; and the output pixels a tile, 32 a warp along the pixels
+__host__ __device__ constexpr int tf_block_c(int c) { return c == 64 ? 32 : SLAB; }
+__host__ __device__ constexpr int tf_pixels(int c) { return 32 * 8 / (tf_block_c(c) / 32); }
+
+// a tile of whole images (TH = H, TW = W: the C5 head's crops) stages only
+// their pixels, its zero border read from one shared zero pixel; any other
+// tile stages its 1-pixel halo
+__host__ __device__ inline bool tf_whole(const Plan& p) { return p.TH == p.H && p.TW == p.W; }
+__host__ __device__ inline int tf_stage_floats(const Plan& p) {
+  return (tf_whole(p) ? p.NB * p.TH * p.TW : p.NB * (p.TH + 2) * (p.TW + 2)) * TF_ROW;
+}
+
+// start the cp.async copies of tile t's input (64 channels from xc0, 16 x
+// 16 bytes a staged pixel, swizzled) into a ring slot
+__device__ __forceinline__ void stage_tile_f32(const float* __restrict__ x, const Plan& p, int t,
+                                               int xc0, float* dst) {
+  int n0, h0, w0;
+  tile_origin(p, t, n0, h0, w0);
+  const int halo = tf_whole(p) ? 0 : 1;
+  const int WT = p.TW + 2 * halo, HT = p.TH + 2 * halo;
+  const int n_vec = p.NB * HT * WT * 16;
+  for (int idx = threadIdx.x; idx < n_vec; idx += TF_THREADS) {
+    const int v = idx & 15, px = idx >> 4;
+    const int xx = px % WT, yy = (px / WT) % HT, nb = px / (WT * HT);
+    const int n = n0 + nb, h = h0 - halo + yy, ww = w0 - halo + xx;
+    const bool ok = n < p.N && h >= 0 && h < p.H && ww >= 0 && ww < p.W;
+    const float* src = ok ? x + (((long long)n * p.H + h) * p.W + ww) * p.C + xc0 + v * 4 : x;
+    const int sw = ((xx + (nb * p.TH + yy) * p.TW) & 3) << 3;
+    cp_async16(dst + px * TF_ROW + ((v * 4) ^ sw), src, ok);
+  }
+}
+
+template <int CG, typename TO>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+conv_3xtf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, TO* __restrict__ out, const Plan p) {
+  constexpr int BC = tf_block_c(CG);          // output channels a block: 64, or 32 at c = 64
+  constexpr int WN = BC / 32, WM = 8 / WN;    // warps along the channels and the pixels
+  constexpr int KR = 9 * CG;                  // weight rows: 72, 144, 288, 576
+  constexpr int KPT = CG / 8;                 // k-steps a tap
+  constexpr int GW = CG < 32 ? 32 / CG : 1;   // groups in a warp's 32 channels
+  constexpr int NPG = 4 / GW;                 // a group's n8 tiles in the warp
+  constexpr int ZP = KR * BC;                 // the zero pixel, after the weights
+  // the taps unrolled at c <= 32; a loop at c = 64, whose 72 unrolled
+  // k-steps ran 1.5x slower on the card (the code outgrows the i-cache)
+  constexpr int TAP_UNROLL = CG == 64 ? 1 : 9;
+  extern __shared__ __align__(16) float smem_f[];   // [KR][BC] weights, zero pixel, ring
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;   // the warp's 32 pixels and 32 channels
+  const int cs0 = blockIdx.y * BC, xc0 = cs0 & ~63;
+  const bool whole = tf_whole(p);
+  const int WT = whole ? p.TW : p.TW + 2, HT = whole ? p.TH : p.TH + 2;
+  const int tile_px = p.NB * p.TH * p.TW;
+  const int stage = tf_stage_floats(p);
+
+  // the block's weights, once; the zero pixel
+  for (int idx = threadIdx.x; idx < KR * BC / 4; idx += TF_THREADS) {
+    const int r = idx / (BC / 4), v = idx % (BC / 4);
+    cp_async16(smem_f + r * BC + ((v * 4) ^ (((r >> 1) & 3) << 3)),
+               w + (long long)r * p.C + cs0 + v * 4, true);
+  }
+  if (threadIdx.x < TF_ROW) smem_f[ZP + threadIdx.x] = 0.0f;
+  if ((int)blockIdx.x < p.tiles) stage_tile_f32(x, p, blockIdx.x, xc0, smem_f + ZP + TF_ROW);
+  cp_async_commit();
+
+  // this lane's four A rows, pixels q = 32 wm + 16 mi + 8 h + g: the staged
+  // offset of tap (0, 0)'s pixel (tap (dy, dx) adds dy WT + dx pixels) plus
+  // the lane's k pair 2 t (and, below 64 channels a group, the warp's
+  // first input channel), and the taps whose pixel is staged (all of them
+  // unless the tile holds whole images; the others read the zero pixel).
+  // Rows past the tile read pixel 0 and are not stored.
+  const int lc = 2 * tq + (CG < 64 ? wn * 32 : 0);
+  int a_off[2][2], taps[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int q = wm * 32 + mi * 16 + h * 8 + g;
+      if (q >= tile_px) q = 0;
+      const int nb = q / (p.TH * p.TW), r = (q / p.TW) % p.TH, col = q % p.TW;
+      a_off[mi][h] = (((nb * HT + r) * WT + col) - (whole ? WT + 1 : 0)) * TF_ROW + lc;
+      taps[mi][h] = 0x1ff;
+      if (whole)
+        for (int tap = 0; tap < 9; ++tap) {
+          const int y = r + tap / 3 - 1, xx = col + tap % 3 - 1;
+          if (y < 0 || y >= p.TH || xx < 0 || xx >= p.TW) taps[mi][h] &= ~(1 << tap);
+        }
+    }
+  // B of n8 tile ni: rows 8 s + 2 t and + 1 of the k-step, column n of the
+  // warp's 32 (both rows swizzled by 8 t)
+  int b_off[4];
+  float bv[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    b_off[ni] = 2 * tq * BC + (((wn * 32 + ni * 8) ^ (tq << 3)) + g);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      bv[ni][j] = bias != nullptr ? bias[cs0 + wn * 32 + ni * 8 + tq * 2 + j] : 0.0f;
+  }
+
+  for (int it = 0;; ++it) {
+    const int t = blockIdx.x + it * p.per_slab;
+    if (t >= p.tiles) break;
+    const int tn = t + p.per_slab;
+    if (tn < p.tiles)
+      stage_tile_f32(x, p, tn, xc0, smem_f + ZP + TF_ROW + ((it + 1) % STAGES) * stage);
+    cp_async_commit();
+    cp_async_wait<1>();   // tile t (and, on the first pass, the weights) landed
+    __syncthreads();
+
+    const int sb = ZP + TF_ROW + (it % STAGES) * stage;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
+
+#pragma unroll TAP_UNROLL
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      const int shift = sb + (dy * WT + dx) * TF_ROW;
+      const int sw = ((g + dx + dy * p.TW - (whole ? p.TW + 1 : 0)) & 3) << 3;
+      int row[2][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          row[mi][h] = (taps[mi][h] >> tap) & 1 ? a_off[mi][h] + shift : ZP + lc;
+#pragma unroll
+      for (int gi = 0; gi < GW; ++gi)
+#pragma unroll
+        for (int kk = 0; kk < KPT; ++kk) {
+          const int col = (gi * CG + kk * 8) ^ sw;   // the k-step's input channels, swizzled
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const float2 r0 = *reinterpret_cast<const float2*>(smem_f + row[mi][0] + col);
+            const float2 r1 = *reinterpret_cast<const float2*>(smem_f + row[mi][1] + col);
+            split_tf32(r0.x, ah[mi][0], al[mi][0]);
+            split_tf32(r1.x, ah[mi][1], al[mi][1]);
+            split_tf32(r0.y, ah[mi][2], al[mi][2]);
+            split_tf32(r1.y, ah[mi][3], al[mi][3]);
+          }
+          const float* wk = smem_f + (tap * KPT + kk) * 8 * BC;   // the group's rows 8 s ..
+#pragma unroll
+          for (int nn = 0; nn < NPG; ++nn) {
+            const int ni = gi * NPG + nn;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(wk[b_off[ni]], bh0, bl0);
+            split_tf32(wk[b_off[ni] + BC], bh1, bl1);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              mma_3xtf32_parts(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);
+          }
+        }
+    }
+
+    int n0, h0, w0;
+    tile_origin(p, t, n0, h0, w0);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = wm * 32 + mi * 16 + half * 8 + g;
+        if (q >= tile_px) continue;
+        const int n = n0 + q / (p.TH * p.TW);
+        const int h = h0 + (q / p.TW) % p.TH, ww = w0 + q % p.TW;
+        if (n >= p.N || h >= p.H || ww >= p.W) continue;
+        TO* dst = out + (((long long)n * p.H + h) * p.W + ww) * p.C + cs0 + wn * 32 + tq * 2;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          float v0 = acc[mi][ni][2 * half] + bv[ni][0];
+          float v1 = acc[mi][ni][2 * half + 1] + bv[ni][1];
+          if (p.relu) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          store2(dst + ni * 8, v0, v1);
+        }
+      }
+    __syncthreads();   // every warp is done with this slot before it is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+}
+
+template <int CG, typename TO>
+int launch_3xtf32(const void* x, const void* w, const void* bias, void* out, const Plan& p,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)9 * CG * tf_block_c(CG) + TF_ROW +
+                                       (size_t)STAGES * tf_stage_floats(p));
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(conv_3xtf32_kernel<CG, TO>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(p.per_slab, p.C / tf_block_c(CG));
+  conv_3xtf32_kernel<CG, TO><<<grid, TF_THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<TO*>(out), p);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+int dispatch_3xtf32(int c, const void* x, const void* w, const void* bias, void* out,
+                    const Plan& p, cudaStream_t s) {
+  switch (c) {
+    case 8: return launch_3xtf32<8, TO>(x, w, bias, out, p, s);
+    case 16: return launch_3xtf32<16, TO>(x, w, bias, out, p, s);
+    case 32: return launch_3xtf32<32, TO>(x, w, bias, out, p, s);
+    case 64: return launch_3xtf32<64, TO>(x, w, bias, out, p, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // ------------------------------------------- fp32: the CUDA-core body
 constexpr int CB = 64;             // output channels per block
 constexpr int THREADS = 256;
@@ -455,40 +720,82 @@ int launch_fma(const void* x, const void* w, const void* bias, void* out, int N,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// in_dtype / out_dtype: 0 = float32, 1 = bfloat16; c = C / groups; bias may
-// be null. bfloat16 inputs (tensor cores): c in {8, 16, 32, 64}, C % 64 == 0,
-// x, w and out 16-byte aligned, and the caller's tile plan: TH x TW output
-// pixels of NB images a tile (TH TW NB <= 256), per_slab blocks for each 64
-// output channels. float32 inputs (CUDA cores): C % 64 == 0, c % 4 == 0, c
-// dividing 64 or a multiple of it; the plan arguments are not read.
-// Returns the launch's cudaError_t (0 = ok).
-extern "C" int grouped_conv3x3(int in_dtype, int out_dtype, const void* x, const void* w,
-                               const void* bias, void* out, int N, int H, int W, int C, int c,
-                               int relu, int TH, int TW, int NB, int per_slab, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || c <= 0 || C % c || out_dtype < 0 ||
-      out_dtype > 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0) {
-    if (out_dtype == 0) return launch_fma<float>(x, w, bias, out, N, H, W, C, c, relu, s);
-    return launch_fma<__nv_bfloat16>(x, w, bias, out, N, H, W, C, c, relu, s);
-  }
-  if (in_dtype != 1 || C % SLAB || C / SLAB > 65535 || TH <= 0 || TW <= 0 || NB <= 0 ||
-      per_slab <= 0 || TH * TW * NB > TC_PIXELS ||
+// the caller's tile plan for an (N, H, W, C) map, checked: tiles of at
+// most max_px output pixels, 64-channel slabs, x, w and out 16-byte aligned
+bool make_plan(Plan& p, const void* x, const void* w, const void* out, int N, int H, int W,
+               int C, int relu, int TH, int TW, int NB, int per_slab, int max_px) {
+  if (C % SLAB || C / SLAB > 65535 || TH <= 0 || TW <= 0 || NB <= 0 || per_slab <= 0 ||
+      TH * TW * NB > max_px ||
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
         reinterpret_cast<uintptr_t>(out)) & 15))
-    return (int)cudaErrorInvalidValue;
-  Plan p;
+    return false;
   p.N = N; p.H = H; p.W = W; p.C = C; p.TH = TH; p.TW = TW; p.NB = NB;
   p.tiles_h = (H + TH - 1) / TH;
   p.tiles_w = (W + TW - 1) / TW;
   const long long tiles = (long long)((N + NB - 1) / NB) * p.tiles_h * p.tiles_w;
-  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (tiles >= (1LL << 31)) return false;
   p.tiles = (int)tiles;
   p.per_slab = per_slab;
   p.relu = relu;
+  return true;
+}
+
+bool bad_args(int out_dtype, int N, int H, int W, int C, int c) {
+  return N <= 0 || H <= 0 || W <= 0 || C <= 0 || c <= 0 || C % c || out_dtype < 0 ||
+         out_dtype > 1;
+}
+
+}  // namespace
+
+// One C entry a route, each refusing what it does not take with
+// cudaErrorInvalidValue before any launch (ops/grouped_conv.conv_route
+// picks the route by the same rules). out_dtype: 0 = float32, 1 =
+// bfloat16; c = C / groups; bias (fp32) may be null; returns the launch's
+// cudaError_t (0 = ok).
+//   grouped_conv3x3_tc      bf16 x and w (tensor cores): c in {8, 16, 32,
+//                           64}, C % 64 == 0, x, w and out 16-byte aligned,
+//                           the caller's tile plan (`tile_plan`): TH x TW
+//                           output pixels of NB images a tile (TH TW NB <=
+//                           256), per_slab blocks for each 64 output
+//                           channels.
+//   grouped_conv3x3_3xtf32  fp32 x and w (3xTF32 tensor cores): the same
+//                           rules, with `tf32_plan`'s tiles (TH TW NB <=
+//                           128, 256 at c = 64) and per_slab blocks for
+//                           each 64 output channels (32 at c = 64).
+//   grouped_conv3x3_fma     fp32 x and w (CUDA cores): C % 64 == 0, c % 4
+//                           == 0, c dividing 64 or a multiple of it; the
+//                           plan arguments are not read.
+extern "C" int grouped_conv3x3_tc(int out_dtype, const void* x, const void* w, const void* bias,
+                                  void* out, int N, int H, int W, int C, int c, int relu, int TH,
+                                  int TW, int NB, int per_slab, void* stream) {
+  Plan p;
+  if (bad_args(out_dtype, N, H, W, C, c) ||
+      !make_plan(p, x, w, out, N, H, W, C, relu, TH, TW, NB, per_slab, TC_PIXELS))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0) return dispatch_tc<float>(c, x, w, bias, out, p, s);
   return dispatch_tc<__nv_bfloat16>(c, x, w, bias, out, p, s);
+}
+
+extern "C" int grouped_conv3x3_3xtf32(int out_dtype, const void* x, const void* w,
+                                      const void* bias, void* out, int N, int H, int W, int C,
+                                      int c, int relu, int TH, int TW, int NB, int per_slab,
+                                      void* stream) {
+  Plan p;
+  if (bad_args(out_dtype, N, H, W, C, c) ||
+      !make_plan(p, x, w, out, N, H, W, C, relu, TH, TW, NB, per_slab, tf_pixels(c)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0) return dispatch_3xtf32<float>(c, x, w, bias, out, p, s);
+  return dispatch_3xtf32<__nv_bfloat16>(c, x, w, bias, out, p, s);
+}
+
+extern "C" int grouped_conv3x3_fma(int out_dtype, const void* x, const void* w, const void* bias,
+                                   void* out, int N, int H, int W, int C, int c, int relu,
+                                   int TH, int TW, int NB, int per_slab, void* stream) {
+  (void)TH; (void)TW; (void)NB; (void)per_slab;
+  if (bad_args(out_dtype, N, H, W, C, c)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0) return launch_fma<float>(x, w, bias, out, N, H, W, C, c, relu, s);
+  return launch_fma<__nv_bfloat16>(x, w, bias, out, N, H, W, C, c, relu, s);
 }

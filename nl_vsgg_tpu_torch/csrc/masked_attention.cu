@@ -140,6 +140,7 @@
 #include <initializer_list>
 
 #include "cp_async.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -1359,34 +1360,6 @@ __device__ __forceinline__ void copy_windows(float* dst, int ld, const int* list
     const float* src = (j < count ? x + (in ? tok : 0) * x_sl : y + (in ? tok : 0) * y_sl);
     for (int e = 4 * lane; e < len; e += 128) cp_async16(dst + j * ld + e, src + e, in);
   }
-}
-
-// x as a TF32 part (round to nearest) and the rest (the mma reads its top
-// 19 bits)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, fp32) += a (16 x 8, tf32) @ b (8 x 8, tf32)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += A B in about fp32 accuracy from split parts: A_lo B_hi + A_hi B_lo + A_hi B_hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
 }
 
 // The A fragment of one k-step, split: rows g and g + 8 of x (row stride

@@ -14,9 +14,22 @@ that leaves out work computes a wrong result and is timed only:
     no-w-load     w is not read: the block's time without w's L2 reads
     no-mma        the products left out
     no-store      the results not stored
-  grouped_conv3x3 bf16 at the detector's four classes (the path's N):
-    kernel        the committed kernel
+  grouped_conv3x3 at the detector's four classes (the path's N), bf16
+  beside cuDNN, and float32 beside cuDNN with TF32 off (the same function
+  at the same accuracy) and on (PyTorch's default for convolutions, about
+  3 digits) and beside the first kernel (route "fma", its own C entry):
+    kernel        the committed kernel ("tc" for bf16, "3xtf32" for float32)
     stages-3      a 3-stage input ring in place of 2 (c = 64 does not fit)
+    tf32-no-mma   float32: the products left out (fragments loaded and split)
+    tf32-1x       float32: one TF32 mma a product in place of three (its
+                  numbers keep about 3 digits: timed only; an edit of
+                  csrc/mma_tf32.cuh, inlined in the variant)
+    tf32-1x-call  the same product left, by an edit of the kernel's call
+                  in place of the header
+    tf32-taps-unrolled  float32: the 9 taps unrolled at c = 64 too (the
+                  kernel loops over them there)
+    tf32-taps-loop      float32: a loop over the taps at every c (the
+                  kernel unrolls them at c <= 32)
   probe_copy at the launch-overhead probe's rows (tiny-copy (256, 128)
   fp32 as 1 unit, slab-copy (8, 40, 64, 128) bf16 as 1 unit, slab-copy-g8
   the same as 8 units), beside `x * 2`:
@@ -101,7 +114,8 @@ that leaves out work computes a wrong result and is timed only:
     tiled-fewer-blocks   3 forward and 2 backward blocks an SM asked of the
                          compiler in place of 5 and 3
     tiled-1xtf32         one TF32 mma a product in place of three (its
-                         numbers keep about 3 digits: timed only)
+                         numbers keep about 3 digits: timed only; an edit
+                         of csrc/mma_tf32.cuh, inlined in the variant)
   and the resident forward at CLIP's towers' shapes (`clip_inputs`: the
   image tower's (32, 50, 12, 64) with every pair allowed, the text
   tower's (3, 77, 8, 64) causal; float32 column blocks of a fused
@@ -158,6 +172,23 @@ def _edits(*pairs):
     return edit
 
 
+def _header_edits(header, *pairs):
+    """A variant made of literal text edits of a `csrc/` header the source
+    includes, inlined in place of its #include (`header` and `pairs` kept
+    for the tests)."""
+    def edit(src):
+        include = f'#include "{header}"'
+        if include not in src:
+            raise RuntimeError(f"the source no longer includes {header}")
+        with open(os.path.join(_build.CSRC, header)) as f:
+            return src.replace(include, _edits(*pairs)(f.read()))
+    edit.header, edit.pairs = header, pairs
+    return edit
+
+
+ONE_TF32 = _header_edits(   # one TF32 mma a product (about 3 digits): what 3x costs
+    "mma_tf32.cuh", ("  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", ""))
+
 VARIANTS = {
     "probe_matmul": {
         "kernel": lambda s: s,
@@ -171,6 +202,17 @@ VARIANTS = {
     "grouped_conv": {
         "kernel": lambda s: s,
         "stages-3": _stages(3),
+        "tf32-no-mma": _edits(
+            ("mma_3xtf32_parts(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);",
+             'asm volatile("" :: "r"(ah[mi][0]), "r"(al[mi][3]), "r"(bh0), "r"(bl1));')),
+        "tf32-1x": ONE_TF32,
+        "tf32-1x-call": _edits(
+            ("mma_3xtf32_parts(acc[mi][ni], ah[mi], al[mi], bh0, bh1, bl0, bl1);",
+             "mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);")),
+        "tf32-taps-unrolled": _edits(("constexpr int TAP_UNROLL = CG == 64 ? 1 : 9;",
+                                      "constexpr int TAP_UNROLL = 9;")),
+        "tf32-taps-loop": _edits(("constexpr int TAP_UNROLL = CG == 64 ? 1 : 9;",
+                                  "constexpr int TAP_UNROLL = 1;")),
     },
     "probe_copy": {
         "kernel": lambda s: s,
@@ -272,8 +314,7 @@ VARIANTS = {
             ("    if (rows[t] >= 0) bits |= (mb", "    if (rows[t] < -1) bits |= (mb")),
         "tiled-fewer-blocks": _edits(("FWD_TILED_BLOCKS = 5;", "FWD_TILED_BLOCKS = 3;"),
                                      ("BWD_TILED_BLOCKS = 3;", "BWD_TILED_BLOCKS = 2;")),
-        "tiled-1xtf32": _edits(   # one TF32 mma a product (about 3 digits): what 3x costs
-            ("  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", "")),
+        "tiled-1xtf32": ONE_TF32,
         "resident-no-load": _edits(   # every copy zero-filled, not read
             ("cp_async16(vs + j * RS + e, src + e, in);",
              "cp_async16(vs + j * RS + e, src + e, false);")),
@@ -319,9 +360,24 @@ def variant_sources(name: str) -> dict[str, str]:
     return out
 
 
-def build(name: str) -> dict[str, ctypes.CDLL]:
+def spills(report: str) -> list[str]:
+    """The kernels of an `nvcc -Xptxas=-v` report that spill to local
+    memory, each with its spill line."""
+    out, fn = [], None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            out.append(f"{fn}: {line.strip()}")
+    return out
+
+
+def build(name: str, log=print) -> dict[str, ctypes.CDLL]:
     """Every variant of `csrc/<name>.cu`, one nvcc each, all at once, into
-    `build/torch_kernels/variants/`."""
+    `build/torch_kernels/variants/`; logs each variant's spilling kernels
+    from ptxas's report (a variant that spills is timed on local memory)."""
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
@@ -339,6 +395,8 @@ def build(name: str) -> dict[str, ctypes.CDLL]:
         report, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{name} variant {key} failed to build:\n{report}")
+        spilled = spills(report)
+        log(f"  build {name} {key}: " + ("; ".join(spilled) if spilled else "no spills"))
         libs[key] = ctypes.CDLL(so)
     return libs
 
@@ -367,7 +425,7 @@ def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> lis
     if "probe_matmul" in kernels:
         _run_mm(put, add, rng, iters, clock, stream, sms)
     if "grouped_conv" in kernels:
-        _run_conv(add, dev, iters, clock, stream, sms)
+        _run_conv(add, log, dev, iters, clock, stream, sms)
     if "probe_copy" in kernels:
         _run_copy(put, add, rng, iters, clock, stream, sms)
     if "grouped_conv_ablate" in kernels:
@@ -375,7 +433,7 @@ def run(iters: int = 20, device=None, log=print, kernels=tuple(VARIANTS)) -> lis
     if "roi_align" in kernels:
         _run_roi_align(add, dev, iters, clock, stream)
     if "masked_attention" in kernels:
-        libs = build("masked_attention")
+        libs = build("masked_attention", log)
         _run_dq(libs, add, dev, iters, clock, stream)
         _run_fwd_dkv(libs, add, log, dev, iters, clock, stream)
         _run_tiled(libs, add, dev, iters, clock, stream)
@@ -403,35 +461,54 @@ def _run_mm(put, add, rng, iters, clock, stream, sms):
 
 
 
-def _run_conv(add, dev, iters, clock, stream, sms):
-    conv = build("grouped_conv")
+# the dtypes each grouped_conv variant is timed at (tf32-* edit the 3xtf32 route only)
+CONV_DTYPES = {"kernel": ("bf16", "fp32"), "stages-3": ("bf16", "fp32"),
+               "tf32-no-mma": ("fp32",), "tf32-1x": ("fp32",), "tf32-1x-call": ("fp32",),
+               "tf32-taps-unrolled": ("fp32",),
+               "tf32-taps-loop": ("fp32",)}
+
+
+def _run_conv(add, log, dev, iters, clock, stream, sms):
+    conv = build("grouped_conv", log)
     for N, H, W, C in CONV_SHAPES:
         c = C // 32
-        x = torch.randn(N, H, W, C, device=dev, dtype=torch.bfloat16)
-        wc = (torch.randn(3, 3, c, C, device=dev) * (9 * c) ** -0.5).bfloat16()
+        x32 = torch.randn(N, H, W, C, device=dev)
+        w32 = torch.randn(3, 3, c, C, device=dev) * (9 * c) ** -0.5
         b = torch.randn(C, device=dev)
-        y = torch.empty_like(x)
-        plan = gc.tile_plan(N, H, W, C, c, sms)
-        what = f"grouped conv {(N, H, W, C)} c={c}"
-        xl = x.permute(0, 3, 1, 2)
-        wl = wc.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        bl = b.bfloat16()
-        add(what, "cuDNN", timing.timed_delta(
-            lambda: F.conv2d(xl, wl, bl, padding=1, groups=32), max(1, iters // 4),
-            clock).device_s, "ms")
-        for key, lib in conv.items():
-            fn = lib.grouped_conv3x3
-            fn.argtypes, fn.restype = [I, I, P, P, P, P] + [I] * 10 + [P], ctypes.c_int
-            args = (1, 1, x.data_ptr(), wc.data_ptr(), b.data_ptr(), y.data_ptr(), N, H, W, C,
-                    c, 1, plan["TH"], plan["TW"], plan["NB"], plan["per_slab"], stream)
-            if fn(*args):
-                log(f"  {what:34s} {key:10s}  does not fit a block's shared memory")
-                continue
-
-            def call(fn=fn, args=args, key=key):
+        for name, dtype, route, plan_fn, n in (
+                ("bf16", torch.bfloat16, "tc", gc.tile_plan, max(1, iters // 4)),
+                ("fp32", torch.float32, "3xtf32", gc.tf32_plan, max(1, iters // 10))):
+            x, wc = x32.to(dtype), w32.to(dtype)
+            y = torch.empty_like(x)
+            plan = plan_fn(N, H, W, C, c, sms)
+            what = f"grouped conv {name} {(N, H, W, C)} c={c}"
+            xl = x.permute(0, 3, 1, 2)
+            wl = wc.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bl = b.to(dtype)
+            for tf32 in ((False, True) if name == "fp32" else (False,)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                add(what, "cuDNN TF32" if tf32 else "cuDNN", timing.timed_delta(
+                    lambda: F.conv2d(xl, wl, bl, padding=1, groups=32), n, clock).device_s,
+                    "ms")
+            torch.backends.cudnn.allow_tf32 = False
+            args = (gc._DTYPES[dtype], x.data_ptr(), wc.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    N, H, W, C, c, 1,
+                    plan["TH"], plan["TW"], plan["NB"], plan["per_slab"], stream)
+            entries = [(key, getattr(lib, f"grouped_conv3x3_{route}"))
+                       for key, lib in conv.items() if name in CONV_DTYPES[key]]
+            if name == "fp32":
+                entries.append(("fma", conv["kernel"].grouped_conv3x3_fma))
+            for key, fn in entries:
+                fn.argtypes, fn.restype = [I, P, P, P, P] + [I] * 10 + [P], ctypes.c_int
                 if fn(*args):
-                    raise RuntimeError(f"grouped_conv3x3 variant {key} failed to launch")
-            add(what, key, timing.timed_delta(call, max(1, iters // 4), clock).device_s, "ms")
+                    log(f"  {what:34s} {key:10s}  does not fit a block's shared memory")
+                    continue
+
+                def call(fn=fn, key=key):
+                    if fn(*args):
+                        raise RuntimeError(f"grouped_conv3x3 variant {key} failed to launch")
+                add(what, key, timing.timed_delta(call, n, clock).device_s, "ms")
+            del x, wc, y, xl, wl
 
 
 COPY_ROWS = (("tiny-copy", (256, 128), torch.float32, 1),

@@ -471,16 +471,64 @@ def test_grouped_conv_matches_plain_on_gpu(gpu, dtype, N, H, W, C):
     x = torch.randn(N, H, W, C, device="cuda", generator=gpu).to(dtype)
     w = (torch.randn(3, 3, c, C, device="cuda", generator=gpu) * c ** -0.5).to(dtype)
     bias = torch.randn(C, device="cuda", generator=gpu)
+    route = "3xtf32" if dtype == torch.float32 else "tc"
+    assert gc.conv_route(x, w) == route
     for b, relu in ((None, False), (bias, True)):
         gc.reset_launches()
         out = gc.grouped_conv3x3(x, w, 32, b, relu)
         torch.cuda.synchronize()
-        assert gc.LAUNCHES["grouped_conv3x3"] == 1 and out.dtype == dtype
+        assert gc.launches() == 1 and out.dtype == dtype
+        assert gc.ROUTE_LAUNCHES == {**dict.fromkeys(gc.ROUTES, 0), route: 1}
         ref = gc.grouped_conv3x3_reference(x, w, 32, b, relu)
         if dtype == torch.float32:
             torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
         else:
             torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("N,H,W,C", [(32, 152, 256, 256), (32, 76, 128, 512),
+                                     (32, 38, 64, 1024), (9600, 7, 7, 2048)])
+def test_grouped_conv_fp32_path_classes_on_gpu(gpu, N, H, W, C):
+    """Each class at the shape a 32-frame float32 detect_video gives it, on
+    the 3xtf32 route, with the bias + ReLU epilogue and a bf16 output too:
+    within 1e-5 of the plain version's largest magnitude (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    c = C // 32
+    x = torch.randn(N, H, W, C, device="cuda", generator=gpu)
+    w = torch.randn(3, 3, c, C, device="cuda", generator=gpu) * (9 * c) ** -0.5
+    bias = torch.randn(C, device="cuda", generator=gpu)
+    gc.reset_launches()
+    out = gc.grouped_conv3x3(x, w, 32, bias, True)
+    out16 = gc.grouped_conv3x3(x, w, 32, bias, True, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert gc.ROUTE_LAUNCHES["3xtf32"] == 2 and gc.launches() == 2
+    ref = gc.grouped_conv3x3_reference(x, w, 32, bias, True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(out16.float(), ref, rtol=2 ** -7, atol=1e-3)
+
+
+def test_grouped_conv_fp32_fma_route_on_gpu(gpu):
+    """float32 the 3xtf32 route does not take runs the first kernel ("fma"):
+    c = 4 and c = 128, and storage 4 bytes off 16-byte alignment; the 3xtf32
+    C entry refuses c = 4 and the misaligned view without launching."""
+    torch.backends.cudnn.allow_tf32 = False
+    base = torch.randn(1 + 2 * 9 * 13 * 4096, device="cuda", generator=gpu)
+    for C, off in ((128, 0), (4096, 0), (1024, 1)):
+        c = C // 32
+        x = base[off:off + 2 * 9 * 13 * C].view(2, 9, 13, C)
+        w = torch.randn(3, 3, c, C, device="cuda", generator=gpu) * (9 * c) ** -0.5
+        assert gc.conv_route(x, w) == "fma"
+        if C != 4096:
+            y = torch.empty_like(x)
+            rc = gc._fn("3xtf32")(0, x.data_ptr(), w.data_ptr(), None, y.data_ptr(), 2, 9, 13, C,
+                                  c, 0, 8, 13, 1, 1, torch.cuda.current_stream().cuda_stream)
+            assert rc != 0, (C, off)
+        gc.reset_launches()
+        out = gc.grouped_conv3x3(x, w, 32, None, True)
+        torch.cuda.synchronize()
+        assert gc.ROUTE_LAUNCHES["fma"] == 1
+        ref = gc.grouped_conv3x3_reference(x, w, 32, None, True)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("C", [256, 512, 1024, 2048])
@@ -513,9 +561,9 @@ def test_grouped_conv_refuses_misaligned_storage_on_gpu(gpu):
     wflat = torch.zeros(1 + w.numel(), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         gc.grouped_conv3x3(x.clone(), wflat[1:].view(3, 3, 8, 256), 32)
-    assert gc.LAUNCHES["grouped_conv3x3"] == 0
+    assert gc.launches() == 0
     gc.grouped_conv3x3(x.clone(), w, 32)
-    assert gc.LAUNCHES["grouped_conv3x3"] == 1
+    assert gc.launches() == 1
 
 
 @pytest.mark.parametrize("shape", [(256, 128), (8, 40, 64, 128), (1001,), (1,)])
