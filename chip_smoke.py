@@ -209,10 +209,29 @@ Phases, in order; any failure exits non-zero before the result line:
      `convert_vinvl` -> .npz -> `preprocess features` on 2 videos x 4 frames,
      equal to `detect_video` with the state dict bitwise, with its RoIAlign
      and grouped-conv launches counted (float32: all on the 3xtf32 route);
- 16. the `kernels` JSON line (each row with `launches_entry_points`, phase
-     14's launches, and `launches_offline`, phase 15's; the grouped conv has
-     a bf16 row and a float32 row), then the device JSON line, last; the
-     line before them prints the card and the script's total wall time.
+ 16. the parallel layer (`parallel_phases`, on phase 13's dataset, so it
+     runs after phase 14 and before phase 15): STTran sgdet at full width
+     (bf16, seeded, dropout off) trained under DDP (a) at world size 1 over
+     NCCL in this process, 3 steps on phase 5's batch against the plain step
+     (P16_WORLD1_LOSS_RTOL, 2 lr a step); (b) in 2 spawned gloo ranks
+     sharing the card, 32 videos each, against the one-process steps over
+     all 64 (P16_LOSS_RTOL, P16_BUF_REL), BatchNorm buffers identical on
+     both ranks, a NaN in rank 0's block skipped by both, one DSG-DETR sgdet
+     DDP step on set (b), which gloo collectives take CUDA tensors; (c)
+     `run_training` with mesh.data 2 on phase 13's split (its own 2 ranks,
+     2 epochs, device store on): only the primary checkpoints and logs, the
+     warm epoch gathers from each rank's store, the merged R@20 against one
+     evaluation of the saved checkpoint (P16_R20_ATOL); (d) on the ranks of
+     (b), STTran's frame-sharded transformer (bf16 and float32, one 32-frame
+     video) and DSG-DETR's token-sharded one (set (b)) against the dense
+     modules (MODEL_TOL), the attention kernel on both sides; the backend,
+     ms per step of 2 ranks beside 1 rank, bytes all-reduced a step and the
+     host-staged bytes printed;
+ 17. the `kernels` JSON line (each row with `launches_entry_points`, phase
+     14's launches, `launches_offline`, phase 15's, and `launches_parallel`,
+     phase 16's; the grouped conv has a bf16 row and a float32 row), then
+     the device JSON line, last; the line before them prints the card and
+     the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -3958,6 +3977,542 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
     return counts, clip_rows
 
 
+# ------------------------------------------------------------- the parallel layer
+P16_STEPS = 3                    # DDP train steps in parts (a) and (b)
+P16_LR = 1e-5
+P16_TIMEOUT_S = 300              # every collective of phase 16, and a rank's join
+# Parameters after P16_STEPS AdamW steps of two runs whose gradients differ
+# by rounding noise: Adam's update of an element is lr m^/sqrt(v^), at most
+# 1.002 lr in each of the first three steps, so an element whose gradient is
+# noise may move a full step either way in each run: 2 lr a step apart, and
+# 2.5 lr a step leaves room for the float32 arithmetic of the update.
+P16_PARAM_ATOL = 2.5 * P16_LR * P16_STEPS
+# (a) DDP at world size 1 against the plain step, same weights and batch: a
+# one-rank all-reduce copies the gradient and the step divides by 1, so the
+# two runs take the same operations in the same order; only a kernel that is
+# not deterministic may part them, by rounding noise. Losses within 1e-5
+# relative, parameters within P16_PARAM_ATOL, BatchNorm buffers within 1e-5
+# of their largest magnitude.
+P16_WORLD1_LOSS_RTOL = 1e-5
+# (b) 2 ranks x 32 videos against 1 process x 64: the two halves' gradients
+# are summed in another order and each half's bf16 GEMMs run at half the
+# rows (cuBLAS may tile them otherwise: one bf16 ulp on an activation):
+# losses within 1e-2 relative (one-ulp bf16 differences through 4 layers, as
+# MODEL_TOL), parameters within P16_PARAM_ATOL, BatchNorm buffers within
+# 1e-3 of their largest magnitude (statistics of bf16 activations)
+P16_LOSS_RTOL = 1e-2
+P16_BUF_REL = 1e-3
+# (c) merged R@20 of the 2-rank epoch eval against one evaluation of the
+# saved checkpoint: the same weights, but each rank batches its own shard,
+# and a bf16 GEMM's rounding may depend on the batch's rows, which can flip
+# a near-tie in the ranking: within 5e-3 (half a point; tools/acceptance.py
+# gates at 0.5 points)
+P16_R20_ATOL = 5e-3
+# (d) sharded against dense forwards, relative to the dense output's largest
+# magnitude: the same layers, but the dense first decoder layer projects x
+# once and adds the projected slot embedding where the sharded one projects
+# x + pos, and the token-sharded attention projects its keys from gathered
+# rows: in bf16 one ulp (2^-8) a rounding, carried through 4 layers and
+# their residual adds, a few ulps of the largest output (2^-5); in float32
+# reduction-order noise (1e-4)
+P16_SP_REL = {"bfloat16": 2.0 ** -5, "float32": 1e-4}
+
+
+def p16_params_apart(a: dict, b: dict, steps: int) -> tuple[float, str, float]:
+    """(max |a - b| over the parameters, its tensor, the largest
+    difference of the BatchNorm buffers relative to their magnitude)."""
+    worst, name, buf = 0.0, "", 0.0
+    for k, v in b.items():
+        d = float((a[k].float().cpu() - v.float().cpu()).abs().max()) if v.numel() else 0.0
+        if "running_" in k:
+            buf = max(buf, d / max(float(v.float().abs().max()), 1e-30))
+        elif not k.endswith("num_batches_tracked") and not d <= worst:
+            worst, name = (d if d == d else float("inf")), k
+    return worst, name, buf
+
+
+def p16_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for k, v in model.state_dict().items():
+        h.update(k.encode() + v.detach().contiguous().view(-1).view(__import__("torch").uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p16_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def p16_rank(r: int, n: int, url: str, work: str, conf: dict) -> None:
+    """Part (b) and (d) on one rank of a gloo group whose ranks share the
+    card (spawned by `parallel_phases`): 3 DDP steps on the rank's half of
+    phase 5's batch, a NaN in rank 0's block, one DSG-DETR sgdet DDP step
+    on set (b), the gloo collectives that take CUDA tensors, then the
+    frame- and token-sharded forwards against their dense modules. `conf`
+    carries the shapes and constants (a spawned rank imports this file
+    anew). Writes <work>/rank<r>.pt."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from nl_vsgg_tpu_torch.data.entry import Entry
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.models.sttran import STTran, relation_features
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.parallel import comm, distributed as pd
+    from nl_vsgg_tpu_torch.parallel.dsg_detr_sp import dsg_detr_transformer_sharded
+    from nl_vsgg_tpu_torch.parallel.mesh import ALLREDUCE, data_parallel
+    from nl_vsgg_tpu_torch.parallel.sttran_sp import sttran_transformer_sharded
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pd.init_distributed(types.SimpleNamespace(coordinator_address=url, num_processes=n,
+                                              process_id=r), device=conf["device"],
+                        timeout_s=conf["timeout"])
+    dev = pd.rank_device()
+    payload = torch.load(os.path.join(work, f"in{r}.pt"), weights_only=False)
+    out = {"backend": pd.backend(), "device": str(dev)}
+    block = Entry(**{k: v.to(dev) for k, v in payload["block"].items()})
+    kw = dict(mode="sgdet", feat_dim=conf["feat"], enc_layer_num=1, dec_layer_num=3,
+              dtype=torch.bfloat16, dropout=0.0, device=dev)
+
+    # ---- (b) 3 DDP steps on this rank's 32 videos ----
+    model = STTran(generator=torch.Generator().manual_seed(0), **kw)
+    st = create_train_state(model, lr=conf["lr"])
+    step = make_train_step(data_parallel(model), st.optimizer)
+    ma.reset_launches()
+    ALLREDUCE["bytes"] = ALLREDUCE["calls"] = 0
+    comm.reset_staged()
+    losses, ms = [], []
+    for i in range(conf["steps"]):
+        dist.barrier()
+        p16_sync(dev)
+        t0 = time.perf_counter()
+        st, met = step(st, block, torch.Generator(device=dev).manual_seed(100 + i))
+        p16_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in met.items()})
+    out["launches_steps"] = dict(ma.LAUNCHES)
+    out["staged_steps"] = comm.STAGED["bytes"] / conf["steps"]
+    out["allreduce"] = (ALLREDUCE["bytes"] / conf["steps"], ALLREDUCE["calls"] / conf["steps"])
+    out["losses"], out["ms"], out["skipped"] = losses, ms, st.skipped
+    out["digest"] = p16_digest(model)
+    if r == 0:
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   os.path.join(work, "final0.pt"))
+    out["buffers"] = {k: v.cpu() for k, v in model.state_dict().items() if "running_" in k}
+
+    # ---- a NaN in rank 0's block: every rank skips ----
+    bad = Entry(**{k: v.clone() if k == "features" else v for k, v in vars(block).items()})
+    if r == 0:
+        bad.features[0, 0, 0] = float("nan")
+    ma.reset_launches()
+    st, met = step(st, bad, torch.Generator(device=dev).manual_seed(200))
+    out["launches_nan"] = dict(ma.LAUNCHES)
+    out["nan"] = (float(met["valid"]), st.skipped, p16_digest(model) == out["digest"])
+    del bad, step, st, model
+
+    # ---- one DSG-DETR sgdet DDP step on set (b) ----
+    dsg = DSGDETR(mode="sgdet", feat_dim=conf["feat"], enc_layer_num=1, dec_layer_num=3,
+                  dtype=torch.bfloat16, dropout=0.0, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    blk_b = Entry(**dict(vars(block), labels=payload["labels_b"].to(dev),
+                         distribution=payload["dist_b"].to(dev)))
+    dst = create_train_state(dsg, lr=conf["lr"])
+    ma.reset_launches()
+    dst, met = make_train_step(data_parallel(dsg), dst.optimizer)(
+        dst, blk_b, torch.Generator(device=dev).manual_seed(300))
+    out["launches_dsg"] = dict(ma.LAUNCHES)
+    out["dsg"] = ({k: float(v) for k, v in met.items()}, dst.skipped, p16_digest(dsg))
+
+    # ---- (d) the sharded forwards against their dense modules ----
+    video = Entry(**{k: v.to(dev)[None] for k, v in payload["video"].items()})
+    video_b = Entry(**dict(vars(video), labels=payload["video_labels_b"].to(dev)[None],
+                           distribution=payload["video_dist_b"].to(dev)[None]))
+    comm.reset_staged()
+    sp = {}
+    for dname, dt in (("bfloat16", torch.bfloat16), ("float32", None)):
+        m = STTran(generator=torch.Generator().manual_seed(0), **dict(kw, dtype=dt))
+        with torch.no_grad():
+            rel = relation_features(m, video, video.labels, False)
+        dist.broadcast(rel, 0)           # one input on both ranks, bit for bit
+        im, rm = video.im_idx[0], video.rel_mask[0]
+        counts = torch.bincount(im[rm].long(), minlength=conf["frames"])
+        ma.reset_launches()
+        got = sttran_transformer_sharded(m.glocal_transformer, rel[0], im, rm, conf["frames"],
+                                         int(counts.max()))
+        launches = dict(ma.LAUNCHES)
+        with torch.no_grad():
+            dense = m.glocal_transformer(rel, video.im_idx, video.rel_mask)[0]
+        sp[f"sttran {dname}"] = (float((got.float() - dense.float()).abs().max()),
+                                 float(dense.float().abs().max()), launches,
+                                 bool(got.isfinite().all()))
+        del m
+    dsg.eval()
+    with torch.no_grad():
+        h, fo, oc, rk = dsg.segment_inputs(video_b)
+        dense = dsg(video_b)["global_output"][0]
+    ma.reset_launches()
+    got = dsg_detr_transformer_sharded(dsg, h[0], fo[0], oc[0], rk[0], video_b.rel_mask[0])
+    sp["dsg-detr bfloat16"] = (float((got - dense.float()).abs().max()),
+                               float(dense.float().abs().max()), dict(ma.LAUNCHES),
+                               bool(got.isfinite().all()))
+    out["sp"], out["staged"] = sp, comm.STAGED["bytes"]
+    torch.save(out, os.path.join(work, f"rank{r}.pt"))
+    pd.shutdown()
+
+
+P16_GLOO_OPS = ("all_reduce", "all_reduce 104 MB", "all_reduce async", "broadcast",
+               "all_gather", "send/recv")
+
+
+def p16_gloo_probe(r: int, op: str, url: str, out: str) -> None:
+    """One rank of a 2-rank gloo group on the card running `op` on CUDA
+    tensors, its result checked; writes <out><r>.json. A gloo op that does
+    not take CUDA tensors may abort the process: each op runs in its own
+    pair of processes (`parallel_phases`)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=url, rank=r, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    dev = torch.device("cuda", 0)
+    t = torch.full((26_000_000 if "104 MB" in op else 1024,), float(r + 1), device=dev)
+    if op.startswith("all_reduce"):
+        if "async" in op:  # as DDP's comm hooks call it
+            t = dist.all_reduce(t, async_op=True).get_future().wait()[0]
+        else:
+            dist.all_reduce(t)
+        ok = bool((t == 3).all())
+    elif op == "broadcast":
+        dist.broadcast(t, 0)
+        ok = bool((t == 1).all())
+    elif op == "all_gather":
+        got = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(got, t)
+        ok = bool((got[0] == 1).all() and (got[1] == 2).all())
+    else:
+        if r == 0:
+            dist.send(t, 1)
+            ok = True
+        else:
+            dist.recv(t, 0)
+            ok = bool((t == 1).all())
+    torch.cuda.synchronize()
+    with open(f"{out}{r}.json", "w") as f:
+        json.dump({"ok": ok}, f)
+    dist.destroy_process_group()
+
+
+def p16_gloo_cuda(work: str):
+    """Which gloo collectives take CUDA tensors on this card and build:
+    each op in its own pair of spawned processes, all pairs at once.
+    Returns a function that waits for them and returns the answers."""
+    import torch.multiprocessing as mp
+
+    ctxs = {}
+    for i, op in enumerate(P16_GLOO_OPS):
+        url = f"file://{os.path.join(work, f'gloo_store{i}')}"
+        ctxs[op] = mp.start_processes(p16_gloo_probe, args=(op, url,
+                                                            os.path.join(work, f"gloo{i}_")),
+                                      nprocs=2, join=False, start_method="spawn")
+    return lambda: p16_gloo_answers(work, ctxs)
+
+
+def p16_gloo_answers(work: str, ctxs: dict) -> dict:
+    takes = {}
+    for i, (op, ctx) in enumerate(ctxs.items()):
+        why = ""
+        try:
+            while not ctx.join(timeout=120):
+                pass
+        except Exception as e:  # noqa: BLE001 - a rank that died is the probe's answer
+            why = f" ({type(e).__name__}: {str(e).splitlines()[0][:100]})"
+        got = []
+        for r in range(2):
+            path = os.path.join(work, f"gloo{i}_{r}.json")
+            got.append(json.load(open(path))["ok"] if os.path.isfile(path) else None)
+        takes[op] = ("yes" if got == [True, True] else
+                     f"no: results {got}{why}")
+    return takes
+
+
+def p16_build_model(cfg, tax, device=None):
+    """`tools.train_sttran.build_model`, and on a rank of run_training's
+    group a report of the rank's attention launches when the group shuts
+    down (<save_path>/launches<rank>.json): part (c)'s counts."""
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.parallel import distributed as pd
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+
+    if pd.initialized() and not getattr(pd.shutdown, "reports", False):
+        real, path = pd.shutdown, os.path.join(cfg.save_path, f"launches{pd.rank()}.json")
+
+        def shutdown():
+            with open(path, "w") as f:
+                json.dump(dict(ma.LAUNCHES), f)
+            real()
+        shutdown.reports = True
+        pd.shutdown = shutdown
+        ma.reset_launches()
+    return ts.build_model(cfg, tax, device)
+
+
+def parallel_phases(dev, card, entries, ag: str, root: str) -> dict:
+    """Phase 16: the parallel layer at full width (STTran sgdet bf16, 1 + 3
+    layers, 8 heads, feat 2048, seeded weights, dropout off; the synthetic
+    attention GT is one-hot). (a) NCCL at world size 1 in this process: 3
+    DDP train steps on phase 5's batch (64 videos x 32 frames) against the
+    plain step on the same weights and batch; (b) 2 gloo ranks sharing the
+    card, 32 of those videos each: 3 steps against the one-process steps
+    over all 64, BatchNorm buffers equal on both ranks, a NaN in rank 0's
+    block skipped on both, one DSG-DETR sgdet DDP step on set (b), the
+    gloo collectives that take CUDA tensors; (c) `run_training` on phase
+    13's split with mesh.data 2 (its own 2 ranks on the card), 2 epochs,
+    the device store on: the primary alone checkpoints, the warm epoch
+    gathers from each rank's store, the merged R@20 against one evaluation
+    of the saved checkpoint; (d) on the ranks of (b), STTran's
+    frame-sharded transformer (bf16 and float32) on one 32-frame video and
+    DSG-DETR's token-sharded transformer on set (b) against the dense
+    modules, the attention kernel on both sides. Returns the phase's
+    launch counts by `kernels` row name."""
+    import shutil
+    import types
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.data.action_genome import AGTest
+    from nl_vsgg_tpu_torch.data.entry import stack_entries
+    from nl_vsgg_tpu_torch.eval.epoch import evaluate_epoch, grounded_batches
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.parallel import distributed as pd
+    from nl_vsgg_tpu_torch.parallel.mesh import ALLREDUCE, data_parallel
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step, place_entries
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    counts: dict = {}
+
+    def add(launches: dict, train: bool, model: str = "") -> None:
+        """Count launches under the `kernels` rows: STTran's, or DSG-DETR's
+        (`model` "_dsg_detr")."""
+        fwd = "masked_mha_fwd_train" if train else "masked_mha"
+        for name, n in ((fwd, launches["fwd"]), ("masked_mha_bwd_dq", launches["bwd_dq"]),
+                        ("masked_mha_bwd_dkv", launches["bwd_dkv"])):
+            counts[name + model] = counts.get(name + model, 0) + n
+
+    # ---- (a) NCCL at world size 1: DDP against the plain step ----
+    batch = place_entries(entries, rel_bf16=True, device=dev)   # phase 5's batch
+    kw = dict(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3,
+              dtype=torch.bfloat16, dropout=0.0, device=dev)
+    runs = {}
+    for kind in ("plain", "ddp"):
+        model = STTran(generator=torch.Generator().manual_seed(0), **kw)
+        st = create_train_state(model, lr=P16_LR)
+        if kind == "ddp":
+            pd.init_distributed(types.SimpleNamespace(
+                coordinator_address=f"file://{os.path.join(root, 'p16a_store')}",
+                num_processes=1, process_id=0), device=dev.type, timeout_s=P16_TIMEOUT_S)
+            if pd.backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+                fail(f"phase 16 (a): backend {pd.backend()} for one rank on one card")
+            step = make_train_step(data_parallel(model), st.optimizer)
+            ma.reset_launches()
+            ALLREDUCE["bytes"] = ALLREDUCE["calls"] = 0
+        else:
+            step = make_train_step(model, st.optimizer)
+        losses, ms = [], []
+        for i in range(P16_STEPS):
+            p16_sync(dev)
+            t0 = time.perf_counter()
+            st, met = step(st, batch, torch.Generator(device=dev).manual_seed(100 + i))
+            p16_sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append({k: float(v) for k, v in met.items()})
+        if kind == "ddp":
+            a_launch, a_bytes = dict(ma.LAUNCHES), ALLREDUCE["bytes"] / P16_STEPS
+            add(a_launch, True)
+            pd.shutdown()
+        runs[kind] = (losses, ms, st.skipped,
+                      {k: v.detach().clone() for k, v in model.state_dict().items()})
+        del model, st, step
+    (pl, pms, psk, psd), (dl, dms, dsk, dsd) = runs["plain"], runs["ddp"]
+    worst, name, buf = p16_params_apart(dsd, psd, P16_STEPS)
+    loss_rel = max(abs(a["total"] - b["total"]) / abs(b["total"]) for a, b in zip(dl, pl))
+    bitwise = all(torch.equal(dsd[k], psd[k]) for k in psd)
+    want = {"fwd": 4 * P16_STEPS, "bwd_dq": 4 * P16_STEPS, "bwd_dkv": 4 * P16_STEPS}
+    log(f"phase 16 (a) NCCL, world size 1, DDP over a file-store group: {P16_STEPS} bf16 train "
+        f"steps at B={B} x {N_FRAMES} frames against the plain step on the same weights: "
+        f"losses {[round(x['total'], 5) for x in dl]} (plain {[round(x['total'], 5) for x in pl]}, "
+        f"largest relative difference {loss_rel:.2e}, tol {P16_WORLD1_LOSS_RTOL}); parameters "
+        f"{'bitwise equal' if bitwise else f'apart by at most {worst:.3e} at {name}'} (tol "
+        f"{P16_PARAM_ATOL:.1e}), BatchNorm buffers {buf:.2e} (tol 1e-5); skipped "
+        f"{dsk}/{psk}; launches {a_launch}; ms/step DDP {[round(x, 3) for x in dms]}, plain "
+        f"{[round(x, 3) for x in pms]}; all-reduced {a_bytes:.0f} bytes a step; card {card}")
+    if loss_rel > P16_WORLD1_LOSS_RTOL or worst > P16_PARAM_ATOL or buf > 1e-5 \
+            or dsk or psk or a_launch != want:
+        fail("phase 16 (a): DDP at world size 1 differs from the plain step")
+
+    # ---- (b) + (d): 2 gloo ranks on the one card ----
+    work = os.path.join(root, "p16_ranks")
+    os.makedirs(work, exist_ok=True)
+    sets_b = tracklet_entries(entries, np.random.default_rng(4000))    # phase 12's set (b)
+    host = {k: v.cpu() for k, v in vars(batch).items()}
+    half = B // 2
+    v0 = stack_entries([entries[0]])
+    for r in range(2):
+        sl = slice(r * half, (r + 1) * half)
+        torch.save({"block": {k: v[sl] for k, v in host.items()},
+                    "labels_b": torch.stack([e.labels for e in sets_b[sl]]),
+                    "dist_b": torch.stack([e.distribution for e in sets_b[sl]]),
+                    "video": {k: v[0] for k, v in vars(v0).items()},
+                    "video_labels_b": sets_b[0].labels, "video_dist_b": sets_b[0].distribution},
+                   os.path.join(work, f"in{r}.pt"))
+    del batch, host
+    torch.cuda.empty_cache()
+    gloo_answers = p16_gloo_cuda(work) if dev.type == "cuda" else None  # beside (b)
+    t0 = time.perf_counter()
+    conf = {"device": dev.type, "feat": FEAT, "frames": N_FRAMES, "steps": P16_STEPS,
+            "lr": P16_LR, "timeout": P16_TIMEOUT_S}
+    pd.join_processes(mp.start_processes(
+        p16_rank, args=(2, f"file://{os.path.join(work, 'store')}", work, conf), nprocs=2,
+        join=False, start_method="spawn"), timeout_s=P16_TIMEOUT_S * 2)
+    ranks_s = time.perf_counter() - t0
+    if gloo_answers is not None:
+        log(f"phase 16 gloo collectives on CUDA tensors (2 ranks on the card, each op in its "
+            f"own processes, beside part (b)): {gloo_answers()}; the port's point-to-point "
+            f"exchange goes through pinned host memory under gloo (parallel/comm.py)")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    final0 = torch.load(os.path.join(work, "final0.pt"))
+    worst, name, buf = p16_params_apart(final0, psd, P16_STEPS)
+    loss_rel = max(abs(a["total"] - b["total"]) / abs(b["total"])
+                   for a, b in zip(res[0]["losses"], pl))
+    same = (res[0]["digest"] == res[1]["digest"]
+            and all(torch.equal(res[0]["buffers"][k], res[1]["buffers"][k])
+                    for k in res[0]["buffers"]))
+    nan_ok = all(x["nan"] == (0.0, 1, True) for x in res)
+    dsg_ok = (res[0]["dsg"][2] == res[1]["dsg"][2] and res[0]["dsg"][1] == 0
+              and res[0]["dsg"][0]["valid"] == 1.0 and np.isfinite(res[0]["dsg"][0]["total"]))
+    two_ms = [max(a, b) for a, b in zip(res[0]["ms"], res[1]["ms"])]
+    log(f"phase 16 (b) 2 gloo ranks sharing the card (backends {[x['backend'] for x in res]}, "
+        f"devices {[x['device'] for x in res]}), {half} videos each: {P16_STEPS} DDP steps, "
+        f"losses {[round(x['total'], 5) for x in res[0]['losses']]} against the one-process "
+        f"steps over all {B} {[round(x['total'], 5) for x in pl]} (largest relative difference "
+        f"{loss_rel:.2e}, tol {P16_LOSS_RTOL}); parameters apart by at most {worst:.3e} at "
+        f"{name} (tol {P16_PARAM_ATOL:.1e}); BatchNorm buffers "
+        f"{'identical on both ranks' if same else 'DIFFER between the ranks'}, {buf:.2e} of "
+        f"their magnitude from the one-process run (tol {P16_BUF_REL}); NaN in rank 0's block: "
+        f"(valid, skipped, unchanged) {[x['nan'] for x in res]}; DSG-DETR sgdet DDP step on "
+        f"set (b): loss {res[0]['dsg'][0]['total']:.5f}, equal parameters on both ranks "
+        f"{res[0]['dsg'][2] == res[1]['dsg'][2]}; launches a rank: steps "
+        f"{res[0]['launches_steps']}, NaN step {res[0]['launches_nan']}, DSG-DETR step "
+        f"{res[0]['launches_dsg']}; {ranks_s:.3f} s for the spawned ranks")
+    log(f"phase 16 ms per train step: 2 ranks x {half} videos (one step of the global batch "
+        f"of {B}) {[round(x, 3) for x in two_ms]} beside 1 rank x {B} (part (a)) "
+        f"{[round(x, 3) for x in dms]}; the 2 ranks share one card, so this is not a scaling "
+        f"figure; all-reduced a step: {res[0]['allreduce'][0]:.0f} bytes in "
+        f"{res[0]['allreduce'][1]:.0f} DDP buckets (gloo, CUDA tensors; "
+        f"{res[0]['staged_steps']:.0f} bytes staged by the port) and {a_bytes:.0f} bytes "
+        f"(NCCL, world 1); card {card}")
+    if loss_rel > P16_LOSS_RTOL or worst > P16_PARAM_ATOL or not same \
+            or buf > P16_BUF_REL or not nan_ok or not dsg_ok \
+            or any(x["skipped"] for x in res) \
+            or res[0]["launches_steps"] != want \
+            or res[0]["launches_nan"] != {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}:
+        fail("phase 16 (b): the 2-rank steps differ from the one-process steps, or the "
+             "ranks disagree")
+    for x in res:
+        add(x["launches_steps"], True)
+        add(x["launches_nan"], True)
+        add(x["launches_dsg"], True, "_dsg_detr")
+    for what, (err, mag, launches, finite) in res[0]["sp"].items():
+        tol = P16_SP_REL["float32" if "float32" in what else "bfloat16"] * mag
+        log(f"phase 16 (d) {what} sharded over 2 ranks against the dense module: max_abs_diff "
+            f"{err:.3e} (tol {tol:.3e}: {P16_SP_REL['float32' if 'float32' in what else 'bfloat16']:.2e} "
+            f"of the largest output, {mag:.3f}), launches a rank {launches}, finite {finite}; "
+            f"rank 1 {res[1]['sp'][what][0]:.3e}")
+        if not (err <= tol and res[1]["sp"][what][0] <= tol and finite) or not launches["fwd"]:
+            fail(f"phase 16 (d): the sharded {what} forward differs from the dense module")
+        for x in res:
+            add(x["sp"][what][2], False, "_dsg_detr" if what.startswith("dsg") else "")
+    log(f"phase 16 host-staged bytes of the sharded forwards (gloo point-to-point of CUDA "
+        f"tensors through pinned host memory, down and up): {[x['staged'] for x in res]} a rank")
+    del final0, res, runs, psd, dsd
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ---- (c) run_training with mesh.data 2 on phase 13's split ----
+    out = os.path.join(root, "p16_run")
+    cfg = load_config(None, {
+        "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
+        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+        "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": "bfloat16",
+        "batch_videos": B, "num_workers": 4, "remove_one_frame_video": False,
+        "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
+        "device_entry_store_gb": STORE_GB, "nepoch": 2, "save_path": out,
+        "mesh": {"data": 2, "model": 1},
+        "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
+    os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
+    t0 = time.perf_counter()
+    st = ts.run_training(cfg, types.SimpleNamespace(
+        max_videos=0, device=None if dev.type == "cuda" else "cpu"), p16_build_model)
+    p16_sync(dev)
+    run_s = time.perf_counter() - t0
+    ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "epoch" in r]
+    log_txt = open(os.path.join(out, "log.txt")).read()
+    gathered = [ln for ln in log_txt.splitlines() if "gathered batches this epoch" in ln]
+    launches = []
+    for r in range(2):
+        with open(os.path.join(out, f"launches{r}.json")) as f:
+            launches.append(json.load(f))
+    ds_test = AGTest(os.path.join(ag, "annotations"))
+    ev = evaluate_epoch(st.model, grounded_batches(
+        lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets), ds_test.gt_annotations,
+        range(len(ds_test)), B, 4), device=dev, zero_union=True)
+    diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
+    steps = 2 * (AG_VIDEOS // B)
+    eval_batches = -(-(len(ds_test) // 2) // B)     # a rank's shard, in batches of B
+    want_c = {"fwd": 4 * steps + 4 * 2 * eval_batches, "bwd_dq": 4 * steps,
+              "bwd_dkv": 4 * steps}
+    log(f"phase 16 (c) run_training, mesh.data 2 (2 ranks started by run_training on the one "
+        f"card, gloo), {AG_VIDEOS} videos x {N_FRAMES} frames, 2 epochs: {run_s:.3f} s wall "
+        f"(spawn, datasets, models, {st.step} steps, 2 sharded evals, 2 checkpoints by the "
+        f"primary); checkpoints {ckpt}; metrics epochs {[r['epoch'] for r in epochs]}; log "
+        f"lines from rank 1: {'process 1/2' in log_txt}; store: {gathered}; merged mean R@20 "
+        f"{epochs[-1]['mean_r20']:.6f} against one evaluation of the saved checkpoint "
+        f"{ev.mean_score(20):.6f} (difference {diff:.2e}, tol {P16_R20_ATOL}); launches a "
+        f"rank {launches}; card {card}")
+    if ckpt != ["0", "0.meta.json", "1", "1.meta.json", "configs.json"] \
+            or [r["epoch"] for r in epochs] != [0, 1] or "process 1/2" in log_txt \
+            or "process 0/2, backend gloo" not in log_txt or not gathered \
+            or " 0 gathered" in gathered[0] or (st.step, st.skipped) != (steps, 0) \
+            or diff > P16_R20_ATOL or any(x != want_c for x in launches):
+        fail("phase 16 (c): the 2-rank run_training did not train, gather, evaluate and "
+             f"checkpoint as expected (launches {launches}, expected {want_c} a rank)")
+    for x in launches:   # train forwards and evals apart
+        add({"fwd": 4 * steps, "bwd_dq": x["bwd_dq"], "bwd_dkv": x["bwd_dkv"]}, True)
+        add({"fwd": x["fwd"] - 4 * steps, "bwd_dq": 0, "bwd_dkv": 0}, False)
+    del st, ev
+    torch.cuda.empty_cache()
+    log(f"parallel phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -4240,16 +4795,20 @@ def main() -> None:
     # ---- 13. the data path: Action Genome on disk -> grounding -> training, ----
     # ---- 14. then the entry points on the same dataset ----
     torch.cuda.empty_cache()
-    p14 = {}
-    data_phases(dev, card, det16, then=lambda ag, root: p14.update(
-        entry_point_phases(dev, card, ag, root)))
+    p14, p16 = {}, {}
+
+    def on_dataset(ag, root):   # phase 14, then phase 16 on the same dataset
+        p14.update(entry_point_phases(dev, card, ag, root))
+        torch.cuda.empty_cache()
+        p16.update(parallel_phases(dev, card, entries, ag, root))
+    data_phases(dev, card, det16, then=on_dataset)
     del det16
 
     # ---- 15. the offline label pipeline ----
     torch.cuda.empty_cache()
     p15, clip_rows = offline_phases(dev, card)
 
-    # ---- 16. result lines ----
+    # ---- 17. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),
@@ -4258,9 +4817,10 @@ def main() -> None:
                attention_row("masked_mha_bwd_dkv", 157, train_launches[True]["bwd_dkv"],
                              train_rows["bwd_dkv"])]
     kernels += det_rows + probe_rows + dsg_rows + clip_rows
-    for row in kernels:               # phases 14's and 15's launches, 0 off their paths
+    for row in kernels:       # phases 14's, 15's and 16's launches, 0 off their paths
         row["launches_entry_points"] = p14.get(row["name"], 0)
         row["launches_offline"] = p15.get(row["name"], 0)
+        row["launches_parallel"] = p16.get(row["name"], 0)
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

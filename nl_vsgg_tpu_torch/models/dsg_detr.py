@@ -193,6 +193,23 @@ class DSGDETR(nn.Module):
         self.to(device)
         self.eval()
 
+    def segment_inputs(self, entry: Entry, train: bool = False) -> tuple[torch.Tensor, ...]:
+        """The relation transformer's inputs: relation features (B, R,
+        1936), each relation's frame and object class (its local and global
+        groups) and its position in the class sequence (the sinusoidal
+        encoding's index). parallel/dsg_detr_sp runs the transformer on
+        them token-sharded."""
+        rm = entry.rel_mask
+        h = relation_features(self, entry, entry.labels, train)
+        subj, obj = entry.pair_idx[..., 0], entry.pair_idx[..., 1]
+        frame_of = _take(entry.box_frame, obj)
+        obj_cls = _take(entry.labels, obj)
+        if self.mode == "sgdet":
+            ranks = tracklet_rank(obj_cls, subj, rm)
+        else:  # no explicit positions: the ordinal in the class sequence
+            ranks = sequence_ordinal(obj_cls, rm)
+        return h, frame_of, obj_cls, ranks
+
     def forward(self, entry: Entry, train: bool = False, group_id: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """`train=True` needs `generator` (on the model's device)."""
@@ -209,23 +226,16 @@ class DSGDETR(nn.Module):
         out["pred_labels"] = pred_labels
         out["pred_scores"] = entry.scores
 
-        h = relation_features(self, entry, pred_labels, train)  # (B, R, 1936)
+        h, frame_of, obj_cls, ranks = self.segment_inputs(entry, train)
         rm = entry.rel_mask
-        subj, obj = entry.pair_idx[..., 0], entry.pair_idx[..., 1]
         # ---- local: the relations of one frame (lib/dsg_detr.py:536-543) ----
-        frame_of = _take(entry.box_frame, obj)
         allow_s = _same_group(frame_of, rm)
         for layer in self.local_transformer.layers:
             h = layer(h, allow_s, generator=g)
         h = torch.where(rm[..., None], h, 0.0)
 
         # ---- global: the relations of one object class (:545-564) ----
-        obj_cls = _take(pred_labels, obj)
         allow_t = _same_group(obj_cls, rm)
-        if self.mode == "sgdet":
-            ranks = tracklet_rank(obj_cls, subj, rm)
-        else:  # no explicit positions: the ordinal in the class sequence
-            ranks = sequence_ordinal(obj_cls, rm)
         h = self.positional_encoder(h, ranks, g)
         for layer in self.global_transformer.layers:
             h = layer(h, allow_t, generator=g)

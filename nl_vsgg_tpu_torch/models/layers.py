@@ -154,9 +154,13 @@ class MaskedEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim)
 
     def forward(self, x: torch.Tensor, allow: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                kv: torch.Tensor | None = None) -> torch.Tensor:
+        """`kv` (B, K, E) gives the attention other key/value tokens than
+        the query rows `x` (the token-sharded forward's gathered tokens)."""
         dt, rate, g = self.dtype, self.dropout, generator
-        attn = self.self_attn(x, x, x, allow, generator=g)
+        attn = (self.self_attn(x, x, x, allow, generator=g) if kv is None
+                else self.self_attn(x, kv, kv, allow, generator=g))
         x = layer_norm(x + dropout(attn, rate, g), self.norm1, dt)
         h = dropout(torch.relu(linear(x, self.linear1, dt)), rate, g)
         h = linear(h, self.linear2, dt)
@@ -335,14 +339,28 @@ class MaskedBatchNorm(nn.Module):
         weight-0 video stays out of the sum."""
         if self.pending is None:
             return
+        self.commit_apply(*self.commit_sums(video_weight))
+
+    @torch.no_grad()
+    def commit_sums(self, video_weight: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The pending updates' weighted sums over the videos (mean, var)
+        and the weights' sum, consuming them. Under data parallelism the
+        train step all-reduces these over the ranks before `commit_apply`,
+        so every rank's buffers take the global batch's weighted mean."""
         mean, var = self.pending
         self.pending = None
         w = video_weight.float().view(-1, 1)
-        denom = w.sum().clamp(min=1.0)
         mom = self.momentum
-        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
-            per_video = (1.0 - mom) * buf + mom * stat
-            buf.copy_(torch.where(w > 0, per_video * w, 0.0).sum(0) / denom)
+        sums = [torch.where(w > 0, ((1.0 - mom) * buf + mom * stat) * w, 0.0).sum(0)
+                for buf, stat in ((self.running_mean, mean), (self.running_var, var))]
+        return sums[0], sums[1], w.sum()
+
+    @torch.no_grad()
+    def commit_apply(self, mean_sum: torch.Tensor, var_sum: torch.Tensor,
+                     weight_sum: torch.Tensor) -> None:
+        denom = weight_sum.clamp(min=1.0)
+        self.running_mean.copy_(mean_sum / denom)
+        self.running_var.copy_(var_sum / denom)
         self.num_batches_tracked += 1
 
     def discard(self) -> None:

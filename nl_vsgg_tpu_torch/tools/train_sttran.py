@@ -20,11 +20,27 @@ resumes from it: the TrainState, the scheduler (from the sidecar), the step
 counter and the epoch. Each step's dropout generator is seeded from
 (cfg.seed, step), so a resumed run draws what a straight run draws.
 
-Single process, single device. Refused, each with a ValueError naming why:
-sgcls / predcls training and non-wks sgdet (as the JAX tool refuses them),
-and, not ported yet (ROADMAP Queue 1 item 4), cfg.distributed and a
-cfg.mesh over more than one device; cfg.remat (the port's models do not
-rematerialise).
+Data parallel over processes (parallel/): with cfg.distributed or a
+coordinator (cfg.coordinator_address / num_processes / process_id, or
+NL_VSGG_COORDINATOR / NL_VSGG_NUM_PROCESSES / NL_VSGG_PROCESS_ID) each
+process is one rank of a torch.distributed group (`init_distributed`): the
+model runs under DDP, each global batch of cfg.batch_videos is a fixed
+block of the epoch order of which every rank grounds and steps its own
+contiguous share (`DistributedBatcher`), the Entry store keeps each rank's
+block, each rank scores range(rank, n_test, world) of the test split and
+the evaluators are merged; only the primary rank writes the log file,
+configs.json, metrics.jsonl and the checkpoints, and every rank resumes
+from the same checkpoint. With no coordinator, cfg.mesh.data = N > 1, or
+-1 on a host with more than one card, starts N local ranks itself
+(`spawn_local_ranks`), one card each where the host has N cards and
+sharing them where it has fewer (the ranks then talk gloo), and returns
+the TrainState restored from the newest checkpoint. Each rank's step
+generator is seeded from (cfg.seed, step, rank).
+
+Refused, each with a ValueError naming why: sgcls / predcls training and
+non-wks sgdet (as the JAX tool refuses them), cfg.mesh.model > 1 (the
+model axis is not ported, parallel/mesh.ROADMAP_TP), cfg.remat (the port's
+models do not rematerialise).
 
 `ground_video(ds, idx, cfg, is_train, buckets, union_provider, on_truncate)`
 turns one video of an `AGTrain` / `AGTest` split into a padded Entry (or
@@ -47,7 +63,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import logging
 import os
+import tempfile
 import threading
 import time
 
@@ -65,6 +84,8 @@ from ..device import resolve_device
 from ..eval.epoch import DeviceEvalPromotion, evaluate_epoch, grounded_batches
 from ..eval.recall import SceneGraphEvaluator
 from ..models.sttran import STTran
+from ..parallel import distributed as pdist
+from ..parallel.mesh import ROADMAP_TP, data_parallel, make_mesh
 from ..train.state import PlateauScheduler, create_train_state, set_learning_rate
 from ..train.step import make_train_step, place_entries
 from ..utils.checkpoint import latest_step, load_meta, restore_checkpoint, save_checkpoint
@@ -314,8 +335,6 @@ def _ground_video_uncached(ds, idx, cfg, is_train, buckets, union_provider=None,
 
 # ------------------------------------------------------------------ the loop
 
-ROADMAP_PARALLEL = "ROADMAP.md Queue 1 item 4 (the parallel layer)"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="weak-supervision training")
@@ -388,24 +407,69 @@ def check_trainable(cfg, device: torch.device) -> None:
             f"mode={cfg.mode!r} training is not a shipped NL-VSGG recipe (the reference "
             "prints 'error! we do not train predcls and sgcls task!' and its GT-box train "
             "path cannot run); use tools/test_sttran for sgcls/predcls evaluation")
-    if cfg.distributed:
-        raise ValueError(f"distributed=true: multi-process training is not ported yet "
-                         f"({ROADMAP_PARALLEL})")
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if cfg.mesh.model != 1 or (n_dev > 1 and cfg.mesh.data not in (1, -1)):
-        raise ValueError(
-            f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: training on more than one "
-            f"device is not ported yet ({ROADMAP_PARALLEL}); use mesh data 1 (or -1), model 1")
+    if cfg.mesh.model != 1:
+        raise ValueError(f"mesh model={cfg.mesh.model}: the model axis is not ported "
+                         f"({ROADMAP_TP}); use mesh model 1")
     if cfg.remat:
         raise ValueError("remat=true: the port's models do not rematerialise their layers "
                          "(ROADMAP.md Queue 1 item 3); set remat false")
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+def step_generator(seed: int, step: int, device: torch.device,
+                   rank: int | None = None) -> torch.Generator:
     """The train step's generator (dropout masks, attention seeds, label
-    samples), seeded from (seed, step) alone."""
-    s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
+    samples), seeded from (seed, step) alone, or from (seed, step, rank)
+    on a rank of a process group."""
+    key = [seed, step] if rank is None else [seed, step, rank]
+    s = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0] >> 1)
     return torch.Generator(device=device).manual_seed(s)
+
+
+def local_ranks(cfg, device: torch.device) -> int:
+    """How many ranks `run_training` starts itself: cfg.mesh.data when it is
+    above 1, or the card count for -1 on a host with more than one card;
+    1 when a coordinator or cfg.distributed makes this process one rank of
+    a group started elsewhere."""
+    if cfg.distributed or cfg.coordinator_address or os.environ.get(pdist.ENV_COORD):
+        return 1
+    if cfg.mesh.data == -1:
+        return torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(cfg.mesh.data, 1)
+
+
+def _local_rank_main(r: int, n: int, url: str, cfg, args, build_model_fn) -> None:
+    if resolve_device(args.device).type == "cpu":  # the host's cores split over the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    cfg = dataclasses.replace(cfg, coordinator_address=url, num_processes=n, process_id=r)
+    run_training(cfg, args, build_model_fn)
+
+
+def spawn_local_ranks(cfg, args, build_model_fn, n: int):
+    """`run_training` in n spawned processes on this host, ranks of one
+    group over a file:// rendezvous; waits for them (at most
+    NL_VSGG_JOIN_TIMEOUT_S seconds when that is set) and returns the
+    TrainState restored from the newest checkpoint on this process's
+    device."""
+    import torch.multiprocessing as mp
+
+    child_args = argparse.Namespace(max_videos=args.max_videos, device=args.device)
+    with tempfile.TemporaryDirectory(prefix="nl_vsgg_rdv_") as rdv:
+        url = f"file://{os.path.join(rdv, 'store')}"
+        pdist.join_processes(mp.start_processes(
+            _local_rank_main, args=(n, url, cfg, child_args, build_model_fn), nprocs=n,
+            join=False, start_method="spawn"))
+    device = resolve_device(args.device)
+    model = build_model_fn(cfg, schema.load_taxonomy(), device)
+    state = create_train_state(model, cfg.lr, cfg.weight_decay, cfg.grad_clip_norm)
+    return restore_checkpoint(os.path.join(cfg.save_path, "ckpt"), state)
+
+
+class _NullMetrics:
+    def write(self, *a, **kw) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def log_device_recalls(logger, device_recalls) -> None:
@@ -432,17 +496,32 @@ def run_training(cfg, args, build_model_fn):
     TrainState."""
     device = resolve_device(args.device)
     check_trainable(cfg, device)
-    logger = setup_logger(save_dir=cfg.save_path)
+    n_local = local_ranks(cfg, device)
+    if n_local > 1:
+        return spawn_local_ranks(cfg, args, build_model_fn, n_local)
+    own_group = not pdist.initialized()
+    multiproc = pdist.init_distributed(cfg, device=args.device)
+    primary = pdist.is_primary()
+    if pdist.initialized():
+        device = pdist.rank_device()
+        mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)   # data must span the ranks
+    logger = setup_logger(save_dir=cfg.save_path if primary else None)
+    if multiproc:
+        logger.info(pdist.describe())
+        if not primary:  # one console log stream, not N
+            logger.setLevel(logging.WARNING)
     os.makedirs(cfg.save_path, exist_ok=True)
-    with open(os.path.join(cfg.save_path, "configs.json"), "w") as f:
-        f.write(cfg.to_json())
-    metrics = MetricWriter(cfg.save_path)
+    if primary:
+        with open(os.path.join(cfg.save_path, "configs.json"), "w") as f:
+            f.write(cfg.to_json())
+    metrics = MetricWriter(cfg.save_path) if primary else _NullMetrics()
     tax = schema.load_taxonomy()
 
     logger.info("loading datasets")
     ds_train = AGTrain(cfg.data_path, pseudo_label_path=cfg.pseudo_localized_SG_path,
                        remove_one_frame_video=cfg.remove_one_frame_video,
-                       auto_download=cfg.auto_download, logger=logger, save_path=cfg.save_path)
+                       auto_download=cfg.auto_download, logger=logger,
+                       save_path=cfg.save_path if primary else None)
     ds_test = ag_test_split(cfg)
     logger.info(f"train videos: {len(ds_train)}, test videos: {len(ds_test)}")
 
@@ -482,7 +561,10 @@ def run_training(cfg, args, build_model_fn):
         resume_meta = load_meta(ckpt_dir, resumed)
         start_epoch = resumed + 1
         logger.info(f"resumed from checkpoint epoch {resumed} (step {state.step})")
-    train_step = make_train_step(model, state.optimizer, bce=cfg.bce_loss)
+    # under a group: DDP over the ranks (parameters broadcast from rank 0)
+    train_step = make_train_step(data_parallel(model) if multiproc else model,
+                                 state.optimizer, bce=cfg.bce_loss)
+    step_rank = pdist.rank() if multiproc else None
     scheduler = PlateauScheduler(cfg.lr)
     if resume_meta and "scheduler" in resume_meta:
         # the decayed lr and the plateau history: without them the first
@@ -498,6 +580,22 @@ def run_training(cfg, args, build_model_fn):
     # batch (no second upload); later epochs gather from video indices
     entry_store = (DeviceEntryStore(budget_bytes=int(cfg.device_entry_store_gb * 1e9),
                                     device=device) if cfg.device_entry_store_gb else None)
+    if entry_store is not None and entry_store.D > 1:
+        logger.info(f"device entry store sharded over {entry_store.D} ranks (each holds "
+                    f"its own block of every batch)")
+
+    def placed_buckets(stream_order):
+        # in the epoch's order, whatever the workers' timing: the batches,
+        # and so the run, are the same in every run of the seed
+        prefetcher = GroundingPrefetcher(lambda idx: ground(ds_train, idx, True), stream_order,
+                                         num_workers=cfg.num_workers, ordered=True)
+        for kind, payload in bucket_events(iter(prefetcher), cfg.batch_videos):
+            if kind == "skip":
+                continue
+            with timer("batch_build"):
+                batch = place_entries([e for _, e in payload], zero_union=zero_union,
+                                      rel_bf16=rel_bf16, device=device)
+            yield [i for i, _ in payload], batch
 
     def batch_iter(order):
         stream_order = order
@@ -512,20 +610,21 @@ def run_training(cfg, args, build_model_fn):
                     continue
                 n_stored += 1
                 yield len(idxs), batch
-        # in the epoch's order, whatever the workers' timing: the batches,
-        # and so the run, are the same in every run of the seed
-        prefetcher = GroundingPrefetcher(lambda idx: ground(ds_train, idx, True), stream_order,
-                                         num_workers=cfg.num_workers, ordered=True)
-        for kind, payload in bucket_events(iter(prefetcher), cfg.batch_videos):
-            if kind == "skip":
-                continue
-            with timer("batch_build"):
-                batch = place_entries([e for _, e in payload], zero_union=zero_union,
-                                      rel_bf16=rel_bf16, device=device)
+        if multiproc:
+            # fixed global blocks, each rank grounding and stepping its share;
+            # the store adopts each rank's block under the global composition
+            streamed = pdist.DistributedBatcher(
+                lambda idx: ground(ds_train, idx, True), stream_order, cfg.batch_videos, mesh,
+                feat_dim=cfg.feat_dim, zero_union=zero_union, rel_bf16=rel_bf16,
+                num_workers=cfg.num_workers, device_masks=cfg.device_spatial_masks,
+                yield_indices=True, device=device)
+        else:
+            streamed = placed_buckets(stream_order)
+        for idxs, batch in streamed:
             if entry_store is not None and not entry_store.overflow:
                 with timer("store_build"):
-                    entry_store.add_batch([i for i, _ in payload], batch)
-            yield len(payload), batch
+                    entry_store.add_batch(idxs, batch)
+            yield len(idxs), batch
         if entry_store is not None and (n_stored or entry_store.overflow):
             logger.info(f"device entry store: {n_stored} gathered batches this epoch, "
                         f"{entry_store.bytes / 1e9:.2f} GB resident"
@@ -541,12 +640,13 @@ def run_training(cfg, args, build_model_fn):
         with contextlib.ExitStack() as profiling:
             for n_batch, batch in batch_iter(order):
                 n_seen += n_batch
-                if cfg.profile_steps and epoch == start_epoch and global_step == 2:
+                if cfg.profile_steps and primary and epoch == start_epoch \
+                        and global_step == 2:
                     profiling.enter_context(trace(os.path.join(cfg.save_path, "trace")))
                     trace_end = global_step + cfg.profile_steps
                 with timer("train_step"):  # waits for the step's validity flag
-                    state, m = train_step(state, batch,
-                                          step_generator(cfg.seed, global_step, device))
+                    state, m = train_step(state, batch, step_generator(
+                        cfg.seed, global_step, device, step_rank))
                 global_step += 1
                 if global_step == trace_end:
                     profiling.close()
@@ -570,13 +670,25 @@ def run_training(cfg, args, build_model_fn):
 
         # ---- the epoch's evaluation, streamed ----
         device_recalls = [] if cfg.device_eval else None
-        promotion = (DeviceEvalPromotion(cfg.device_eval_burnin, cfg.device_eval_recheck)
-                     if cfg.device_eval_promote else None)
+        promotion = None
+        if cfg.device_eval_promote:
+            if multiproc:
+                logger.warning("device_eval_promote is single-process only (its burn-in "
+                               "spans one evaluator); ignoring")
+            else:
+                promotion = DeviceEvalPromotion(cfg.device_eval_burnin, cfg.device_eval_recheck)
         evaluator = SceneGraphEvaluator(mode=cfg.mode, taxonomy=tax)
+        # under a group each rank scores its strided shard with its replica
+        my_idx = range(pdist.rank(), n_test, pdist.world_size()) if multiproc else range(n_test)
         batches = grounded_batches(lambda i: ground(ds_test, i, False), ds_test.gt_annotations,
-                                   range(n_test), cfg.batch_videos, cfg.num_workers)
+                                   my_idx, cfg.batch_videos, cfg.num_workers)
         evaluate_epoch(model, batches, evaluator=evaluator, device_recalls=device_recalls,
                        promotion=promotion, device=device, zero_union=zero_union)
+        if multiproc:  # the whole split's lists on every rank, in rank order
+            pdist.merge_evaluators(evaluator)
+            if device_recalls is not None:
+                device_recalls = [d for shard in pdist.allgather_obj(device_recalls)
+                                  for d in shard]
         if device_recalls:
             log_device_recalls(logger, device_recalls)
         ev, eb, er = trunc_eval.take()
@@ -618,10 +730,14 @@ def run_training(cfg, args, build_model_fn):
         metrics.write(global_step, epoch=epoch, mean_r20=score, lr=new_lr)
         # after the eval and the plateau step, so a resume continues with the
         # epoch's scheduler decision applied (the sidecar holds the history)
-        save_checkpoint(ckpt_dir, epoch, state, config_json=cfg.to_json(),
-                        extra={"scheduler": scheduler.state_dict()})
+        if primary:
+            save_checkpoint(ckpt_dir, epoch, state, config_json=cfg.to_json(),
+                            extra={"scheduler": scheduler.state_dict()})
+        pdist.barrier()  # no rank runs ahead of the saved epoch
 
     metrics.close()
+    if own_group:
+        pdist.shutdown()
     return state
 
 

@@ -14,6 +14,18 @@ is not finite, or whose batch has no box, leaves the parameters, the AdamW
 state (its step count included) and the BatchNorm buffers bit-identical and
 adds 1 to `skipped`. Deciding it costs one host sync per step.
 
+Data parallelism: `model` may be a DistributedDataParallel
+(parallel/mesh.data_parallel). The step then gives what the JAX step gives
+over the whole global batch, where one SPMD program takes every mean over
+all B videos: the loss denominator is the all-reduced count of valid
+videos, and each rank backpropagates its weighted sum times world / count,
+so DDP's mean over the ranks is the global weighted mean; the guard is
+one decision on every rank (the all-reduced losses, the all-reduced
+gradients' finiteness, a box anywhere); the BatchNorm updates' weighted
+sums and weights are all-reduced before they are written, so the buffers
+match on every rank and match the one-process run. That costs two
+all-reduces of a few scalars a step and one of the BatchNorm sums.
+
 Device rule: the step runs where the model is. The model is built on CUDA
 unless its caller asked for the CPU (`STTran(device="cpu")`); the batch and
 the generator must be on the model's device, so there is no silent CPU
@@ -26,6 +38,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..data.entry import Entry, stack_entries
 from ..device import resolve_device
@@ -91,9 +104,14 @@ def make_train_step(model: torch.nn.Module, optimizer, bce: bool = True) -> Call
     """Returns train_step(state, batch: Entry[B, ...], generator) ->
     (state, metrics). `metrics` holds the four losses, 'total' and 'valid'
     as 0-dim float32 tensors on the model's device; `generator` draws the
-    step's dropout masks, attention seeds and attention-label samples."""
-    device = _device_of(model)
-    norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    step's dropout masks, attention seeds and attention-label samples.
+    Under DDP, `batch` is the rank's block of the global batch and the
+    metrics are the global batch's."""
+    ddp = isinstance(model, torch.nn.parallel.DistributedDataParallel)
+    core = model.module if ddp else model
+    world = dist.get_world_size(model.process_group) if ddp else 1
+    device = _device_of(core)
+    norms = [m for m in core.modules() if isinstance(m, MaskedBatchNorm)]
 
     def train_step(state: TrainState, batch: Entry, generator: torch.Generator):
         if not (_same_device(batch.box_mask.device, device)
@@ -102,36 +120,59 @@ def make_train_step(model: torch.nn.Module, optimizer, bce: bool = True) -> Call
                              f"{batch.box_mask.device} and the generator on "
                              f"{generator.device}")
         vid_w = batch.box_mask.any(-1).float()
-        denom = vid_w.sum().clamp(min=1.0)
-
-        def wmean(x: torch.Tensor) -> torch.Tensor:
-            return torch.where(vid_w > 0, x * vid_w, 0.0).sum(0) / denom
+        count, any_box = vid_w.sum(), batch.box_mask.any()
+        if ddp:  # the global batch's count of valid videos, and a box anywhere
+            glob = torch.stack([count, any_box.float()])
+            dist.all_reduce(glob, group=model.process_group)
+            count, any_box = glob[0], glob[1] > 0
+        denom = count.clamp(min=1.0)
 
         optimizer.zero_grad()
         pred = model(batch, train=True, generator=generator)
         per_video = sttran_losses(pred, batch, generator, bce=bce)
-        losses = {k: wmean(per_video[k]) for k in LOSS_KEYS}
-        losses["total"].backward()
+        sums = torch.stack([torch.where(vid_w > 0, per_video[k] * vid_w, 0.0).sum(0)
+                            for k in LOSS_KEYS])
+        (sums[-1] / denom if world == 1 else sums[-1] * world / denom).backward()
 
         with torch.no_grad():
+            sums = sums.detach()
+            if ddp:
+                dist.all_reduce(sums, group=model.process_group)
+            losses = dict(zip(LOSS_KEYS, sums / denom))
             grads = optimizer.grads() if hasattr(optimizer, "grads") else [
-                p.grad for p in model.parameters() if p.grad is not None]
+                p.grad for p in core.parameters() if p.grad is not None]
             worst = torch.stack(torch._foreach_norm(grads, float("inf")))
-            valid_t = (torch.isfinite(losses["total"]) & torch.isfinite(worst).all()
-                       & batch.box_mask.any())
+            valid_t = torch.isfinite(losses["total"]) & torch.isfinite(worst).all() & any_box
         valid = bool(valid_t)  # the step's one host sync
         if valid:
             optimizer.step()
-            for m in norms:
-                m.commit(vid_w)
+            _commit_norms(norms, vid_w, model.process_group if ddp else None)
         else:
             for m in norms:
                 m.discard()
         optimizer.zero_grad()
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = dict(losses)
         metrics["valid"] = valid_t.float()
         state = dataclasses.replace(state, step=state.step + 1,
                                     skipped=state.skipped + (0 if valid else 1))
         return state, metrics
 
     return train_step
+
+
+def _commit_norms(norms, vid_w: torch.Tensor, group) -> None:
+    """Write every BatchNorm's pending update; under a process group the
+    weighted sums are all-reduced first, all norms in one call."""
+    if group is None:
+        for m in norms:
+            m.commit(vid_w)
+        return
+    live = [m for m in norms if m.pending is not None]
+    if not live:
+        return
+    parts = [m.commit_sums(vid_w) for m in live]
+    flat = torch.cat([torch.cat([a, b, w.view(1)]) for a, b, w in parts])
+    dist.all_reduce(flat, group=group)
+    for m, part in zip(live, flat.split([2 * a.numel() + 1 for a, _, _ in parts])):
+        c = m.running_mean.numel()
+        m.commit_apply(part[:c], part[c:2 * c], part[2 * c])

@@ -256,8 +256,7 @@ def test_resume_equals_straight_run(micro, tmp_path):
     ({"mode": "sgcls"}, "not a shipped NL-VSGG recipe"),
     ({"mode": "predcls"}, "not a shipped NL-VSGG recipe"),
     ({"is_wks": False}, "not a shipped NL-VSGG recipe"),
-    ({"distributed": True}, "Queue 1 item 4"),
-    ({"mesh": {"data": 1, "model": 2}}, "Queue 1 item 4"),
+    ({"mesh": {"data": 1, "model": 2}}, "Queue 1 item 1a"),
     ({"remat": True}, "Queue 1 item 3"),
 ])
 def test_run_training_refuses(overrides, match, tmp_path):
