@@ -227,11 +227,30 @@ Phases, in order; any failure exits non-zero before the result line:
      modules (MODEL_TOL), the attention kernel on both sides; the backend,
      ms per step of 2 ranks beside 1 rank, bytes all-reduced a step and the
      host-staged bytes printed;
- 17. the `kernels` JSON line (each row with `launches_entry_points`, phase
-     14's launches, `launches_offline`, phase 15's, and `launches_parallel`,
-     phase 16's; the grouped conv has a bf16 row and a float32 row), then
-     the device JSON line, last; the line before them prints the card and
-     the script's total wall time.
+ 17. the model axis and remat (`model_axis_phases`, after phase 16 on the
+     same dataset): STTran sgdet at full width (bf16, seeded) sliced over
+     a 1 x 2 mesh of 2 spawned gloo ranks sharing the card (parallel/
+     tensor.py), (a) 3 train steps (dropout off) on phase 5's 64 videos
+     against the one-process steps (phase 16 (b)'s tolerances), each rank's
+     resident parameter, gradient and AdamW bytes beside one process's, the
+     bytes gathered and all-reduced a step, ms a step; (b) one DSG-DETR
+     sgdet step on set (b) the same way; (c) `run_training` with mesh
+     {data 1, model 2}, float32, for 1 epoch on 64 of phase 13's videos, its
+     checkpoint restored into a 1 x 1 model giving the run's R@20
+     (P16_R20_ATOL); (d)
+     one full-width train step with remat on and off, dropout on, one
+     generator seed: equal losses and generator state, parameters within
+     P17_REMAT_ATOL, the step's peak memory printed both ways, the
+     relation transformer's own (held after its forward, peak through its
+     backward) lower with remat; (e)
+     `roi_pool` on the card equal to the CPU at the C4 shape, RoIAlign on
+     the same rois;
+ 18. the `kernels` JSON line (each row with `launches_entry_points`, phase
+     14's launches, `launches_offline`, phase 15's, `launches_parallel`,
+     phase 16's, and `launches_model_axis`, phase 17's; the grouped conv
+     has a bf16 row and a float32 row), then the device JSON line, last;
+     the line before them prints the card and the script's total wall
+     time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -4513,6 +4532,444 @@ def parallel_phases(dev, card, entries, ag: str, root: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- the model axis
+P17_RANKS = 2                    # the model axis of parts (a) - (c): mesh 1 x 2
+# (a) 2 ranks x 64 videos, the model sliced over them, against one process
+# over the same 64: the same math, but each rank's bf16 GEMMs run at half the
+# output columns (cuBLAS may tile them otherwise: one bf16 ulp on an
+# activation) and the input gradients are summed over the ranks in float32:
+# phase 16 (b)'s tolerances, P16_LOSS_RTOL, P16_PARAM_ATOL and P16_BUF_REL.
+# (b) one DSG-DETR step the same way: parameters within 2.5 lr (one step).
+# (c) the 1x2 checkpoint in a 1x1 model: R@20 within P16_R20_ATOL. The run is
+# float32 (P17_RUN_DTYPE): the two evaluations batch the same videos, and
+# only the sliced GEMMs' rounding parts them; in bf16 that rounding ties and
+# unties the random weights' scores and moves R@20 by whole triplets.
+P17_RUN_DTYPE = "float32"
+P17_RUN_VIDEOS = B               # (c)'s --max_videos: one train step, one eval batch
+# (d) remat against the dense step, same weights and generator: the forward
+# is the same launches on the same inputs, so the losses are equal; the
+# backward recomputes the wrapped layers' activations, equal if the kernels
+# and cuBLAS are deterministic, so the parameters within 2.5 lr (Adam's first
+# step moves an element whose gradient is rounding noise a full lr).
+P17_REMAT_ATOL = 2.5 * P16_LR
+# (e) roi_pool on the card against the CPU: a max of the same values, exact.
+
+
+def p17_digest(sd: dict) -> str:
+    import hashlib
+
+    import torch
+    h = hashlib.sha1()
+    for k, v in sd.items():
+        h.update(k.encode() + v.detach().contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p17_rank(r: int, n: int, url: str, work: str, conf: dict) -> None:
+    """Parts (a) and (b) on one rank of a 1 x n mesh whose ranks share the
+    card (spawned by `model_axis_phases`): STTran sliced over the model
+    axis, `conf["steps"]` train steps on all of phase 5's videos, then one
+    DSG-DETR step on set (b); each model's gathered one-rank state written
+    by rank 0, the rank's resident bytes, its collectives' bytes, its ms a
+    step and its launches in <work>/rank<r>.pt."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from nl_vsgg_tpu_torch.data.entry import Entry
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.parallel import distributed as pd
+    from nl_vsgg_tpu_torch.parallel import tensor as tpar
+    from nl_vsgg_tpu_torch.parallel.mesh import ALLREDUCE, data_parallel, make_mesh
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pd.init_distributed(types.SimpleNamespace(coordinator_address=url, num_processes=n,
+                                              process_id=r), device=conf["device"],
+                        timeout_s=conf["timeout"])
+    mesh = make_mesh(1, n)
+    dev = pd.rank_device()
+    cuda = dev.type == "cuda"
+    payload = torch.load(os.path.join(work, "in.pt"), weights_only=False)
+    batch = Entry(**{k: v.to(dev) for k, v in payload["batch"].items()})
+    kw = dict(mode="sgdet", feat_dim=conf["feat"], enc_layer_num=1, dec_layer_num=3,
+              dtype=torch.bfloat16, dropout=0.0, device=dev)
+    out = {"backend": pd.backend(), "device": str(dev),
+           "mesh": (mesh.data_index, mesh.model_index, pd.data_size())}
+
+    # ---- (a) the model axis: 3 steps over all the videos ----
+    model = tpar.shard_module(STTran(generator=torch.Generator().manual_seed(0), **kw), mesh)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    st = create_train_state(model, lr=conf["lr"])
+    step = make_train_step(data_parallel(model, mesh), st.optimizer)
+    ma.reset_launches()
+    ALLREDUCE["bytes"] = ALLREDUCE["calls"] = 0
+    losses, ms, comm = [], [], []
+    for i in range(conf["steps"]):
+        dist.barrier()
+        p16_sync(dev)
+        tpar.reset_comm()
+        t0 = time.perf_counter()
+        st, met = step(st, batch, torch.Generator(device=dev).manual_seed(100 + i))
+        p16_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append(dict(tpar.COMM))
+        losses.append({k: float(v) for k, v in met.items()})
+    out["launches_steps"] = dict(ma.LAUNCHES)
+    out["losses"], out["ms"], out["comm"], out["skipped"] = losses, ms, comm, st.skipped
+    out["ddp_bytes"] = ALLREDUCE["bytes"] / conf["steps"]
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    out["resident"] = {"params": params, "grads": params, "adamw": sum(
+        t.numel() * t.element_size() for s in st.optimizer.adamw.state.values()
+        for k, t in s.items() if k != "step")}
+    out["peak"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    full = tpar.full_state_dict(model)             # a collective: both ranks
+    out["digest"] = p17_digest(full)
+    if r == 0:
+        torch.save({k: v.cpu() for k, v in full.items()}, os.path.join(work, "final_sttran.pt"))
+    del full, step, st, model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- (b) one DSG-DETR sgdet step on set (b) ----
+    dsg = tpar.shard_module(DSGDETR(mode="sgdet", feat_dim=conf["feat"], enc_layer_num=1,
+                                    dec_layer_num=3, dtype=torch.bfloat16, dropout=0.0,
+                                    device=dev, generator=torch.Generator().manual_seed(0)),
+                            mesh)
+    blk_b = Entry(**dict(vars(batch), labels=payload["labels_b"].to(dev),
+                         distribution=payload["dist_b"].to(dev)))
+    dst = create_train_state(dsg, lr=conf["lr"])
+    ma.reset_launches()
+    dst, met = make_train_step(data_parallel(dsg, mesh), dst.optimizer)(
+        dst, blk_b, torch.Generator(device=dev).manual_seed(300))
+    out["launches_dsg"] = dict(ma.LAUNCHES)
+    out["dsg"] = ({k: float(v) for k, v in met.items()}, dst.skipped)
+    full = tpar.full_state_dict(dsg)
+    out["dsg_digest"] = p17_digest(full)
+    if r == 0:
+        torch.save({k: v.cpu() for k, v in full.items()}, os.path.join(work, "final_dsg.pt"))
+    torch.save(out, os.path.join(work, f"rank{r}.pt"))
+    pd.shutdown()
+
+
+def model_axis_phases(dev, card, entries, ag: str, root: str) -> dict:
+    """Phase 17: the model axis (tensor parallel over a 1 x 2 mesh, gloo
+    ranks sharing the card) and remat, at full width (STTran sgdet bf16,
+    1 + 3 layers, 8 heads, feat 2048, seeded weights). (a) 3 train steps,
+    dropout off, on phase 5's 64 videos, the model sliced over 2 ranks,
+    against the one-process steps over the same videos: each rank's resident
+    parameter and AdamW bytes beside one process's, the bytes gathered and
+    all-reduced a step, ms a step; (b) one DSG-DETR sgdet step on set (b) the
+    same way; (c) `run_training` with mesh {data 1, model 2}, float32, for 1
+    epoch on P17_RUN_VIDEOS of phase 13's videos (its own 2 ranks), its
+    checkpoint restored into a 1 x 1 model giving the run's R@20; (d) one
+    train step with remat on and off, dropout on, from one generator seed:
+    the same losses and generator state, the parameters within
+    P17_REMAT_ATOL, the step's peak memory each way, and the relation
+    transformer's alone over the step's relation features (held after its
+    forward, peak through its backward), lower with remat; (e) `roi_pool`
+    on the card against the CPU at the detector's C4 shape (one 38 x 64 x
+    1024 map, 300 rois), RoIAlign on the same rois beside it. Returns the phase's launch counts by `kernels` row name."""
+    import shutil
+    import types
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.data.action_genome import AGTest
+    from nl_vsgg_tpu_torch.eval.epoch import evaluate_epoch, grounded_batches
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.models.sttran import STTran, relation_features
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.ops import roi_align as ra
+    from nl_vsgg_tpu_torch.parallel import distributed as pd
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step, place_entries
+    from nl_vsgg_tpu_torch.utils.checkpoint import restore_checkpoint
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    counts: dict = {}
+
+    def add(launches: dict, train: bool, model: str = "") -> None:
+        fwd = "masked_mha_fwd_train" if train else "masked_mha"
+        for name, n in ((fwd, launches["fwd"]), ("masked_mha_bwd_dq", launches["bwd_dq"]),
+                        ("masked_mha_bwd_dkv", launches["bwd_dkv"])):
+            counts[name + model] = counts.get(name + model, 0) + n
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # ---- the one-process references of (a) and (b) ----
+    batch = place_entries(entries, rel_bf16=True, device=dev)   # phase 5's batch
+    sets_b = tracklet_entries(entries, np.random.default_rng(4000))    # phase 12's set (b)
+    labels_b = torch.stack([e.labels for e in sets_b])
+    dist_b = torch.stack([e.distribution for e in sets_b])
+    kw = dict(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3,
+              dtype=torch.bfloat16, dropout=0.0, device=dev)
+    model = STTran(generator=torch.Generator().manual_seed(0), **kw)
+    n_params = sum(p.numel() for p in model.parameters())
+    peak_reset()
+    st = create_train_state(model, lr=P16_LR)
+    step = make_train_step(model, st.optimizer)
+    one_losses, one_ms = [], []
+    for i in range(P16_STEPS):
+        p16_sync(dev)
+        t0 = time.perf_counter()
+        st, met = step(st, batch, torch.Generator(device=dev).manual_seed(100 + i))
+        p16_sync(dev)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_losses.append({k: float(v) for k, v in met.items()})
+    one_adamw = sum(t.numel() * t.element_size() for s in st.optimizer.adamw.state.values()
+                    for k, t in s.items() if k != "step")
+    one_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    one_sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model, st, step
+    dsg = DSGDETR(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3,
+                  dtype=torch.bfloat16, dropout=0.0, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    batch_b = type(batch)(**dict(vars(batch), labels=labels_b.to(dev),
+                                 distribution=dist_b.to(dev)))
+    dst = create_train_state(dsg, lr=P16_LR)
+    dst, dmet = make_train_step(dsg, dst.optimizer)(
+        dst, batch_b, torch.Generator(device=dev).manual_seed(300))
+    one_dsg = ({k: float(v) for k, v in dmet.items()},
+               {k: v.detach().cpu().clone() for k, v in dsg.state_dict().items()})
+    del dsg, dst, batch_b
+
+    # ---- (a) + (b): 2 gloo ranks on the card, the model sliced over them ----
+    work = os.path.join(root, "p17_ranks")
+    os.makedirs(work, exist_ok=True)
+    torch.save({"batch": {k: v.cpu() for k, v in vars(batch).items()}, "labels_b": labels_b,
+                "dist_b": dist_b}, os.path.join(work, "in.pt"))
+    peak_reset()
+    conf = {"device": dev.type, "feat": FEAT, "steps": P16_STEPS, "lr": P16_LR,
+            "timeout": P16_TIMEOUT_S}
+    t0 = time.perf_counter()
+    pd.join_processes(mp.start_processes(
+        p17_rank, args=(P17_RANKS, f"file://{os.path.join(work, 'store')}", work, conf),
+        nprocs=P17_RANKS, join=False, start_method="spawn"), timeout_s=P16_TIMEOUT_S * 2)
+    ranks_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(P17_RANKS)]
+    final = torch.load(os.path.join(work, "final_sttran.pt"))
+    worst, name, buf = p16_params_apart(final, one_sd, P16_STEPS)
+    loss_rel = max(abs(a["total"] - b["total"]) / abs(b["total"])
+                   for a, b in zip(res[0]["losses"], one_losses))
+    same = len({x["digest"] for x in res}) == 1 and len({x["dsg_digest"] for x in res}) == 1
+    full_bytes = {"params": 4 * n_params, "grads": 4 * n_params, "adamw": one_adamw}
+    rank_bytes = [x["resident"] for x in res]
+    comm = res[0]["comm"][-1]
+    two_ms = [max(a, b) for a, b in zip(res[0]["ms"], res[1]["ms"])]
+    want = {"fwd": 4 * P16_STEPS, "bwd_dq": 4 * P16_STEPS, "bwd_dkv": 4 * P16_STEPS}
+    log(f"phase 17 (a) the model axis, mesh 1 x {P17_RANKS} (gloo ranks sharing the card, "
+        f"backends {[x['backend'] for x in res]}, (data index, model index, data size) "
+        f"{[x['mesh'] for x in res]}): {P16_STEPS} bf16 train steps on all {B} videos, "
+        f"losses {[round(x['total'], 5) for x in res[0]['losses']]} against one process's "
+        f"{[round(x['total'], 5) for x in one_losses]} (largest relative difference "
+        f"{loss_rel:.2e}, tol {P16_LOSS_RTOL}); the gathered parameters apart by at most "
+        f"{worst:.3e} at {name} (tol {P16_PARAM_ATOL:.1e}); BatchNorm buffers {buf:.2e} of "
+        f"their magnitude (tol {P16_BUF_REL}); every rank's gathered state equal: {same}; "
+        f"launches a rank {res[0]['launches_steps']}; {ranks_s:.3f} s for the spawned ranks")
+    log(f"phase 17 (a) resident bytes a rank (parameters, gradients, AdamW moments): "
+        f"{rank_bytes} against one process's {full_bytes} ({n_params} parameters); "
+        f"{sum(rank_bytes[0].values()) / sum(full_bytes.values()):.4f} of one process's; "
+        f"peak device memory a rank {[round(x['peak'] / 2**30, 3) for x in res]} GiB, one "
+        f"process {one_peak / 2**30:.3f} GiB")
+    log(f"phase 17 (a) collectives a step a rank: gathered {comm['gather_bytes']} bytes in "
+        f"{comm['gathers']} all-gathers, all-reduced {comm['allreduce_bytes']} bytes in "
+        f"{comm['allreduces']} all-reduces (the model group), DDP all-reduced "
+        f"{res[0]['ddp_bytes']:.0f} bytes (a data group of one rank); ms a step "
+        f"{[round(x, 3) for x in two_ms]} (both ranks on one card over gloo: not a speed "
+        f"figure) beside one process's {[round(x, 3) for x in one_ms]}; card {card}")
+    if loss_rel > P16_LOSS_RTOL or worst > P16_PARAM_ATOL or buf > P16_BUF_REL or not same \
+            or any(x["skipped"] for x in res) or res[0]["launches_steps"] != want \
+            or not sum(rank_bytes[0].values()) < sum(full_bytes.values()):
+        fail("phase 17 (a): the 1 x 2 steps differ from the one-process steps, or the ranks "
+             "disagree")
+    final = torch.load(os.path.join(work, "final_dsg.pt"))
+    dworst, dname, dbuf = p16_params_apart(final, one_dsg[1], 1)
+    dloss = abs(res[0]["dsg"][0]["total"] - one_dsg[0]["total"]) / abs(one_dsg[0]["total"])
+    log(f"phase 17 (b) one DSG-DETR sgdet step on set (b), mesh 1 x {P17_RANKS}: loss "
+        f"{res[0]['dsg'][0]['total']:.5f} against one process's {one_dsg[0]['total']:.5f} "
+        f"(relative {dloss:.2e}, tol {P16_LOSS_RTOL}); parameters apart by at most "
+        f"{dworst:.3e} at {dname} (tol {P16_PARAM_ATOL / P16_STEPS:.1e}), buffers {dbuf:.2e}; "
+        f"launches a rank {res[0]['launches_dsg']}")
+    if dloss > P16_LOSS_RTOL or dworst > P16_PARAM_ATOL / P16_STEPS or dbuf > P16_BUF_REL \
+            or any(x["dsg"][1] for x in res) \
+            or res[0]["launches_dsg"] != {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}:
+        fail("phase 17 (b): the 1 x 2 DSG-DETR step differs from the one-process step")
+    for x in res:
+        add(x["launches_steps"], True)
+        add(x["launches_dsg"], True, "_dsg_detr")
+    del final, one_sd, one_dsg, res
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ---- (d) remat on and off, dropout on ----
+    runs = {}
+    for remat in (False, True):
+        m = STTran(generator=torch.Generator().manual_seed(0), remat=remat,
+                   **dict(kw, dropout=RATE))
+        st = create_train_state(m, lr=P16_LR)
+        step = make_train_step(m, st.optimizer)
+        g = torch.Generator(device=dev).manual_seed(500)
+        peak_reset()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        ma.reset_launches()
+        t0 = time.perf_counter()
+        st, met = step(st, batch, g)
+        p16_sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step_peak = (torch.cuda.max_memory_allocated() if cuda else 0) - base
+        launched = dict(ma.LAUNCHES)
+        # the remat region alone: the relation transformer over the step's own
+        # relation features, its activations held after the forward and its
+        # peak through the backward
+        with torch.no_grad():
+            rel = relation_features(m, batch, batch.labels, False)
+        rel.requires_grad_()
+        m.zero_grad(set_to_none=True)
+        peak_reset()
+        base = torch.cuda.memory_allocated() if cuda else 0
+        out = m.glocal_transformer(rel, batch.im_idx, batch.rel_mask,
+                                   generator=torch.Generator(device=dev).manual_seed(501))
+        held = (torch.cuda.memory_allocated() if cuda else 0) - base
+        out.float().square().mean().backward()
+        p16_sync(dev)
+        region = (torch.cuda.max_memory_allocated() if cuda else 0) - base
+        runs[remat] = ({k: float(v) for k, v in met.items()},
+                       {k: v.detach().cpu().clone() for k, v in m.state_dict().items()},
+                       g.get_state(), step_peak, launched, step_ms, held, region)
+        del m, st, step, rel, out
+    (dl, dsd, dg, dpeak, dlaunch, dms, dheld, dregion) = runs[False]
+    (rl, rsd, rg, rpeak, rlaunch, rms, rheld, rregion) = runs[True]
+    rworst, rname, rbuf = p16_params_apart(rsd, dsd, 1)
+    same_g = torch.equal(dg, rg)
+    gib = 2.0 ** 30
+    log(f"phase 17 (d) remat, one bf16 train step at B={B} x {N_FRAMES} frames, dropout "
+        f"{RATE}, one generator seed: losses {rl['total']:.6f} (dense {dl['total']:.6f}, equal "
+        f"{rl == dl}); parameters apart by at most {rworst:.3e} at {rname} (tol "
+        f"{P17_REMAT_ATOL:.1e}), buffers {rbuf:.2e}; generator state equal {same_g}; "
+        f"launches {rlaunch} with remat (the 3 wrapped layers' forwards run again in the "
+        f"backward), {dlaunch} without; ms a step {rms:.3f} / {dms:.3f} (first steps of fresh "
+        f"models)")
+    log(f"phase 17 (d) device memory above the resident state (torch.cuda.max_memory_allocated "
+        f"after reset_peak_memory_stats), remat / dense: the train step's peak "
+        f"{rpeak / gib:.3f} / {dpeak / gib:.3f} GiB (its peak sits outside the wrapped layers); "
+        f"the relation transformer over the step's relation features: activations held after "
+        f"its forward {rheld / gib:.3f} / {dheld / gib:.3f} GiB, peak through its backward "
+        f"{rregion / gib:.3f} / {dregion / gib:.3f} GiB")
+    want_d = {"fwd": 4, "bwd_dq": 4, "bwd_dkv": 4}
+    if rl != dl or not same_g or rworst > P17_REMAT_ATOL or rbuf > 1e-5 \
+            or not (rheld < dheld and rregion < dregion) or dlaunch != want_d \
+            or rlaunch != dict(want_d, fwd=7):
+        fail("phase 17 (d): the remat step differs from the dense step, or saves no memory")
+    add(dlaunch, True)
+    add(rlaunch, True)
+    del runs, dsd, rsd
+
+    # ---- (e) roi_pool on the card against the CPU, RoIAlign beside it ----
+    g = torch.Generator(device=dev).manual_seed(17)
+    fmap = torch.randn(38, 64, 1024, generator=g, device=dev)
+    rois, fidx = path_rois(g, 1, 300, 38, 64, dev)
+    got = ra.roi_pool(fmap, rois)
+    p16_sync(dev)
+    want_e = ra.roi_pool(fmap.cpu(), rois.cpu())
+    exact = torch.equal(got.cpu(), want_e)
+    pms = cuda_ms(lambda: ra.roi_pool(fmap, rois), iters=5) if cuda else 0.0
+    ra.reset_launches()
+    aligned = ra.roi_align_frames(fmap[None], rois, fidx)
+    p16_sync(dev)
+    a_launch = ra.LAUNCHES["roi_align"]
+    aerr = float((aligned.cpu() - ra.roi_align_reference(fmap[None].cpu(), rois.cpu(),
+                                                         fidx.cpu())).abs().max())
+    amag = float(aligned.abs().max())
+    log(f"phase 17 (e) roi_pool (plain torch, the JAX package's XLA function) on the card, "
+        f"map (38, 64, 1024) float32, {rois.shape[0]} rois, 7 x 7: equal to the CPU result "
+        f"{exact}, {pms:.3f} ms; roi_align_frames on the same rois (the RoIAlign kernel, "
+        f"{a_launch} launch): max_abs_err {aerr:.3e} (tol {DET_KERNEL_REL:.0e} of {amag:.3f})")
+    if not exact or a_launch != 1 or aerr > DET_KERNEL_REL * amag \
+            or not bool(got.isfinite().all()):
+        fail("phase 17 (e): roi_pool on the card differs from the CPU, or RoIAlign from its "
+             "plain version")
+    counts["roi_align"] = counts.get("roi_align", 0) + a_launch
+    del fmap, rois, got, aligned, batch
+
+    # ---- (c) run_training with the model axis, 1 epoch ----
+    out = os.path.join(root, "p17_run")
+    cfg = load_config(None, {
+        "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
+        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+        "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": P17_RUN_DTYPE,
+        "batch_videos": B, "num_workers": 4, "remove_one_frame_video": False,
+        "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
+        "nepoch": 1, "save_path": out, "mesh": {"data": 1, "model": P17_RANKS},
+        "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
+    os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
+    peak_reset()
+    t0 = time.perf_counter()
+    ts.run_training(cfg, types.SimpleNamespace(
+        max_videos=P17_RUN_VIDEOS, device=None if cuda else "cpu"), p16_build_model)
+    p16_sync(dev)
+    run_s = time.perf_counter() - t0
+    ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "epoch" in r]
+    log_txt = open(os.path.join(out, "log.txt")).read()
+    launches = []
+    for r in range(P17_RANKS):
+        with open(os.path.join(out, f"launches{r}.json")) as f:
+            launches.append(json.load(f))
+    one = ts.build_model(cfg, schema.load_taxonomy(), dev)       # never sharded
+    st = restore_checkpoint(os.path.join(out, "ckpt"), create_train_state(one))
+    ds_test = AGTest(os.path.join(ag, "annotations"))
+    n_test = min(P17_RUN_VIDEOS, len(ds_test))
+    ev = evaluate_epoch(st.model, grounded_batches(
+        lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets), ds_test.gt_annotations,
+        range(n_test), B, 4, ordered=True), device=dev, zero_union=True)
+    diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
+    steps = min(P17_RUN_VIDEOS, AG_VIDEOS) // B
+    eval_batches = -(-n_test // B)      # every rank of the one model group scores them all
+    want_c = {"fwd": 4 * steps + 4 * eval_batches, "bwd_dq": 4 * steps, "bwd_dkv": 4 * steps}
+    log(f"phase 17 (c) run_training, mesh 1 x {P17_RANKS} (its own ranks on the card, gloo), "
+        f"{P17_RUN_DTYPE}, {min(P17_RUN_VIDEOS, AG_VIDEOS)} of the {AG_VIDEOS} videos x "
+        f"{N_FRAMES} frames and {n_test} test videos, 1 epoch: {run_s:.3f} s wall (spawn, "
+        f"datasets, models sliced, {steps} steps, the eval, a checkpoint gathered by the model group and "
+        f"written by the primary); checkpoints {ckpt}; mean R@20 {epochs[-1]['mean_r20']:.6f} "
+        f"against the checkpoint restored into a 1 x 1 model {ev.mean_score(20):.6f} "
+        f"(difference {diff:.2e}, tol {P16_R20_ATOL}); launches a rank {launches}; card {card}")
+    if ckpt != ["0", "0.meta.json", "configs.json"] or [r["epoch"] for r in epochs] != [0] \
+            or "model axis: 2 ranks a replica" not in log_txt or "process 1/2" in log_txt \
+            or diff > P16_R20_ATOL or any(x != want_c for x in launches):
+        fail("phase 17 (c): run_training with the model axis did not train, evaluate and "
+             f"checkpoint as expected (launches {launches}, expected {want_c} a rank)")
+    for x in launches:
+        add({"fwd": 4 * steps, "bwd_dq": x["bwd_dq"], "bwd_dkv": x["bwd_dkv"]}, True)
+        add({"fwd": x["fwd"] - 4 * steps, "bwd_dq": 0, "bwd_dkv": 0}, False)
+    del st, one, ev
+    shutil.rmtree(out, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"phase 17 launches by kernels row: {counts}")
+    log(f"model axis phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -4795,12 +5252,14 @@ def main() -> None:
     # ---- 13. the data path: Action Genome on disk -> grounding -> training, ----
     # ---- 14. then the entry points on the same dataset ----
     torch.cuda.empty_cache()
-    p14, p16 = {}, {}
+    p14, p16, p17 = {}, {}, {}
 
-    def on_dataset(ag, root):   # phase 14, then phase 16 on the same dataset
+    def on_dataset(ag, root):   # phase 14, then phases 16 and 17 on the same dataset
         p14.update(entry_point_phases(dev, card, ag, root))
         torch.cuda.empty_cache()
         p16.update(parallel_phases(dev, card, entries, ag, root))
+        torch.cuda.empty_cache()
+        p17.update(model_axis_phases(dev, card, entries, ag, root))
     data_phases(dev, card, det16, then=on_dataset)
     del det16
 
@@ -4808,7 +5267,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     p15, clip_rows = offline_phases(dev, card)
 
-    # ---- 17. result lines ----
+    # ---- 18. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),
@@ -4817,10 +5276,11 @@ def main() -> None:
                attention_row("masked_mha_bwd_dkv", 157, train_launches[True]["bwd_dkv"],
                              train_rows["bwd_dkv"])]
     kernels += det_rows + probe_rows + dsg_rows + clip_rows
-    for row in kernels:       # phases 14's, 15's and 16's launches, 0 off their paths
+    for row in kernels:       # phases 14's to 17's launches, 0 off their paths
         row["launches_entry_points"] = p14.get(row["name"], 0)
         row["launches_offline"] = p15.get(row["name"], 0)
         row["launches_parallel"] = p16.get(row["name"], 0)
+        row["launches_model_axis"] = p17.get(row["name"], 0)
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

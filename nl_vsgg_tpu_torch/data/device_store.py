@@ -18,6 +18,9 @@ owning rank, row). `plan_batches` plans shard-balanced batches, batch_size
 / n videos stored on each rank, in rank order, the same plan on every rank;
 `gather` returns the rank's block. The over-budget decision is all-reduced:
 if one rank streamed while another gathered, the ranks would deadlock.
+The shards run over the data axis: under a mesh with a model axis the ranks
+of one model group hold the same blocks (the JAX store replicates across
+the model column), so "rank" above is the data index.
 
 `budget_bytes` caps the store (the rank's resident bytes); past it
 `overflow` is set and callers stream the remaining videos as usual: the
@@ -61,7 +64,8 @@ class DeviceEntryStore:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.budget = budget_bytes
         self._dist = dist_mod
-        self.D, self.me = dist_mod.world_size(), dist_mod.rank()
+        # the data axis: the ranks of one model group hold the same block
+        self.D, self.me = dist_mod.data_size(), dist_mod.data_index()
         # the rank's appended batches per bucket, concatenated at the next gather
         self._chunks: dict[tuple, list[Entry]] = {}
         self._nrows: dict[tuple, list[int]] = {}    # rows per bucket and rank

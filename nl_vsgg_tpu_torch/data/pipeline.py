@@ -127,10 +127,11 @@ class GroundingPrefetcher:
 def bucket_events(pairs: Iterator[tuple[int, Entry | None]], batch_size: int
                   ) -> Iterator[tuple[str, int | list[tuple[int, Entry]]]]:
     """Shared bucket-batching event stream for (index, Entry|None) iterators
-    (one definition for the train epoch and the epoch eval): yields ("skip",
-    index) for None entries and ("batch", [(index, entry), ...]) whenever a
-    same-shape bucket reaches `batch_size`, flushing leftovers at the end —
-    at most one pending batch per bucket, so host memory stays bounded."""
+    (one definition for the train epoch, the epoch eval and
+    `bucket_batches`): yields ("skip", index) for None entries and
+    ("batch", [(index, entry), ...]) whenever a same-shape bucket reaches
+    `batch_size`, flushing leftovers at the end — at most one pending batch
+    per bucket, so host memory stays bounded."""
     pending: dict[tuple[int, int], list[tuple[int, Entry]]] = defaultdict(list)
     for i, e in pairs:
         if e is None:
@@ -159,3 +160,12 @@ class DoubleBuffer:
     def flush(self):
         prev, self._pending = self._pending, None
         return prev
+
+
+def bucket_batches(entries: Iterator[tuple[int, Entry | None]],
+                   batch_size: int) -> Iterator[list[Entry]]:
+    """Group same-bucket Entries into batches of `batch_size`, the leftovers
+    flushed at the end (nl_vsgg_tpu/data/pipeline.py::bucket_batches)."""
+    for kind, payload in bucket_events(entries, batch_size):
+        if kind == "batch":
+            yield [e for _, e in payload]

@@ -149,14 +149,17 @@ def start_fetch(out: dict, device: torch.device, keys: Sequence[str] = EVAL_KEYS
 
 
 def grounded_batches(get_entry: Callable[[int], Entry | None], gt_annotations: Sequence,
-                     indices: Iterable[int], batch_videos: int, num_workers: int = 4
-                     ) -> Iterator[list[tuple[list, Entry | None]]]:
+                     indices: Iterable[int], batch_videos: int, num_workers: int = 4,
+                     ordered: bool = False) -> Iterator[list[tuple[list, Entry | None]]]:
     """`evaluate_epoch`'s input as the training tool builds it
     (tools/train_STTran.py:400-509): `get_entry(i)` grounds test video i on
     `num_workers` prefetch threads; Entries are grouped into same-bucket
     batches of `batch_videos` (`bucket_events`); a video that grounds to
-    None comes as a batch of its own, as it arrives."""
-    prefetcher = GroundingPrefetcher(get_entry, list(indices), num_workers=num_workers)
+    None comes as a batch of its own, as it arrives. `ordered` takes the
+    videos in `indices`' order, whatever the workers' timing: the ranks of
+    one model group (parallel/tensor.py) must forward the same batches."""
+    prefetcher = GroundingPrefetcher(get_entry, list(indices), num_workers=num_workers,
+                                     ordered=ordered)
     for kind, payload in bucket_events(iter(prefetcher), batch_videos):
         if kind == "skip":
             yield [(gt_annotations[payload], None)]

@@ -36,7 +36,8 @@ from torch import nn
 from ..data.entry import Entry
 from ..device import resolve_device
 from ..ops.boxes import center_size
-from .layers import MaskedBatchNorm, TorchEncoderLayer, dropout, sinusoidal_position_table
+from .layers import (MaskedBatchNorm, TorchEncoderLayer, dropout, remat,
+                     sinusoidal_position_table)
 from .sttran import (REL_DIM, ObjectClassifierWK, _Stack, _take, add_fusion_layers,
                      add_relation_heads, init_weights, relation_features, relation_heads)
 
@@ -149,19 +150,21 @@ class DSGDETR(nn.Module):
     `generator` (default: a generator seeded 0); `glove_obj36` (36 x 200)
     and `glove_obj37` (37 x 200) replace the drawn class embeddings, as the
     JAX module's initializers take them. `dropout` is the rate of every
-    dropout (0.1 in the JAX model)."""
+    dropout (0.1 in the JAX model). `remat` (cfg.remat) recomputes every
+    local and global encoder layer in the backward (layers.remat), as the
+    JAX module's `nn.remat` does."""
 
     def __init__(self, mode: str = "sgdet", attention_class_num: int = 3,
                  spatial_class_num: int = 6, contact_class_num: int = 17,
                  obj_classes=(), feat_dim: int = 2048, enc_layer_num: int = 1,
                  dec_layer_num: int = 3, dtype=None, fused: bool = True,
-                 glove_obj36=None, glove_obj37=None, dropout: float = 0.1, device=None,
-                 generator: torch.Generator | None = None):
+                 glove_obj36=None, glove_obj37=None, dropout: float = 0.1,
+                 remat: bool = False, device=None, generator: torch.Generator | None = None):
         super().__init__()
         if mode not in ("sgdet", "sgcls", "predcls"):
             raise ValueError(f"mode {mode!r}")
         device = resolve_device(device)
-        self.mode, self.dtype = mode, dtype
+        self.mode, self.dtype, self.remat = mode, dtype, remat
         num_classes = max(len(obj_classes), 37)
         if mode == "sgdet":
             self.object_classifier = ObjectClassifierWK(num_classes, feat_dim, dropout)
@@ -228,16 +231,21 @@ class DSGDETR(nn.Module):
 
         h, frame_of, obj_cls, ranks = self.segment_inputs(entry, train)
         rm = entry.rel_mask
+
+        def run(layer, x, allow):
+            return (remat(layer, x, allow, generator=g) if self.remat
+                    else layer(x, allow, generator=g))
+
         # ---- local: the relations of one frame (lib/dsg_detr.py:536-543) ----
         allow_s = _same_group(frame_of, rm)
         for layer in self.local_transformer.layers:
-            h = layer(h, allow_s, generator=g)
+            h = run(layer, h, allow_s)
         h = torch.where(rm[..., None], h, 0.0)
 
         # ---- global: the relations of one object class (:545-564) ----
         allow_t = _same_group(obj_cls, rm)
         h = self.positional_encoder(h, ranks, g)
         for layer in self.global_transformer.layers:
-            h = layer(h, allow_t, generator=g)
+            h = run(layer, h, allow_t)
         glob = torch.where(rm[..., None], h, 0.0).float()
         return relation_heads(self, glob, out)

@@ -25,6 +25,19 @@ it, hashed per (head, query, key) inside the attention op
 video with its own statistics (the JAX step vmaps per video) and keeps the
 per-video running updates pending until the train step commits their
 validity-weighted mean (`commit`) or drops them (`discard`).
+
+Tensor parallel (parallel/tensor.py). A layer that `shard_module` sliced
+holds the rank's output rows: `linear` and MaskedMHA's projections then
+run copy-in -> the local F.linear -> gather-out, so the attention core and
+everything after a projection see the full tensors.
+
+Remat (`remat`): a layer's activations are recomputed in the backward
+(`torch.utils.checkpoint`, non-reentrant), the JAX package's `nn.remat`.
+The layers draw their dropout from an explicit generator, which the
+checkpoint's `preserve_rng_state` does not cover: `remat` saves that
+generator's state at the layer's entry, runs the recomputation from it and
+puts the generator back where it was, so the recomputation draws the same
+bits and the generator ends where it would without remat.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import masked_attention
+from ..parallel import tensor as tensor_parallel
 
 
 def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
@@ -54,8 +68,37 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype=None) -> torch.Tensor:
-    """nn.Linear in the compute dtype (weights cast per call; params stay fp32)."""
-    return F.linear(_cast(x, dtype), _cast(layer.weight, dtype), _cast(layer.bias, dtype))
+    """nn.Linear in the compute dtype (weights cast per call; params stay
+    fp32); a column-parallel layer's output gathered."""
+    x, w, b = _cast(x, dtype), _cast(layer.weight, dtype), _cast(layer.bias, dtype)
+    if isinstance(layer, tensor_parallel.ColumnParallelLinear):
+        return tensor_parallel.column_linear(x, w, b, layer.tp)
+    return F.linear(x, w, b)
+
+
+def remat(fn: Callable, *args, generator: torch.Generator | None = None, **kwargs):
+    """fn(*args, generator=generator, **kwargs) with its activations
+    recomputed in the backward, the recomputation drawing what the first
+    run drew from `generator`. Without gradients: fn itself."""
+    from torch.utils.checkpoint import checkpoint
+
+    if not torch.is_grad_enabled():
+        return fn(*args, generator=generator, **kwargs)
+    start = None if generator is None else generator.get_state()
+    runs = []
+
+    def body(*a, **kw):
+        if not runs or generator is None:
+            runs.append(1)
+            return fn(*a, generator=generator, **kw)
+        now = generator.get_state()         # the recomputation, in the backward
+        generator.set_state(start)
+        try:
+            return fn(*a, generator=generator, **kw)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype=None) -> torch.Tensor:
@@ -79,6 +122,8 @@ class MaskedMHA(nn.Module):
     runs the plain version. Both drop the probabilities out with the same
     hashed mask, so they agree with dropout on."""
 
+    tp: tensor_parallel.TP | None = None   # set by shard_module: the rank's rows
+
     def __init__(self, embed_dim: int, num_heads: int, dtype=None, fused: bool = True,
                  dropout: float = 0.0):
         super().__init__()
@@ -89,24 +134,31 @@ class MaskedMHA(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
+    def _in_proj(self, x, lo: int, hi: int, bias: bool = True):
+        """x through q, k, v's blocks lo .. hi - 1 (the rank's rows of each
+        under tensor parallel, gathered), (..., (hi - lo) E)."""
+        dt, tp = self.dtype, self.tp
+        e = self.embed_dim // (tp.size if tp is not None else 1)   # a block's rows here
+        w = _cast(self.in_proj_weight[lo * e:hi * e], dt)
+        b = _cast(self.in_proj_bias[lo * e:hi * e], dt) if bias else None
+        if tp is not None:
+            return tensor_parallel.column_linear(_cast(x, dt), w, b, tp, hi - lo)
+        return F.linear(_cast(x, dt), w, b)
+
     def _proj(self, x, lo: int, hi: int):
-        E, dt = self.embed_dim, self.dtype
-        w = self.in_proj_weight[lo * E:hi * E]
-        b = self.in_proj_bias[lo * E:hi * E]
-        return F.linear(_cast(x, dt), _cast(w, dt), _cast(b, dt)).split(E, dim=-1)
+        return self._in_proj(x, lo, hi).split(self.embed_dim, dim=-1)
 
     def heads(self, q_in: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor,
               dup2_pos: torch.Tensor | None = None):
         """The projected q, k, v as (B, L, H, D) views: the attention core's
         inputs."""
-        E, H, dt = self.embed_dim, self.num_heads, self.dtype
+        E, H = self.embed_dim, self.num_heads
         if dup2_pos is not None:
             if not (q_in is k_in and k_in is v_in):
                 raise ValueError("dup2_pos needs q_in is k_in is v_in")
             xq, xk, xv = self._proj(q_in, 0, 3)
-            pos = _cast(dup2_pos, dt)
-            pq = F.linear(pos, _cast(self.in_proj_weight[:E], dt))
-            pk = F.linear(pos, _cast(self.in_proj_weight[E:2 * E], dt))
+            pq = self._in_proj(dup2_pos, 0, 1, bias=False)
+            pk = self._in_proj(dup2_pos, 1, 2, bias=False)
             q = torch.cat([xq + pq[0], xq + pq[1]], dim=-2)
             k = torch.cat([xk + pk[0], xk + pk[1]], dim=-2)
             v = torch.cat([xv, xv], dim=-2)

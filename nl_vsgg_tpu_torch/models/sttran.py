@@ -37,7 +37,7 @@ from ..device import resolve_device
 from ..ops.boxes import center_size
 from ..ops.union_masks import draw_union_boxes
 from .layers import (MaskedBatchNorm, MaskedDecoderLayer, MaskedEncoderLayer,
-                     MaskedMHA, _cast, dropout, linear)
+                     MaskedMHA, _cast, dropout, linear, remat)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -137,16 +137,20 @@ class STTranTransformer(nn.Module):
 
     mode 'latter' (shipped) or 'both'; variant 'wk' (shipped) or 'org',
     which differ only on window-less videos (all relations in frame 0):
-    wk passes the spatial encoder output through, org returns zeros."""
+    wk passes the spatial encoder output through, org returns zeros.
+    `remat` recomputes the encoder and decoder layers in the backward
+    (layers.remat), as the JAX module's `nn.remat` does, with its
+    exception: the 'latter' mode's last decoder layer, which takes `kv=` /
+    `pos_kv=`, stays as it is (nl_vsgg_tpu/models/sttran.py:203-214)."""
 
     def __init__(self, embed_dim: int = 1936, num_heads: int = 8,
                  dim_feedforward: int = 2048, enc_layers: int = 1, dec_layers: int = 3,
                  mode: str = "latter", variant: str = "wk", dtype=None, fused: bool = True,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, remat: bool = False):
         super().__init__()
         if mode not in ("latter", "both") or variant not in ("wk", "org"):
             raise ValueError(f"mode {mode!r} / variant {variant!r}")
-        self.mode, self.variant = mode, variant
+        self.mode, self.variant, self.remat = mode, variant, remat
         self.position_embedding = nn.Embedding(2, embed_dim)
         self.local_attention = _Stack(
             MaskedEncoderLayer(embed_dim, num_heads, dim_feedforward, dtype, fused, dropout)
@@ -167,11 +171,15 @@ class STTranTransformer(nn.Module):
         def pairs(a, b):  # (B, Q), (B, K) -> (B, Q, K)
             return a[:, :, None] & b[:, None, :]
 
+        def run(layer, *args, **kw):  # the encoder and square decoder layers
+            return (remat(layer, *args, generator=g, **kw) if self.remat
+                    else layer(*args, generator=g, **kw))
+
         # ---- spatial encoder: attention within the same frame ----
         allow_s = (im_idx[:, :, None] == im_idx[:, None, :]) & pairs(rm, rm)
         local = rel_features
         for layer in self.local_attention.layers:
-            local = layer(local, allow_s, generator=g)
+            local = run(layer, local, allow_s)
         local = torch.where(rm[..., None], local, 0.0)
 
         # ---- temporal decoder over duplicated former/latter streams ----
@@ -191,8 +199,8 @@ class STTranTransformer(nn.Module):
         def run_square(layers):
             toks = torch.cat([local, local], dim=-2)
             for i, layer in enumerate(layers):
-                toks = (layer(local, pe, allow_t, dup2=True, generator=g) if i == 0
-                        else layer(toks, pos, allow_t, generator=g))
+                toks = (run(layer, local, pe, allow_t, dup2=True) if i == 0
+                        else run(layer, toks, pos, allow_t))
             return toks
 
         if self.mode == "both":
@@ -208,8 +216,10 @@ class STTranTransformer(nn.Module):
             q_window = torch.where(is0, im_idx, im_idx - 1)
             q_valid = torch.where(is0, rm & (im_idx <= last_window), rm & (im_idx >= 1))
             allow_q = (q_window[:, :, None] == window[:, None, :]) & pairs(q_valid, valid)
-            out = dec[-1](q_tokens, pe[is0.logical_not().long()], allow_q,
-                          kv=tokens, pos_kv=pos, generator=g)
+            # each row's slot embedding by `where`, not an index: the index's
+            # backward accumulates into pe's 2 rows in no fixed order
+            q_pos = torch.where(is0[..., None], pe[0], pe[1])
+            out = dec[-1](q_tokens, q_pos, allow_q, kv=tokens, pos_kv=pos, generator=g)
         # no windows (all relations in frame 0): wk passes the spatial output
         # through, org returns its zeros-initialized buffer
         fallback = local if self.variant == "wk" else torch.zeros_like(local)
@@ -227,14 +237,15 @@ class STTran(nn.Module):
     (None = float32); the object classifier and the heads stay float32.
     Weights are drawn from `generator` (default: a generator seeded 0).
     `dropout` is the rate of every dropout (the JAX model's 0.1; 0 turns
-    dropout off in train mode)."""
+    dropout off in train mode). `remat` (cfg.remat) recomputes the temporal
+    stack's layers in the backward (STTranTransformer)."""
 
     def __init__(self, mode: str = "sgdet", attention_class_num: int = 3,
                  spatial_class_num: int = 6, contact_class_num: int = 17,
                  obj_classes=(), enc_layer_num: int = 1, dec_layer_num: int = 3,
                  feat_dim: int = 2048, transformer_fusion: str = "latter",
                  transformer_variant: str = "wk", dtype=None, fused: bool = True,
-                 dropout: float = 0.1, device=None,
+                 dropout: float = 0.1, remat: bool = False, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
@@ -246,7 +257,7 @@ class STTran(nn.Module):
         self.glocal_transformer = STTranTransformer(
             embed_dim=REL_DIM, enc_layers=enc_layer_num, dec_layers=dec_layer_num,
             mode=transformer_fusion, variant=transformer_variant, dtype=dtype, fused=fused,
-            dropout=dropout)
+            dropout=dropout, remat=remat)
         add_relation_heads(self, attention_class_num, spatial_class_num, contact_class_num)
         init_weights(self, generator or torch.Generator().manual_seed(0))
         self.to(device)

@@ -19,7 +19,12 @@ arithmetic is float32 whatever the map's type; the output is in
 
 `roi_align` takes the plain version only for tensors on the CPU; on CUDA it
 launches the kernel or raises. `LAUNCHES["roi_align"]` counts launches;
-`reset_launches()` sets it to 0.
+`reset_launches()` sets it to 0. `roi_align_frames` is the JAX package's
+name for the stacked-map form (nl_vsgg_tpu/ops/roi_align.py:99).
+
+`roi_pool` is the legacy max RoIPool (nl_vsgg_tpu/ops/roi_align.py:117),
+which the JAX package computes in XLA, outside any Pallas kernel: its port
+is plain torch on the map's device, no hand kernel.
 
 The kernel runs one block a roi: the block puts each output bin's merged
 axis taps (ph row bins, pw column bins) in shared memory, then its threads
@@ -167,6 +172,57 @@ def roi_align(fmap: torch.Tensor, rois: torch.Tensor, frame_idx: torch.Tensor | 
     if rc != 0:
         raise RuntimeError(f"roi_align kernel launch failed: cudaError {rc}")
     LAUNCHES["roi_align"] += 1
+    return out
+
+
+def roi_align_frames(fmaps: torch.Tensor, rois: torch.Tensor, frame_idx: torch.Tensor,
+                     output_size: tuple[int, int] = (7, 7), spatial_scale: float = 1.0 / 16,
+                     sampling_ratio: int = 2) -> torch.Tensor:
+    """RoIAlign where roi i crops frame frame_idx[i] of the stacked (F, H,
+    W, C) maps: `roi_align` with the frame index required."""
+    return roi_align(fmaps, rois, frame_idx, output_size, spatial_scale, sampling_ratio)
+
+
+ROI_POOL_CHUNK = 32   # rois a step: bounds the gathered windows' memory
+
+
+def roi_pool(fmap: torch.Tensor, rois: torch.Tensor, output_size: tuple[int, int] = (7, 7),
+             spatial_scale: float = 1.0 / 16) -> torch.Tensor:
+    """Max RoIPool (fasterRCNN csrc ROIPool_cuda.cu) on one (H, W, C) map:
+    roi corners scaled and rounded half to even, bin edges floor / ceil of
+    the roi's integer extent, each bin the max over its window clipped to
+    the map, an empty bin 0. (R, ph, pw, C) in the map's dtype. The max is
+    separable: over each x bin's columns, then over each y bin's rows of
+    that, gathered window by window a chunk of rois at a time."""
+    H, W, C = fmap.shape
+    ph, pw = output_size
+    dev = fmap.device
+    out = fmap.new_empty((rois.shape[0], ph, pw, C))
+    q = torch.round(rois.float() * spatial_scale).long()
+
+    def edges(lo, hi, n, length):   # (R, n) bin starts and ends, clipped
+        size = (hi - lo + 1).clamp(min=1)[:, None]
+        b = torch.arange(n, device=dev)[None]
+        start = lo[:, None] + torch.div(b * size, n, rounding_mode="floor")
+        end = lo[:, None] - torch.div(-(b + 1) * size, n, rounding_mode="floor")
+        return start.clamp(0, length), end.clamp(0, length)
+
+    neg = torch.tensor(float("-inf"), dtype=fmap.dtype, device=dev)
+    for c0 in range(0, rois.shape[0], ROI_POOL_CHUNK):
+        r = q[c0:c0 + ROI_POOL_CHUNK].to(dev)
+        ys, ye = edges(r[:, 1], r[:, 3], ph, H)
+        xs, xe = edges(r[:, 0], r[:, 2], pw, W)
+        kx = int((xe - xs).max().clamp(min=1))
+        ky = int((ye - ys).max().clamp(min=1))
+        xi = xs[..., None] + torch.arange(kx, device=dev)          # (Rc, pw, kx)
+        yi = ys[..., None] + torch.arange(ky, device=dev)          # (Rc, ph, ky)
+        cols = fmap[:, xi.clamp(max=W - 1)]                         # (H, Rc, pw, kx, C)
+        cols = torch.where((xi < xe[..., None])[None, ..., None], cols, neg).amax(3)
+        cols = cols.permute(1, 0, 2, 3)                             # (Rc, H, pw, C)
+        rows = cols[torch.arange(r.shape[0], device=dev)[:, None, None],
+                    yi.clamp(max=H - 1)]                            # (Rc, ph, ky, pw, C)
+        best = torch.where((yi < ye[..., None])[..., None, None], rows, neg).amax(2)
+        out[c0:c0 + ROI_POOL_CHUNK] = torch.where(best.isfinite(), best, 0.0)
     return out
 
 

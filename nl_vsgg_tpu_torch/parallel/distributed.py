@@ -22,6 +22,14 @@ One process per rank over `torch.distributed`:
     lists after each rank scored its shard of the test split, so R@K
     equals one evaluation of the whole split.
 
+Under a mesh with a model axis (parallel/mesh.make_mesh, `model` > 1) rank
+r is data index r // model and model index r % model, as JAX lays out
+`devices.reshape(data, model)`. The ranks of one model group hold one
+replica between them, so every data-parallel rule keys on the data index
+and the data-axis size (`data_index`, `data_size`): the batcher's blocks,
+the store's shards, the eval split; `merge_evaluators` keeps the lists of
+the model-index-0 ranks only, or each video would count `model` times.
+
 Every collective runs under the group's explicit timeout (`timeout_s`, by
 default NL_VSGG_DIST_TIMEOUT_S or 600 s): a rank that dies leaves the
 others raising, not hanging. With no group every helper degrades to its
@@ -64,6 +72,7 @@ class _Group:
 
 
 _GROUP: _Group | None = None
+_MODEL_AXIS = {"size": 1}   # the mesh's model axis (make_mesh), 1 without one
 
 
 def rendezvous_url(coord: str) -> str:
@@ -181,6 +190,7 @@ def shutdown() -> None:
     if _GROUP is not None:
         dist.destroy_process_group()
         _GROUP = None
+    _MODEL_AXIS["size"] = 1
 
 
 def initialized() -> bool:
@@ -193,6 +203,30 @@ def rank() -> int:
 
 def world_size() -> int:
     return _GROUP.world if _GROUP is not None else 1
+
+
+def set_model_axis(model: int) -> None:
+    """Record the mesh's model-axis size (parallel/mesh.make_mesh)."""
+    if world_size() % model:
+        raise ValueError(f"model axis {model} does not divide {world_size()} ranks")
+    _MODEL_AXIS["size"] = model
+
+
+def model_size() -> int:
+    return _MODEL_AXIS["size"]
+
+
+def data_size() -> int:
+    """The data axis: the replicas that split each global batch."""
+    return world_size() // model_size()
+
+
+def data_index() -> int:
+    return rank() // model_size()
+
+
+def model_index() -> int:
+    return rank() % model_size()
 
 
 def rank_device() -> torch.device | None:
@@ -235,10 +269,12 @@ def all_reduce_host(values: np.ndarray, op: str = "sum") -> np.ndarray:
 
 def merge_evaluators(evaluator) -> None:
     """Merge per-rank SceneGraphEvaluator shards in place: every rank ends
-    with the whole split's per-video lists, in rank order."""
+    with the whole split's per-video lists, in data-index order. Under a
+    model axis the ranks of one model group scored the same videos: only
+    the model-index-0 rank's lists count."""
     state = (evaluator.recall, evaluator.recall_nogc, evaluator.semi_recall,
              evaluator.mean_recall.collect, evaluator.ng_mean_recall.collect)
-    all_states = allgather_obj(state)
+    all_states = allgather_obj(state)[::model_size()]
     if len(all_states) == 1:
         return
     for tgt_i, tgt in enumerate((evaluator.recall, evaluator.recall_nogc,
@@ -279,13 +315,13 @@ class DistributedBatcher:
         self.device_masks = device_masks
         self.rel_bf16 = rel_bf16
         self.num_workers = max(1, num_workers)
-        self.nproc, self.pid = world_size(), rank()
+        self.nproc, self.pid = data_size(), data_index()   # a model group shares a block
         self.device = resolve_device(device if device is not None else rank_device())
         if self.B % self.nproc:
             raise ValueError(
                 f"batch_videos={self.B} must be a multiple of the process "
-                f"count ({self.nproc}) so every process contributes the same "
-                f"number of videos per global batch")
+                f"count ({self.nproc} on the data axis) so every process contributes "
+                f"the same number of videos per global batch")
         data_axis = mesh.data if mesh is not None else self.nproc
         if self.B % data_axis:
             raise ValueError(

@@ -27,7 +27,7 @@ def build_model(cfg, tax, device=None) -> DSGDETR:
     return DSGDETR(mode=cfg.mode, obj_classes=tuple(tax.object_classes),
                    enc_layer_num=cfg.enc_layer, dec_layer_num=cfg.dec_layer,
                    feat_dim=cfg.feat_dim, glove_obj36=g36, glove_obj37=g37,
-                   dtype=compute_dtype(cfg), device=device,
+                   dtype=compute_dtype(cfg), remat=cfg.remat, device=device,
                    generator=torch.Generator().manual_seed(cfg.seed))
 
 

@@ -35,12 +35,23 @@ from the same checkpoint. With no coordinator, cfg.mesh.data = N > 1, or
 (`spawn_local_ranks`), one card each where the host has N cards and
 sharing them where it has fewer (the ranks then talk gloo), and returns
 the TrainState restored from the newest checkpoint. Each rank's step
-generator is seeded from (cfg.seed, step, rank).
+generator is seeded from (cfg.seed, step, data index).
+
+The model axis (cfg.mesh.model = M > 1): the ranks are cfg.mesh.data x M
+(spawned as above when no coordinator is given), rank r at data index r //
+M and model index r % M. Each model group of M ranks holds one replica
+between them, every wide Linear sliced by its output columns
+(parallel/tensor.shard_module, the JAX `_param_spec` rule); DDP, the
+batcher, the store and the eval split run over the data axis, and the
+ranks of a model group step the same videos with the same generator.
+Checkpoints hold the one-rank layout (utils/checkpoint.state_payload
+gathers, restore slices), so any mesh resumes any checkpoint. cfg.remat
+recomputes the relation transformer's layers in the backward (the models'
+`remat`).
 
 Refused, each with a ValueError naming why: sgcls / predcls training and
-non-wks sgdet (as the JAX tool refuses them), cfg.mesh.model > 1 (the
-model axis is not ported, parallel/mesh.ROADMAP_TP), cfg.remat (the port's
-models do not rematerialise).
+non-wks sgdet (as the JAX tool refuses them), a model axis below 1 or one
+that does not divide the width of a layer it shards.
 
 `ground_video(ds, idx, cfg, is_train, buckets, union_provider, on_truncate)`
 turns one video of an `AGTrain` / `AGTest` split into a padded Entry (or
@@ -85,10 +96,12 @@ from ..eval.epoch import DeviceEvalPromotion, evaluate_epoch, grounded_batches
 from ..eval.recall import SceneGraphEvaluator
 from ..models.sttran import STTran
 from ..parallel import distributed as pdist
-from ..parallel.mesh import ROADMAP_TP, data_parallel, make_mesh
+from ..parallel.mesh import data_parallel, make_mesh
+from ..parallel.tensor import check_widths, shard_module
 from ..train.state import PlateauScheduler, create_train_state, set_learning_rate
 from ..train.step import make_train_step, place_entries
-from ..utils.checkpoint import latest_step, load_meta, restore_checkpoint, save_checkpoint
+from ..utils.checkpoint import (latest_step, load_meta, restore_checkpoint, save_checkpoint,
+                                state_payload)
 from ..utils.config import load_config
 from ..utils.glove import obj_edge_vectors
 from ..utils.logging import MetricWriter, setup_logger
@@ -383,7 +396,7 @@ def build_model(cfg, tax, device=None) -> STTran:
     model = STTran(mode=cfg.mode, obj_classes=tuple(tax.object_classes),
                    enc_layer_num=cfg.enc_layer, dec_layer_num=cfg.dec_layer,
                    feat_dim=cfg.feat_dim, transformer_variant=cfg.transformer_mode,
-                   dtype=compute_dtype(cfg), device=device,
+                   dtype=compute_dtype(cfg), remat=cfg.remat, device=device,
                    generator=torch.Generator().manual_seed(cfg.seed))
     with torch.no_grad():
         if cfg.mode != "predcls":
@@ -407,12 +420,17 @@ def check_trainable(cfg, device: torch.device) -> None:
             f"mode={cfg.mode!r} training is not a shipped NL-VSGG recipe (the reference "
             "prints 'error! we do not train predcls and sgcls task!' and its GT-box train "
             "path cannot run); use tools/test_sttran for sgcls/predcls evaluation")
-    if cfg.mesh.model != 1:
-        raise ValueError(f"mesh model={cfg.mesh.model}: the model axis is not ported "
-                         f"({ROADMAP_TP}); use mesh model 1")
-    if cfg.remat:
-        raise ValueError("remat=true: the port's models do not rematerialise their layers "
-                         "(ROADMAP.md Queue 1 item 3); set remat false")
+    if cfg.mesh.model < 1:
+        raise ValueError(f"mesh model={cfg.mesh.model}: the model axis needs at least 1 rank")
+
+
+def check_model_axis(cfg, build_model_fn) -> None:
+    """Refuse a model axis that does not divide the output width of a layer
+    it would shard, before any work: the model is built on the meta device
+    (shapes only) and its widths read."""
+    if cfg.mesh.model > 1:
+        with torch.device("meta"):
+            check_widths(build_model_fn(cfg, schema.load_taxonomy(), "meta"), cfg.mesh.model)
 
 
 def step_generator(seed: int, step: int, device: torch.device,
@@ -426,15 +444,17 @@ def step_generator(seed: int, step: int, device: torch.device,
 
 
 def local_ranks(cfg, device: torch.device) -> int:
-    """How many ranks `run_training` starts itself: cfg.mesh.data when it is
-    above 1, or the card count for -1 on a host with more than one card;
-    1 when a coordinator or cfg.distributed makes this process one rank of
-    a group started elsewhere."""
+    """How many ranks `run_training` starts itself: cfg.mesh.data x
+    cfg.mesh.model, data -1 taking the host's cards (at least one model
+    group); 1 when a coordinator or cfg.distributed makes this process one
+    rank of a group started elsewhere."""
     if cfg.distributed or cfg.coordinator_address or os.environ.get(pdist.ENV_COORD):
         return 1
+    model = cfg.mesh.model
     if cfg.mesh.data == -1:
-        return torch.cuda.device_count() if device.type == "cuda" else 1
-    return max(cfg.mesh.data, 1)
+        cards = torch.cuda.device_count() if device.type == "cuda" else 1
+        return max(cards // model, 1) * model
+    return max(cfg.mesh.data, 1) * model
 
 
 def _local_rank_main(r: int, n: int, url: str, cfg, args, build_model_fn) -> None:
@@ -496,6 +516,7 @@ def run_training(cfg, args, build_model_fn):
     TrainState."""
     device = resolve_device(args.device)
     check_trainable(cfg, device)
+    check_model_axis(cfg, build_model_fn)
     n_local = local_ranks(cfg, device)
     if n_local > 1:
         return spawn_local_ranks(cfg, args, build_model_fn, n_local)
@@ -526,6 +547,10 @@ def run_training(cfg, args, build_model_fn):
     logger.info(f"train videos: {len(ds_train)}, test videos: {len(ds_test)}")
 
     model = build_model_fn(cfg, tax, device)
+    if multiproc and mesh.model > 1:   # the rank's columns of every wide Linear
+        model = shard_module(model, mesh)
+        logger.info(f"model axis: {mesh.model} ranks a replica, this rank data index "
+                    f"{mesh.data_index}, model index {mesh.model_index}")
     union_provider = make_union_provider(cfg, logger, device=device)
     # separate counters: eval-split truncations must not read as lost
     # training labels in the next epoch's warning
@@ -561,10 +586,11 @@ def run_training(cfg, args, build_model_fn):
         resume_meta = load_meta(ckpt_dir, resumed)
         start_epoch = resumed + 1
         logger.info(f"resumed from checkpoint epoch {resumed} (step {state.step})")
-    # under a group: DDP over the ranks (parameters broadcast from rank 0)
-    train_step = make_train_step(data_parallel(model) if multiproc else model,
+    # under a group: DDP over the data axis (parameters broadcast from its
+    # first rank); the ranks of one model group draw from one generator
+    train_step = make_train_step(data_parallel(model, mesh) if multiproc else model,
                                  state.optimizer, bce=cfg.bce_loss)
-    step_rank = pdist.rank() if multiproc else None
+    step_rank = pdist.data_index() if multiproc else None
     scheduler = PlateauScheduler(cfg.lr)
     if resume_meta and "scheduler" in resume_meta:
         # the decayed lr and the plateau history: without them the first
@@ -678,16 +704,21 @@ def run_training(cfg, args, build_model_fn):
             else:
                 promotion = DeviceEvalPromotion(cfg.device_eval_burnin, cfg.device_eval_recheck)
         evaluator = SceneGraphEvaluator(mode=cfg.mode, taxonomy=tax)
-        # under a group each rank scores its strided shard with its replica
-        my_idx = range(pdist.rank(), n_test, pdist.world_size()) if multiproc else range(n_test)
+        # under a group each data index scores its strided shard with its
+        # replica (the ranks of one model group score the same videos)
+        my_idx = (range(pdist.data_index(), n_test, pdist.data_size()) if multiproc
+                  else range(n_test))
+        # a model group's ranks gather inside every forward: one batch order
         batches = grounded_batches(lambda i: ground(ds_test, i, False), ds_test.gt_annotations,
-                                   my_idx, cfg.batch_videos, cfg.num_workers)
+                                   my_idx, cfg.batch_videos, cfg.num_workers,
+                                   ordered=pdist.model_size() > 1)
         evaluate_epoch(model, batches, evaluator=evaluator, device_recalls=device_recalls,
                        promotion=promotion, device=device, zero_union=zero_union)
         if multiproc:  # the whole split's lists on every rank, in rank order
             pdist.merge_evaluators(evaluator)
             if device_recalls is not None:
-                device_recalls = [d for shard in pdist.allgather_obj(device_recalls)
+                device_recalls = [d for shard in
+                                  pdist.allgather_obj(device_recalls)[::pdist.model_size()]
                                   for d in shard]
         if device_recalls:
             log_device_recalls(logger, device_recalls)
@@ -730,9 +761,12 @@ def run_training(cfg, args, build_model_fn):
         metrics.write(global_step, epoch=epoch, mean_r20=score, lr=new_lr)
         # after the eval and the plateau step, so a resume continues with the
         # epoch's scheduler decision applied (the sidecar holds the history)
+        # the one-rank layout: under a model axis the first model group gathers
+        payload = state_payload(state) if pdist.data_index() == 0 else None
         if primary:
             save_checkpoint(ckpt_dir, epoch, state, config_json=cfg.to_json(),
-                            extra={"scheduler": scheduler.state_dict()})
+                            extra={"scheduler": scheduler.state_dict()}, payload=payload)
+        del payload
         pdist.barrier()  # no rank runs ahead of the saved epoch
 
     metrics.close()

@@ -9,6 +9,12 @@ is optax.adamw's. A parameter that got no gradient (the union projection
 with the width-0 union sentinel) takes a zero gradient, as it does under
 JAX, so weight decay and the moments still step it.
 
+Under tensor parallel (parallel/tensor.py) a sharded parameter's gradient
+is the rank's slice: the clip's global norm sums those slices' squared
+norms over the model group and counts each replicated gradient once, so
+it is the norm over whole arrays, as optax takes it. AdamW is elementwise
+and steps each slice on its own rank.
+
 Schedule: torch's ReduceLROnPlateau, mode 'max', threshold_mode 'abs',
 stepped on the epoch score on the host (`PlateauScheduler`);
 `set_learning_rate` writes its lr into the optimizer.
@@ -26,9 +32,15 @@ class ClippedAdamW:
     """clip_by_global_norm(grad_clip_norm) -> AdamW, over `params`."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float = 1e-5,
-                 weight_decay: float = 1e-2, grad_clip_norm: float = 5.0):
+                 weight_decay: float = 1e-2, grad_clip_norm: float = 5.0,
+                 model_group=None, sharded: Iterable[torch.nn.Parameter] = ()):
+        """`sharded` are the parameters that hold a slice on each rank of
+        `model_group` (parallel/tensor.sharded_parameters)."""
         self.params = [p for p in params if p.requires_grad]
         self.grad_clip_norm = grad_clip_norm
+        ids = {id(p) for p in sharded}
+        self.model_group = model_group if ids else None
+        self.sharded = [id(p) in ids for p in self.params]
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
 
@@ -51,7 +63,17 @@ class ClippedAdamW:
         """Scale the gradients in place by min(1, grad_clip_norm / ||g||)
         (optax's clip_by_global_norm; no epsilon). Returns ||g|| before."""
         grads = self.grads()
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2.0)))
+        norms = torch.stack(torch._foreach_norm(grads, 2.0))
+        if self.model_group is None:
+            norm = torch.linalg.vector_norm(norms)
+        else:  # the slices' squares summed over the model group, the rest once
+            import torch.distributed as dist
+
+            sq = norms.float().square()
+            part = torch.tensor(self.sharded, device=sq.device)
+            split = torch.stack([sq[~part].sum(), sq[part].sum()])
+            dist.all_reduce(split[1:], group=self.model_group)
+            norm = split.sum().sqrt()
         torch._foreach_mul_(grads, (self.grad_clip_norm / norm).clamp(max=1.0))
         return norm
 
@@ -62,8 +84,9 @@ class ClippedAdamW:
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-5,
-                   weight_decay: float = 1e-2, grad_clip_norm: float = 5.0) -> ClippedAdamW:
-    return ClippedAdamW(params, lr, weight_decay, grad_clip_norm)
+                   weight_decay: float = 1e-2, grad_clip_norm: float = 5.0,
+                   model_group=None, sharded: Iterable[torch.nn.Parameter] = ()) -> ClippedAdamW:
+    return ClippedAdamW(params, lr, weight_decay, grad_clip_norm, model_group, sharded)
 
 
 @dataclasses.dataclass
@@ -80,9 +103,15 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, lr: float = 1e-5, weight_decay: float = 1e-2,
                        grad_clip_norm: float = 5.0,
                        optimizer: ClippedAdamW | None = None) -> TrainState:
-    """A fresh state over an already built (and placed) model."""
-    return TrainState(model, optimizer or make_optimizer(model.parameters(), lr,
-                                                         weight_decay, grad_clip_norm))
+    """A fresh state over an already built (and placed, and under tensor
+    parallel sharded) model."""
+    if optimizer is None:
+        from ..parallel.tensor import sharded_parameters
+
+        group, sharded = sharded_parameters(model)
+        optimizer = make_optimizer(model.parameters(), lr, weight_decay, grad_clip_norm,
+                                   group, sharded)
+    return TrainState(model, optimizer)
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:

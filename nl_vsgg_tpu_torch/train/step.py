@@ -26,6 +26,13 @@ sums and weights are all-reduced before they are written, so the buffers
 match on every rank and match the one-process run. That costs two
 all-reduces of a few scalars a step and one of the BatchNorm sums.
 
+Under a mesh with a model axis (parallel/tensor.py) DDP runs over the data
+group, whose size is `world`, and those reductions run over it too; the
+ranks of one model group hold one replica between them and compute the
+same losses. The guard must still be one decision on every rank: each
+rank's gradient slices may hold a NaN the others lack, so the gradients'
+finiteness is also reduced over the model group.
+
 Device rule: the step runs where the model is. The model is built on CUDA
 unless its caller asked for the CPU (`STTran(device="cpu")`); the batch and
 the generator must be on the model's device, so there is no silent CPU
@@ -44,7 +51,8 @@ from ..data.entry import Entry, stack_entries
 from ..device import resolve_device
 from ..models.layers import MaskedBatchNorm
 from ..models.losses import sttran_losses
-from .state import TrainState
+from ..parallel.tensor import model_axis
+from .state import ClippedAdamW, TrainState
 
 __all__ = ["eval_step", "make_train_step", "place_entries", "stack_entries"]
 
@@ -112,6 +120,11 @@ def make_train_step(model: torch.nn.Module, optimizer, bce: bool = True) -> Call
     world = dist.get_world_size(model.process_group) if ddp else 1
     device = _device_of(core)
     norms = [m for m in core.modules() if isinstance(m, MaskedBatchNorm)]
+    tp = model_axis(core)
+    if tp is not None and isinstance(optimizer, ClippedAdamW) and optimizer.model_group is None:
+        raise ValueError("the model is sharded over a model axis: build its optimizer with "
+                         "train.state.create_train_state, which sums the sharded gradients' "
+                         "norms over the model group")
 
     def train_step(state: TrainState, batch: Entry, generator: torch.Generator):
         if not (_same_device(batch.box_mask.device, device)
@@ -142,7 +155,12 @@ def make_train_step(model: torch.nn.Module, optimizer, bce: bool = True) -> Call
             grads = optimizer.grads() if hasattr(optimizer, "grads") else [
                 p.grad for p in core.parameters() if p.grad is not None]
             worst = torch.stack(torch._foreach_norm(grads, float("inf")))
-            valid_t = torch.isfinite(losses["total"]) & torch.isfinite(worst).all() & any_box
+            finite = torch.isfinite(worst).all()
+            if tp is not None and tp.group is not None:  # a NaN in any rank's slices
+                bad = (~finite).float().view(1)
+                dist.all_reduce(bad, group=tp.group)
+                finite = bad[0] == 0
+            valid_t = torch.isfinite(losses["total"]) & finite & any_box
         valid = bool(valid_t)  # the step's one host sync
         if valid:
             optimizer.step()

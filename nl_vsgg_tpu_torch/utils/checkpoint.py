@@ -16,6 +16,14 @@ Each file is written under a temporary name and moved into place with
 temporary directory. A run killed mid-save leaves the previous checkpoint
 readable, and `latest_step` never sees a partial one. Saves keep the newest
 `keep` steps.
+
+The files hold the one-rank layout at every mesh shape. A model sharded
+over a model axis (parallel/tensor.py) is saved gathered: `state_payload`
+gathers its sharded parameters and their AdamW moments over the model
+group (a collective: every rank of the group calls it) and the primary
+writes the payload; `restore_checkpoint` slices them back to the rank's
+rows. So a checkpoint of a 1x2 run loads in a 1x1 model and the other way
+round.
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ import os
 import shutil
 
 import torch
+
+from ..parallel.tensor import (full_state_dict, gather_shard, load_full_state_dict,
+                               shard_specs, take_shard)
 
 STATE_FILE = "state.pt"
 
@@ -36,27 +47,50 @@ def _write_text(path: str, text: str) -> None:
     os.replace(tmp, path)
 
 
-def _payload(state) -> dict:
-    return {"model": state.model.state_dict(),
-            "optimizer": state.optimizer.adamw.state_dict(),
+def _moments(state) -> dict[int, tuple]:
+    """{optimizer index of a sharded parameter: (TP, blocks)}."""
+    specs = shard_specs(state.model)
+    index = {id(p): i for i, p in enumerate(state.optimizer.params)}
+    return {index[id(p)]: specs[n] for n, p in state.model.named_parameters()
+            if n in specs and id(p) in index}
+
+
+def _map_moments(sd: dict, moments: dict, each) -> dict:
+    """AdamW's state_dict `sd` with `each(tensor, spec)` applied to the
+    moments of the sharded parameters."""
+    sd["state"] = {i: {k: each(v, *moments[i]) if i in moments and k != "step" else v
+                       for k, v in s.items()} for i, s in sd["state"].items()}
+    return sd
+
+
+def state_payload(state) -> dict:
+    """What a checkpoint holds, in the one-rank layout. Under tensor
+    parallel this gathers over the model group: every rank of it calls."""
+    return {"model": full_state_dict(state.model),
+            "optimizer": _map_moments(state.optimizer.adamw.state_dict(), _moments(state),
+                                      gather_shard),
             "step": int(state.step), "skipped": int(state.skipped)}
 
 
 def save_checkpoint(directory: str, step: int, state, config_json: str | None = None,
-                    keep: int = 3, extra: dict | None = None) -> str:
+                    keep: int = 3, extra: dict | None = None,
+                    payload: dict | None = None) -> str:
     """Write the TrainState under directory/<step>; returns that path.
 
     `extra` (JSON-serializable) persists host-side training state the
     TrainState does not hold, e.g. the plateau scheduler's lr / best /
     num_bad, without which a resume would put cfg.lr back at its first
-    epoch end."""
+    epoch end. `payload`: the state's `state_payload`, already gathered
+    (under tensor parallel the ranks gather it together, and the primary
+    alone writes it)."""
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, str(step))
     tmp = os.path.join(directory, f".{step}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(_payload(state), os.path.join(tmp, STATE_FILE))
+    torch.save(payload if payload is not None else state_payload(state),
+               os.path.join(tmp, STATE_FILE))
     if os.path.isdir(path):  # a re-save of this step (the JAX side's force=True)
         shutil.rmtree(path)
     os.replace(tmp, path)
@@ -128,10 +162,12 @@ def restore_checkpoint(directory: str, state, step: int | None = None):
     state. The payload is read on the host and `load_state_dict` copies each
     tensor onto the state's device (AdamW keeps its step counts on the host,
     where it made them). The model's keys and shapes must match the saved
-    ones exactly."""
+    ones exactly; a model sharded over a model axis takes its rows of the
+    one-rank layout."""
     payload = load_state(directory, step)
-    state.model.load_state_dict(payload["model"], strict=True)
-    state.optimizer.adamw.load_state_dict(payload["optimizer"])
+    load_full_state_dict(state.model, payload["model"])
+    state.optimizer.adamw.load_state_dict(_map_moments(payload["optimizer"], _moments(state),
+                                                       take_shard))
     state.step = int(payload["step"])
     state.skipped = int(payload["skipped"])
     return state

@@ -1,5 +1,6 @@
 """One rank of a multi-process job for the port's parallel-layer tests
-(tests/test_torch_distributed.py, test_torch_ddp.py, test_torch_sp.py).
+(tests/test_torch_distributed.py, test_torch_ddp.py, test_torch_sp.py,
+test_torch_tp.py, test_torch_tp_train.py).
 
     python -m tests._torch_dist_worker <mode> <payload.pt> <out_dir>
 
@@ -199,6 +200,104 @@ def mode_ddp(payload: dict) -> dict:
     return out
 
 
+def _tp_linear(mesh, cases: dict) -> dict:
+    """parallel/tensor.column_linear on the rank's rows of each full
+    (weight, bias, input, output gradient): the output, the input's
+    gradient and the gathered weight and bias gradients."""
+    import torch
+
+    from nl_vsgg_tpu_torch.parallel import tensor as T
+
+    tp = T.TP(mesh.model_group, mesh.model_index, mesh.model)
+    out = {}
+    for (blocks, dname), (w, b, x, gy) in cases.items():
+        dt = getattr(torch, dname)
+        wl = T.take_shard(w, tp, blocks).to(dt).requires_grad_()
+        bl = T.take_shard(b, tp, blocks).to(dt).requires_grad_()
+        xx = x.to(dt).requires_grad_()
+        y = T.column_linear(xx, wl, bl, tp, blocks)
+        (y.float() * gy).sum().backward()
+        out[blocks, dname] = (y.detach().float(), xx.grad.float(),
+                              T.gather_shard(wl.grad, tp, blocks).float(),
+                              T.gather_shard(bl.grad, tp, blocks).float())
+    return out
+
+
+def mode_tp(payload: dict) -> dict:
+    """The model axis (parallel/tensor.py) on a data x model mesh of the
+    ranks: the collectives on one Linear, then each case's train steps on
+    the rank's data block with the model sharded over its model group; the
+    gathered one-rank state after each step, digested on every rank and
+    held against the references on rank 0. A case's `nan_slice` steps put
+    a NaN in the last model index's gradient slice of `nan_param` alone."""
+    import copy
+
+    import torch
+
+    from nl_vsgg_tpu_torch.data.entry import stack_entries
+    from nl_vsgg_tpu_torch.models.losses import sttran_losses
+    from nl_vsgg_tpu_torch.parallel import distributed as D
+    from nl_vsgg_tpu_torch.parallel import tensor as T
+    from nl_vsgg_tpu_torch.parallel.mesh import data_parallel, make_mesh
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step
+    from nl_vsgg_tpu_torch.utils.checkpoint import restore_checkpoint, state_payload
+
+    mesh = make_mesh(payload["data"], payload["model"], device="cpu")
+    out = {"mesh": (mesh.data_index, mesh.model_index, D.data_size(), D.data_index(),
+                    D.model_index())}
+    if "linear" in payload:
+        out["linear"] = _tp_linear(mesh, payload["linear"])
+    refs = torch.load(payload["refs"], mmap=True, weights_only=False)
+    for name, case in payload["cases"].items():
+        model = T.shard_module(copy.deepcopy(case["model"]), mesh)
+        st = (create_train_state(model, optimizer=torch.optim.SGD(model.parameters(),
+                                                                  lr=case["lr"]))
+              if case["opt"] == "sgd" else create_train_state(model, lr=case["lr"]))
+        step = make_train_step(data_parallel(model, mesh), st.optimizer)
+        res = {"losses": [], "digests": [], "worst": [],
+               "local_params": sum(p.numel() for p in model.parameters())}
+        for i, (entries, step_refs) in enumerate(zip(case["batches"], case["refs"])):
+            per = len(entries) // mesh.data
+            block = stack_entries(entries[mesh.data_index * per:(mesh.data_index + 1) * per])
+            hook = None
+            if i in case.get("nan_slice", ()) and mesh.model_index == mesh.model - 1:
+                hook = dict(model.named_parameters())[case["nan_param"]].register_hook(
+                    lambda g: g * float("nan"))
+            T.reset_comm()
+            st, met = step(st, block, torch.Generator().manual_seed(0))
+            if hook is not None:
+                hook.remove()
+            res["comm"] = dict(T.COMM)
+            res["losses"].append({k: float(v) for k, v in met.items()})
+            full = T.full_state_dict(model)
+            res["digests"].append(digest(full))
+            res["worst"].append({ref: worst_ratio(full, refs[ref], *tol)
+                                 for ref, tol in step_refs.items()} if D.rank() == 0 else {})
+        res["skipped"], res["step"] = st.skipped, st.step
+        if case["opt"] != "sgd":
+            res["adam_steps"] = sorted({int(s["step"])
+                                        for s in st.optimizer.adamw.state.values()})
+        out[name] = res
+    if "clip" in payload:   # the clip's global norm over whole arrays
+        c = payload["clip"]
+        model = T.shard_module(copy.deepcopy(c["model"]), mesh)
+        st = create_train_state(model, lr=1e-5)
+        batch = stack_entries(c["batch"])
+        g = torch.Generator().manual_seed(0)
+        sttran_losses(model(batch, train=True, generator=g), batch, g)["total"].sum().backward()
+        out["clip_norm"] = float(st.optimizer.clip_())
+    if "ckpt" in payload:   # a one-rank checkpoint restored into the rank's slices
+        c = payload["ckpt"]
+        model = T.shard_module(copy.deepcopy(c["model"]), mesh)
+        st = restore_checkpoint(c["dir"], create_train_state(model, lr=1e-5))
+        back = state_payload(st)
+        out["ckpt"] = (digest(back["model"]),
+                       {i: digest({k: v for k, v in s.items() if k != "step"})
+                        for i, s in back["optimizer"]["state"].items()}, st.step)
+    return out
+
+
 def mode_sp(payload: dict) -> dict:
     from nl_vsgg_tpu_torch.parallel import comm
     from nl_vsgg_tpu_torch.parallel import distributed as D
@@ -247,7 +346,7 @@ def main() -> None:
     D.init_distributed(None, device="cpu", timeout_s=DIST_TIMEOUT_S)
     payload = torch.load(payload_path, weights_only=False)
     out = {"mode_gather": mode_gather, "mode_ddp": mode_ddp, "mode_sp": mode_sp,
-           "mode_train": mode_train}["mode_" + mode](payload)
+           "mode_train": mode_train, "mode_tp": mode_tp}["mode_" + mode](payload)
     out["backend"] = D.backend()
     torch.save(out, os.path.join(out_dir, f"rank{D.rank()}.pt"))
     D.shutdown()

@@ -256,8 +256,8 @@ def test_resume_equals_straight_run(micro, tmp_path):
     ({"mode": "sgcls"}, "not a shipped NL-VSGG recipe"),
     ({"mode": "predcls"}, "not a shipped NL-VSGG recipe"),
     ({"is_wks": False}, "not a shipped NL-VSGG recipe"),
-    ({"mesh": {"data": 1, "model": 2}}, "Queue 1 item 1a"),
-    ({"remat": True}, "Queue 1 item 3"),
+    ({"mesh": {"data": 1, "model": 3}}, r"mesh model=3 does not divide .*\[1024, 1936, 2048\]"),
+    ({"mesh": {"data": 1, "model": 0}}, "at least 1 rank"),
 ])
 def test_run_training_refuses(overrides, match, tmp_path):
     cfg = load_config(None, dict({"save_path": str(tmp_path / "out")}, **overrides))

@@ -99,8 +99,13 @@ def test_not_configured_is_one_process(monkeypatch):
     ev = JEvaluator("sgdet")
     D.merge_evaluators(ev)
     assert make_mesh() == Mesh(1, 1, 0, torch.device("cuda"))
-    with pytest.raises(ValueError, match="Queue 1 item 1a"):
+    assert D.data_size() == 1 and D.data_index() == D.model_index() == 0
+    # a model axis needs as many ranks as it is wide (tests/test_torch_tp.py
+    # runs it over 2 and 4 ranks) and at least one
+    with pytest.raises(ValueError, match="1x2 != 1 ranks"):
         make_mesh(1, 2)
+    with pytest.raises(ValueError, match="at least 1 rank"):
+        make_mesh(1, 0)
     with pytest.raises(ValueError, match="2x1 != 1 ranks"):
         make_mesh(2, 1)
 
