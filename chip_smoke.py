@@ -171,8 +171,8 @@ Phases, in order; any failure exits non-zero before the result line:
      the prefetcher on 64 test videos (promoted, score(20) equal to the
      host's);
  14. the entry points at full width on phase 13's dataset
-     (`entry_point_phases`): STTran sgdet (bf16, 1 + 3 layers, 8 heads,
-     embed 1936) trained by `tools.train_sttran.run_training` for 2 epochs
+     (`entry_point_phases`, on 32 of its videos): STTran sgdet (bf16, 1 + 3
+     layers, 8 heads, embed 1936) trained by `tools.train_sttran.run_training` for 2 epochs
      (cold, filling the device Entry store; warm, gathering), each evaluated
      with the device-eval promotion and checkpointed (epoch walls, frames/s,
      the PhaseTimer summary, store and checkpoint bytes, save ms, mean R@20
@@ -180,7 +180,7 @@ Phases, in order; any failure exits non-zero before the result line:
      (1 epoch, then a second run to 2) against that straight run
      (parameters and AdamW moments equal, or within RESUME_REL); the test
      CLI on its checkpoint (sgdet rows = a host evaluation of the same
-     weights; predcls and sgcls on 8 videos with phase 8's seeded detector
+     weights; predcls and sgcls on 2 videos with phase 8's seeded detector
      saved as a VinVL .pth, RoIAlign and grouped-conv launches counted and
      the first call of each shape held against its plain version);
      DSG-DETR trained 1 epoch and its sgcls test flow (6 tiled launches a
@@ -209,6 +209,9 @@ Phases, in order; any failure exits non-zero before the result line:
      `convert_vinvl` -> .npz -> `preprocess features` on 2 videos x 4 frames,
      equal to `detect_video` with the state dict bitwise, with its RoIAlign
      and grouped-conv launches counted (float32: all on the 3xtf32 route);
+     the DAC checkpoint and the .pth come from the caller
+     (`write_standins`, shared with phase 18) and the .npz from phase 18's
+     convert_vinvl stage (alone: `write_standins(..., npz=True)`);
  16. the parallel layer (`parallel_phases`, on phase 13's dataset, so it
      runs after phase 14 and before phase 15): STTran sgdet at full width
      (bf16, seeded, dropout off) trained under DDP (a) at world size 1 over
@@ -217,11 +220,11 @@ Phases, in order; any failure exits non-zero before the result line:
      sharing the card, 32 videos each, against the one-process steps over
      all 64 (P16_LOSS_RTOL, P16_BUF_REL), BatchNorm buffers identical on
      both ranks, a NaN in rank 0's block skipped by both, one DSG-DETR sgdet
-     DDP step on set (b), which gloo collectives take CUDA tensors; (c)
-     `run_training` with mesh.data 2 on phase 13's split (its own 2 ranks,
-     2 epochs, device store on): only the primary checkpoints and logs, the
-     warm epoch gathers from each rank's store, the merged R@20 against one
-     evaluation of the saved checkpoint (P16_R20_ATOL); (d) on the ranks of
+     DDP step on set (b), which gloo collectives take CUDA tensors (the ops
+     in 2 pairs of spawned processes); (c) `run_training` with a data axis
+     runs in phase 17 (c), bf16 on a data axis, then float32 on a model
+     axis;
+     (d) on the ranks of
      (b), STTran's frame-sharded transformer (bf16 and float32, one 32-frame
      video) and DSG-DETR's token-sharded one (set (b)) against the dense
      modules (MODEL_TOL), the attention kernel on both sides; the backend,
@@ -235,9 +238,13 @@ Phases, in order; any failure exits non-zero before the result line:
      resident parameter, gradient and AdamW bytes beside one process's, the
      bytes gathered and all-reduced a step, ms a step; (b) one DSG-DETR
      sgdet step on set (b) the same way; (c) `run_training` with mesh
-     {data 1, model 2}, float32, for 1 epoch on 64 of phase 13's videos, its
-     checkpoint restored into a 1 x 1 model giving the run's R@20
-     (P16_R20_ATOL); (d)
+     {data 2, model 1} (2 spawned ranks), bf16, for 2 epochs on all 128 of
+     phase 13's videos in batches of 64, then with mesh {data 1, model 2},
+     float32, for 1 epoch on one batch of 16, the device store on: only the
+     primary checkpoints and
+     logs, the warm epoch gathers from each data index's store, the merged
+     R@20 of the sharded evals equal to the checkpoint's restored into a 1
+     x 1 model (P16_R20_ATOL); (d)
      one full-width train step with remat on and off, dropout on, one
      generator seed: equal losses and generator state, parameters within
      P17_REMAT_ATOL, the step's peak memory printed both ways, the
@@ -245,12 +252,31 @@ Phases, in order; any failure exits non-zero before the result line:
      backward) lower with remat; (e)
      `roi_pool` on the card equal to the CPU at the C4 shape, RoIAlign on
      the same rois;
- 18. the `kernels` JSON line (each row with `launches_entry_points`, phase
+ 18. the acceptance runbook (`acceptance_phases`, after phase 17 on the
+     same dataset, its test split cut to 16 videos): seeded stand-ins
+     (`write_standins`: phase 8's detector weights as a VinVL .pth, phase
+     15's DAC LLM_cp.pt; an STTran sgdet .tar saved from the port's module),
+     then `tools.acceptance.run` with --vinvl --clip --relation_ckpt --train_e2e
+     3 --oracle_videos 50 at full width, bf16, batches of 64: every stage
+     passes (validate_vinvl on the 3xtf32 route, convert_vinvl, validate_clip
+     on the resident route, the oracle's R@20 >= 0.3, train_e2e, the
+     converter, the eval with live union features from the converted .npz
+     on a bf16 detector); its launches counted by kernel row (every row on
+     the runbook's path at least once, each on its route); each train_e2e
+     epoch's frames equal its grounded videos' frames, the warm epochs
+     wholly from the device store, no skip, finite losses; the eval's rows
+     equal `tools.test_sttran.main` run directly on the same checkpoint and
+     config; the parity gate rerun on an expected.json of those numbers (rc
+     0) and on one moved 1 point (rc 1, parity_gate the one failed stage);
+     the numbers read from the stages `run` returns (walls, oracle, epoch
+     counts, the evaluator); phase 15 then reads the same DAC checkpoint and
+     .pth, and the .npz of the runbook's convert_vinvl stage;
+ 19. the `kernels` JSON line (each row with `launches_entry_points`, phase
      14's launches, `launches_offline`, phase 15's, `launches_parallel`,
-     phase 16's, and `launches_model_axis`, phase 17's; the grouped conv
-     has a bf16 row and a float32 row), then the device JSON line, last;
-     the line before them prints the card and the script's total wall
-     time.
+     phase 16's, `launches_model_axis`, phase 17's, and
+     `launches_acceptance`, phase 18's; the grouped conv has a bf16 row and
+     a float32 row), then the device JSON line, last; the lines before them
+     print each phase's wall, the card and the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -2561,17 +2587,20 @@ def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n
     dets_f32.npy and feat.npy; final_ag_data_w_neg.pkl, triplets_LLM4SGG.pkl,
     ag_img_info_{train,test}.pkl; annotations/person_bbox.pkl and
     object_bbox_and_relationship(_filtersmall).pkl, every frame of the test
-    set. Each frame: `n_dets` detections in random order, a person, `n_objs`
-    objects of classes the OI -> AG map sends to one AG class, each
+    set, the videos written on threads, each from its own child generator
+    of `seed`. Each frame: `n_dets` detections in random order, a person,
+    `n_objs` objects of classes the OI -> AG map sends to one AG class, each
     annotated with one relation of each kind, and the rest of classes the
     map sends to no AG class (grounding drops them in train and test mode).
     Returns the AG directory."""
     import pickle
+    from concurrent.futures import ThreadPoolExecutor
 
     from nl_vsgg_tpu_torch.data import schema
     from nl_vsgg_tpu_torch.data.grounding import DETS_F32, dets_to_f32
 
-    rng = np.random.default_rng(seed)
+    seeds = np.random.SeedSequence(seed)
+    rng = np.random.default_rng(seeds)
     tax = schema.load_taxonomy()
     oi_to_ag, ag_to_oi = schema.load_oi_ag_maps()
     person_ids = list(ag_to_oi[1])
@@ -2583,13 +2612,13 @@ def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n
     ag = os.path.join(root, "AG")
     ann_dir = os.path.join(ag, "annotations")
     os.makedirs(ann_dir, exist_ok=True)
-    pseudo, frame_lists, img_info, person_bbox, object_bbox = {}, {}, {}, {}, {}
-    for v in range(n_videos):
+
+    def video(v: int, rng) -> tuple:
+        """Video v's frames written, from its own generator; returns its
+        pseudo labels, frame list and annotation records."""
         vid = f"vid{v:03d}.mp4"
         frames = [f"{i:06d}.png" for i in range(n_frames)]
-        frame_lists[vid] = {"frame_list": frames}
-        img_info[vid] = [480.0, 640.0, 1.0]
-        video_gt = []
+        video_gt, person_bbox, object_bbox = [], {}, {}
         for i, fr in enumerate(frames):
             fdir = os.path.join(ag, "frame_features", vid, fr)
             os.makedirs(fdir)
@@ -2633,7 +2662,18 @@ def write_synthetic_ag(root: str, n_videos: int, n_frames: int, feat_dim: int, n
                 "contacting_relationship": [tax.contacting_relationships[
                     int(rel["contacting_relationship"][0])]],
             } for cls, r, rel in objs]
-        pseudo[vid] = video_gt
+        return vid, video_gt, {"frame_list": frames}, person_bbox, object_bbox
+
+    # the videos on threads, each from its own child generator of the seed (numpy's
+    # draws and the file writes release the GIL)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        made = list(ex.map(video, range(n_videos),
+                           map(np.random.default_rng, seeds.spawn(n_videos))))
+    pseudo, frame_lists, img_info, person_bbox, object_bbox = {}, {}, {}, {}, {}
+    for vid, video_gt, frame_list, persons, objects in made:
+        pseudo[vid], frame_lists[vid], img_info[vid] = video_gt, frame_list, [480.0, 640.0, 1.0]
+        person_bbox.update(persons)
+        object_bbox.update(objects)
     for path, obj in ((os.path.join(ag, "final_ag_data_w_neg.pkl"), pseudo),
                       (os.path.join(ag, "triplets_LLM4SGG.pkl"), frame_lists),
                       (os.path.join(ag, "ag_img_info_train.pkl"), img_info),
@@ -3080,7 +3120,9 @@ def data_phases(dev, card, det, then=None) -> None:
 
 
 # ------------------------------------------------------------- entry points
-P14_GT_VIDEOS = 8                # test videos of the predcls / sgcls CLI runs
+P14_GT_VIDEOS = 2                # test videos of the predcls / sgcls CLI runs
+P14_VIDEOS = B // 2              # --max_videos of run_training (one partial batch an
+#                                  epoch), test_sttran sgdet and the converter's eval
 PREDICT_BATCH = 16               # predict's --batch
 PREDICT_TOL = 1e-3               # predict (features uploaded bf16) against serve.predict
 # a resumed run's final tensors against a straight run's, when not equal: the
@@ -3136,8 +3178,8 @@ def torch_equal(a, b) -> bool:
 
 def entry_point_phases(dev, card, ag: str, root: str) -> dict:
     """Phase 14: the entry points at full width on phase 13's synthetic
-    Action Genome. STTran sgdet (bf16, 1 + 3 layers, embed 1936) trained by
-    `run_training` for 2 epochs (cold, filling the device Entry store; warm,
+    Action Genome, P14_VIDEOS of its videos. STTran sgdet (bf16, 1 + 3
+    layers, embed 1936) trained by `run_training` for 2 epochs (cold, filling the device Entry store; warm,
     gathering), each evaluated with the device-eval promotion and
     checkpointed; a resume (1 epoch, then a second run to 2) against that
     straight run; `test_sttran` on its checkpoint (sgdet: rows equal to a
@@ -3177,9 +3219,10 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
         "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
         "device_entry_store_gb": STORE_GB, "device_eval_promote": True, "nepoch": 2,
         "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}}
-    args = types.SimpleNamespace(max_videos=0, device=None)
+    args = types.SimpleNamespace(max_videos=P14_VIDEOS, device=None)
     ds_test = AGTest(os.path.join(ag, "annotations"))
-    n_eval_batches = -(-len(ds_test) // B)
+    n_test = min(P14_VIDEOS, len(ds_test))
+    n_eval_batches = -(-n_test // B)
     counts = {}
 
     def add(name, n):
@@ -3252,7 +3295,7 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
         got = dict(ma.LAUNCHES)
         want = {"fwd": 4 * st_b.step + 4 * n_eval_batches * 2, "bwd_dq": 4 * st_b.step,
                 "bwd_dkv": 4 * st_b.step}
-        if st_b.step != 2 * (AG_VIDEOS // B) or st_b.skipped or got != want:
+        if st_b.step != 2 * -(-min(P14_VIDEOS, AG_VIDEOS) // B) or st_b.skipped or got != want:
             fail(f"run_training: step {st_b.step}, skipped {st_b.skipped}, launches {got}, "
                  f"expected {want}")
         add("masked_mha", got["fwd"] - 4 * st_b.step)
@@ -3273,7 +3316,8 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
             promo = ev["promotion"]
             log(f"run_training epoch {e} ({'cold: ground, place, fill the store' if e == 0 else 'warm: gather from the store'}): "
                 f"{sv['t1'] - start:.3f} s wall = train {train_s:.3f} s "
-                f"({AG_VIDEOS * N_FRAMES / train_s:.1f} frames/s) + eval {ev['t1'] - ev['t0']:.3f} s "
+                f"({min(P14_VIDEOS, AG_VIDEOS) * N_FRAMES / train_s:.1f} frames/s) + eval "
+                f"{ev['t1'] - ev['t0']:.3f} s "
                 f"(promoted {promo.promoted} after {promo.checked} videos) + checkpoint "
                 f"{(sv['t1'] - sv['t0']) * 1e3:.1f} ms ({sv['bytes']} bytes); mean R@20 "
                 f"{epochs[e]['mean_r20']:.6f}, lr after the scheduler {sv['lr']:.3e}; device "
@@ -3286,11 +3330,12 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
 
         # ---- 2. resume: 1 epoch, then a second run to 2 ----
         run_a = os.path.join(root, "p14_A")
-        train(run_a, ts.build_model, nepoch=1)
+        _, _, wall_1 = train(run_a, ts.build_model, nepoch=1)
         meta_1 = load_meta(os.path.join(run_a, "ckpt"))
         st_a, _, wall_a = train(run_a, ts.build_model)
         resumed = [m for m in records if m.startswith("resumed from checkpoint")]
-        if resumed != ["resumed from checkpoint epoch 0 (step 2)"] \
+        epoch_steps = st_b.step // 2
+        if resumed != [f"resumed from checkpoint epoch 0 (step {epoch_steps})"] \
                 or any("Inference in Epoch (0)" in m for m in records) \
                 or len(marks["saves"]) != 1 or st_a.step != st_b.step:
             fail(f"resume: logged {resumed}, step {st_a.step}, saves {len(marks['saves'])}")
@@ -3308,8 +3353,9 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
              for k in ("exp_avg", "exp_avg_sq")},
             {f"{i}.{k}": s[k] for i, s in b["optimizer"]["state"].items()
              for k in ("exp_avg", "exp_avg_sq")}, "resume: AdamW moments")
-        log(f"resume: 1 epoch, then a second run logged 'resumed from checkpoint epoch 0 "
-            f"(step 2)', ran epoch 1 only (step counter 2 -> {st_a.step}, the scheduler "
+        log(f"resume: 1 epoch ({wall_1:.3f} s), then a second run logged 'resumed from "
+            f"checkpoint epoch 0 (step {epoch_steps})', ran epoch 1 only (step counter "
+            f"{epoch_steps} -> {st_a.step}, the scheduler "
             f"{meta_1['scheduler']} restored, after epoch 1 {sched_a} = the straight run's "
             f"{sched_b}) in {wall_a:.3f} s; its final "
             f"checkpoint against the straight run's: parameters {params}, AdamW moments "
@@ -3319,20 +3365,21 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
         # ---- 3. the test CLI, sgdet, on the straight run's checkpoint ----
         ma.reset_launches()
         t0 = time.perf_counter()
-        ev_cli = test_sttran.main(["--model_path", ckpt_b, "--device_eval"])
+        ev_cli = test_sttran.main(["--model_path", ckpt_b, "--device_eval", "--max_videos",
+                                   str(P14_VIDEOS)])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         add("masked_mha", ma.LAUNCHES["fwd"])
         if last_eval["promotion"].promoted:   # its host rows cover the burn-in only
             ref_ev = epoch_mod.evaluate_epoch(st_b.model, epoch_mod.grounded_batches(
                 lambda i: ts.ground_video(ds_test, i, cfg_b, False, cfg_b.buckets),
-                ds_test.gt_annotations, range(len(ds_test)), B, 4), device=dev,
+                ds_test.gt_annotations, range(n_test), B, 4), device=dev,
                 zero_union=True)
             against = "a host evaluation of the same weights (the last epoch was promoted)"
         else:
             ref_ev, against = last_eval["ev"], "the last training epoch's evaluator"
         diff = same_rows(ev_cli, ref_ev, "test_sttran sgdet")
-        log(f"test_sttran sgdet ({len(ds_test)} videos, --device_eval): {cli_s:.3f} s; "
+        log(f"test_sttran sgdet ({n_test} videos, --device_eval): {cli_s:.3f} s; "
             + recall_line(ev_cli) + f"; rows = {against} (largest difference {diff:.1e})")
 
         # ---- 4. predcls and sgcls with the VinVL detector ----
@@ -3511,7 +3558,7 @@ def entry_point_phases(dev, card, ag: str, root: str) -> dict:
         conv.main(["--ckpt", ref_path, "--out", conv_dir, "--cfg",
                    os.path.join(ckpt_b, "configs.json")])
         ma.reset_launches()
-        ev_conv = test_sttran.main(["--model_path", conv_dir])
+        ev_conv = test_sttran.main(["--model_path", conv_dir, "--max_videos", str(P14_VIDEOS)])
         add("masked_mha", ma.LAUNCHES["fwd"])
         diff = same_rows(ev_conv, ev_cli, "converted checkpoint")
         gone = "subj_fc.bias"
@@ -3681,7 +3728,7 @@ def resident_edge_checks(ma, g, dev) -> None:
         + "; empty rows exactly 0 and LSE_EMPTY, one launch a call")
 
 
-def offline_phases(dev, card) -> tuple[dict, list[dict]]:
+def offline_phases(dev, card, standins: dict) -> tuple[dict, list[dict]]:
     """Phase 15: the offline label pipeline. A synthetic DAC LLM_cp.pt
     (ViT-B/32, rank-4 LoRA) converted and run at full width on the card:
     `encode_for_adv` on P15_VIDEOS videos x P15_FRAMES frames and
@@ -3694,8 +3741,12 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
     file (and an orphan adapter refused); the preprocess chain tcs ->
     triplets -> adv -> negatives and img-info with stub LLMs and a frame
     reader; a VinVL .pth -> `convert_vinvl` -> .npz -> `preprocess
-    features` equal to `detect_video` bitwise. Returns the phase's launch
-    counts by `kernels` row name and the two CLIP attention rows."""
+    features` equal to `detect_video` bitwise. The checkpoints come from
+    the caller: `standins` is `write_standins`' dict (the DAC "dac", the
+    VinVL "pth") with the "npz" converted from that .pth and its wall
+    "npz_s" and its writer "npz_by" (in the whole script, phase 18's
+    convert_vinvl stage; alone, `write_standins(..., npz=True)`). Returns the phase's launch counts by
+    `kernels` row name and the two CLIP attention rows."""
     import pickle
     import re
     import shutil
@@ -3705,24 +3756,23 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
 
     from nl_vsgg_tpu_torch.data import schema
     from nl_vsgg_tpu_torch.detector.attr_rcnn import AttrRCNNTorch
-    from nl_vsgg_tpu_torch.detector.convert import to_maskrcnn_state_dict
     from nl_vsgg_tpu_torch.ops import grouped_conv as gc, masked_attention as ma, roi_align as ra
     from nl_vsgg_tpu_torch.pipelines import clip as C
     from nl_vsgg_tpu_torch.pipelines.tokenizer import SimpleTokenizer
-    from nl_vsgg_tpu_torch.tools import convert_vinvl, preprocess, validate_ckpt
+    from nl_vsgg_tpu_torch.tools import preprocess, validate_ckpt
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="phase15_", dir=os.path.join(HERE, "build"))
     counts = {}
     try:
         # ---- 1. CLIP at full width: the DAC checkpoint, converted, both towers ----
-        ckpt = os.path.join(root, "LLM_cp.pt")
         t0 = time.perf_counter()
-        raw = dac_checkpoint(ckpt, seed=15)
+        ckpt = standins["dac"]
+        raw = torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"]
         n_weights = sum(v.numel() for k, v in raw.items() if ".lora_" not in k)
-        log(f"synthetic DAC LLM_cp.pt: {n_weights} weights + "
+        log(f"synthetic DAC LLM_cp.pt (seed 15, `write_standins`): {n_weights} weights + "
             f"{sum(v.numel() for k, v in raw.items() if '.lora_' in k)} LoRA, "
-            f"{os.path.getsize(ckpt)} bytes, written in {time.perf_counter() - t0:.3f} s")
+            f"{os.path.getsize(ckpt)} bytes, read in {time.perf_counter() - t0:.3f} s")
         del raw
         t0 = time.perf_counter()
         loaded = torch.load(ckpt, map_location="cpu", weights_only=False)["state_dict"]
@@ -3933,13 +3983,9 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
 
         # ---- 5. detector checkpoints: .pth -> convert_vinvl -> .npz -> features ----
         sd = detector_weights(5, dev)
-        pth, npz = os.path.join(root, "vinvl.pth"), os.path.join(root, "vinvl.npz")
-        t0 = time.perf_counter()
-        torch.save(to_maskrcnn_state_dict(sd), pth)
-        t_pth = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        n_arrays = convert_vinvl.main([pth, npz])
-        t_npz = time.perf_counter() - t0
+        pth, npz = standins["pth"], standins["npz"]
+        with np.load(npz) as f:
+            n_arrays = len(f.files)
         frames = {vid: [rng.integers(0, 256, (*DET_HW, 3), dtype=np.uint8)
                         for _ in range(P15_DET_FRAMES)]
                   for vid in (f"det_{v}.mp4" for v in range(P15_DET_VIDEOS))}
@@ -3983,9 +4029,12 @@ def offline_phases(dev, card) -> tuple[dict, list[dict]]:
                 if not same:
                     fail(f"preprocess features from the .npz differs from detect_video with the "
                          f"state dict at {vid} frame {i}")
-        log(f"detector checkpoints: phase 8's weights (seed 5) as a VinVL .pth in {t_pth:.3f} s "
-            f"({os.path.getsize(pth)} bytes), convert_vinvl -> {n_arrays} arrays in "
-            f"{t_npz:.3f} s ({os.path.getsize(npz)} bytes); preprocess features --checkpoint "
+        log(f"detector checkpoints: phase 8's weights (seed 5) as a VinVL .pth "
+            f"({os.path.getsize(pth)} bytes, `write_standins`, written in "
+            f"{standins['pth_s']:.3f} s), convert_vinvl -> {n_arrays} arrays "
+            f"({os.path.getsize(npz)} bytes, written in {standins['npz_s']:.3f} s by "
+            f"{standins['npz_by']}); "
+            f"preprocess features --checkpoint "
             f".npz on {P15_DET_VIDEOS} x {P15_DET_FRAMES} frames of {DET_HW[0]}x{DET_HW[1]} "
             f"in {t_feat:.3f} s (fp32), launches {launched}; dets.npy / dets_f32.npy / "
             f"feat.npy = detect_video with the state dict, bitwise")
@@ -4021,8 +4070,8 @@ P16_WORLD1_LOSS_RTOL = 1e-5
 # 1e-3 of their largest magnitude (statistics of bf16 activations)
 P16_LOSS_RTOL = 1e-2
 P16_BUF_REL = 1e-3
-# (c) merged R@20 of the 2-rank epoch eval against one evaluation of the
-# saved checkpoint: the same weights, but each rank batches its own shard,
+# phase 17 (c): merged R@20 of the ranks' epoch eval against one evaluation of
+# the saved checkpoint: the same weights, but each rank batches its own shard,
 # and a bf16 GEMM's rounding may depend on the batch's rows, which can flip
 # a near-tie in the ranking: within 5e-3 (half a point; tools/acceptance.py
 # gates at 0.5 points)
@@ -4191,13 +4240,16 @@ def p16_rank(r: int, n: int, url: str, work: str, conf: dict) -> None:
 
 P16_GLOO_OPS = ("all_reduce", "all_reduce 104 MB", "all_reduce async", "broadcast",
                "all_gather", "send/recv")
+# the ops in pairs of processes: the five that take CUDA tensors share one, in order;
+# send/recv, which aborts its processes, has its own
+P16_GLOO_PAIRS = (P16_GLOO_OPS[:5], P16_GLOO_OPS[5:])
 
 
-def p16_gloo_probe(r: int, op: str, url: str, out: str) -> None:
-    """One rank of a 2-rank gloo group on the card running `op` on CUDA
-    tensors, its result checked; writes <out><r>.json. A gloo op that does
-    not take CUDA tensors may abort the process: each op runs in its own
-    pair of processes (`parallel_phases`)."""
+def p16_gloo_probe(r: int, ops: tuple, url: str, out: str) -> None:
+    """One rank of a 2-rank gloo group on the card running each of `ops` on
+    CUDA tensors in turn, its result checked; writes <out><op index>_<r>.json
+    after each op, so an op that aborts the process leaves the answers
+    before it and none after (`p16_gloo_answers`: "not reached")."""
     import datetime
 
     import torch
@@ -4206,70 +4258,77 @@ def p16_gloo_probe(r: int, op: str, url: str, out: str) -> None:
     dist.init_process_group("gloo", init_method=url, rank=r, world_size=2,
                             timeout=datetime.timedelta(seconds=60))
     dev = torch.device("cuda", 0)
-    t = torch.full((26_000_000 if "104 MB" in op else 1024,), float(r + 1), device=dev)
-    if op.startswith("all_reduce"):
-        if "async" in op:  # as DDP's comm hooks call it
-            t = dist.all_reduce(t, async_op=True).get_future().wait()[0]
-        else:
-            dist.all_reduce(t)
-        ok = bool((t == 3).all())
-    elif op == "broadcast":
-        dist.broadcast(t, 0)
-        ok = bool((t == 1).all())
-    elif op == "all_gather":
-        got = [torch.empty_like(t) for _ in range(2)]
-        dist.all_gather(got, t)
-        ok = bool((got[0] == 1).all() and (got[1] == 2).all())
-    else:
-        if r == 0:
-            dist.send(t, 1)
-            ok = True
-        else:
-            dist.recv(t, 0)
+    for op in ops:
+        t = torch.full((26_000_000 if "104 MB" in op else 1024,), float(r + 1), device=dev)
+        if op.startswith("all_reduce"):
+            if "async" in op:  # as DDP's comm hooks call it
+                t = dist.all_reduce(t, async_op=True).get_future().wait()[0]
+            else:
+                dist.all_reduce(t)
+            ok = bool((t == 3).all())
+        elif op == "broadcast":
+            dist.broadcast(t, 0)
             ok = bool((t == 1).all())
-    torch.cuda.synchronize()
-    with open(f"{out}{r}.json", "w") as f:
-        json.dump({"ok": ok}, f)
+        elif op == "all_gather":
+            got = [torch.empty_like(t) for _ in range(2)]
+            dist.all_gather(got, t)
+            ok = bool((got[0] == 1).all() and (got[1] == 2).all())
+        else:
+            if r == 0:
+                dist.send(t, 1)
+                ok = True
+            else:
+                dist.recv(t, 0)
+                ok = bool((t == 1).all())
+        torch.cuda.synchronize()
+        with open(f"{out}{P16_GLOO_OPS.index(op)}_{r}.json", "w") as f:
+            json.dump({"ok": ok}, f)
     dist.destroy_process_group()
 
 
 def p16_gloo_cuda(work: str):
     """Which gloo collectives take CUDA tensors on this card and build:
-    each op in its own pair of spawned processes, all pairs at once.
-    Returns a function that waits for them and returns the answers."""
+    each group of `P16_GLOO_PAIRS` in its own pair of spawned processes,
+    the pairs at once. Returns a function that waits for them and returns
+    the answers."""
     import torch.multiprocessing as mp
 
     ctxs = {}
-    for i, op in enumerate(P16_GLOO_OPS):
+    for i, ops in enumerate(P16_GLOO_PAIRS):
         url = f"file://{os.path.join(work, f'gloo_store{i}')}"
-        ctxs[op] = mp.start_processes(p16_gloo_probe, args=(op, url,
-                                                            os.path.join(work, f"gloo{i}_")),
-                                      nprocs=2, join=False, start_method="spawn")
+        ctxs[ops] = mp.start_processes(p16_gloo_probe, args=(ops, url,
+                                                             os.path.join(work, "gloo")),
+                                       nprocs=2, join=False, start_method="spawn")
     return lambda: p16_gloo_answers(work, ctxs)
 
 
 def p16_gloo_answers(work: str, ctxs: dict) -> dict:
     takes = {}
-    for i, (op, ctx) in enumerate(ctxs.items()):
+    for ops, ctx in ctxs.items():
         why = ""
         try:
             while not ctx.join(timeout=120):
                 pass
         except Exception as e:  # noqa: BLE001 - a rank that died is the probe's answer
             why = f" ({type(e).__name__}: {str(e).splitlines()[0][:100]})"
-        got = []
-        for r in range(2):
-            path = os.path.join(work, f"gloo{i}_{r}.json")
-            got.append(json.load(open(path))["ok"] if os.path.isfile(path) else None)
-        takes[op] = ("yes" if got == [True, True] else
-                     f"no: results {got}{why}")
+        reached = True
+        for op in ops:
+            got = []
+            for r in range(2):
+                path = os.path.join(work, f"gloo{P16_GLOO_OPS.index(op)}_{r}.json")
+                got.append(json.load(open(path))["ok"] if os.path.isfile(path) else None)
+            if not reached:
+                takes[op] = "not reached: an op before it ended the processes"
+                continue
+            takes[op] = "yes" if got == [True, True] else f"no: results {got}{why}"
+            reached = got == [True, True]
     return takes
 
 
 def p16_build_model(cfg, tax, device=None):
     """`tools.train_sttran.build_model`, and on a rank of run_training's
     group a report of the rank's attention launches when the group shuts
-    down (<save_path>/launches<rank>.json): part (c)'s counts."""
+    down (<save_path>/launches<rank>.json): phase 17 (c)'s counts."""
     from nl_vsgg_tpu_torch.ops import masked_attention as ma
     from nl_vsgg_tpu_torch.parallel import distributed as pd
     from nl_vsgg_tpu_torch.tools import train_sttran as ts
@@ -4296,11 +4355,9 @@ def parallel_phases(dev, card, entries, ag: str, root: str) -> dict:
     card, 32 of those videos each: 3 steps against the one-process steps
     over all 64, BatchNorm buffers equal on both ranks, a NaN in rank 0's
     block skipped on both, one DSG-DETR sgdet DDP step on set (b), the
-    gloo collectives that take CUDA tensors; (c) `run_training` on phase
-    13's split with mesh.data 2 (its own 2 ranks on the card), 2 epochs,
-    the device store on: the primary alone checkpoints, the warm epoch
-    gathers from each rank's store, the merged R@20 against one evaluation
-    of the saved checkpoint; (d) on the ranks of (b), STTran's
+    gloo collectives that take CUDA tensors; (c), `run_training` with a
+    data axis, runs in phase 17 (c) on a mesh of both axes; (d) on the
+    ranks of (b), STTran's
     frame-sharded transformer (bf16 and float32) on one 32-frame video and
     DSG-DETR's token-sharded transformer on set (b) against the dense
     modules, the attention kernel on both sides. Returns the phase's
@@ -4311,18 +4368,13 @@ def parallel_phases(dev, card, entries, ag: str, root: str) -> dict:
     import torch
     import torch.multiprocessing as mp
 
-    from nl_vsgg_tpu_torch.data import schema
-    from nl_vsgg_tpu_torch.data.action_genome import AGTest
     from nl_vsgg_tpu_torch.data.entry import stack_entries
-    from nl_vsgg_tpu_torch.eval.epoch import evaluate_epoch, grounded_batches
     from nl_vsgg_tpu_torch.models.sttran import STTran
     from nl_vsgg_tpu_torch.ops import masked_attention as ma
     from nl_vsgg_tpu_torch.parallel import distributed as pd
     from nl_vsgg_tpu_torch.parallel.mesh import ALLREDUCE, data_parallel
-    from nl_vsgg_tpu_torch.tools import train_sttran as ts
     from nl_vsgg_tpu_torch.train.state import create_train_state
     from nl_vsgg_tpu_torch.train.step import make_train_step, place_entries
-    from nl_vsgg_tpu_torch.utils.config import load_config
 
     t_phase = time.perf_counter()
     counts: dict = {}
@@ -4412,8 +4464,9 @@ def parallel_phases(dev, card, entries, ag: str, root: str) -> dict:
         join=False, start_method="spawn"), timeout_s=P16_TIMEOUT_S * 2)
     ranks_s = time.perf_counter() - t0
     if gloo_answers is not None:
-        log(f"phase 16 gloo collectives on CUDA tensors (2 ranks on the card, each op in its "
-            f"own processes, beside part (b)): {gloo_answers()}; the port's point-to-point "
+        log(f"phase 16 gloo collectives on CUDA tensors (2 ranks on the card, the ops in "
+            f"{len(P16_GLOO_PAIRS)} pairs of processes {P16_GLOO_PAIRS}, beside part (b)): "
+            f"{gloo_answers()}; the port's point-to-point "
             f"exchange goes through pinned host memory under gloo (parallel/comm.py)")
     res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
     final0 = torch.load(os.path.join(work, "final0.pt"))
@@ -4473,61 +4526,6 @@ def parallel_phases(dev, card, entries, ag: str, root: str) -> dict:
     del final0, res, runs, psd, dsd
     shutil.rmtree(work, ignore_errors=True)
 
-    # ---- (c) run_training with mesh.data 2 on phase 13's split ----
-    out = os.path.join(root, "p16_run")
-    cfg = load_config(None, {
-        "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
-        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
-        "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": "bfloat16",
-        "batch_videos": B, "num_workers": 4, "remove_one_frame_video": False,
-        "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
-        "device_entry_store_gb": STORE_GB, "nepoch": 2, "save_path": out,
-        "mesh": {"data": 2, "model": 1},
-        "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
-    os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
-    t0 = time.perf_counter()
-    st = ts.run_training(cfg, types.SimpleNamespace(
-        max_videos=0, device=None if dev.type == "cuda" else "cpu"), p16_build_model)
-    p16_sync(dev)
-    run_s = time.perf_counter() - t0
-    ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        epochs = [r for r in map(json.loads, f) if "epoch" in r]
-    log_txt = open(os.path.join(out, "log.txt")).read()
-    gathered = [ln for ln in log_txt.splitlines() if "gathered batches this epoch" in ln]
-    launches = []
-    for r in range(2):
-        with open(os.path.join(out, f"launches{r}.json")) as f:
-            launches.append(json.load(f))
-    ds_test = AGTest(os.path.join(ag, "annotations"))
-    ev = evaluate_epoch(st.model, grounded_batches(
-        lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets), ds_test.gt_annotations,
-        range(len(ds_test)), B, 4), device=dev, zero_union=True)
-    diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
-    steps = 2 * (AG_VIDEOS // B)
-    eval_batches = -(-(len(ds_test) // 2) // B)     # a rank's shard, in batches of B
-    want_c = {"fwd": 4 * steps + 4 * 2 * eval_batches, "bwd_dq": 4 * steps,
-              "bwd_dkv": 4 * steps}
-    log(f"phase 16 (c) run_training, mesh.data 2 (2 ranks started by run_training on the one "
-        f"card, gloo), {AG_VIDEOS} videos x {N_FRAMES} frames, 2 epochs: {run_s:.3f} s wall "
-        f"(spawn, datasets, models, {st.step} steps, 2 sharded evals, 2 checkpoints by the "
-        f"primary); checkpoints {ckpt}; metrics epochs {[r['epoch'] for r in epochs]}; log "
-        f"lines from rank 1: {'process 1/2' in log_txt}; store: {gathered}; merged mean R@20 "
-        f"{epochs[-1]['mean_r20']:.6f} against one evaluation of the saved checkpoint "
-        f"{ev.mean_score(20):.6f} (difference {diff:.2e}, tol {P16_R20_ATOL}); launches a "
-        f"rank {launches}; card {card}")
-    if ckpt != ["0", "0.meta.json", "1", "1.meta.json", "configs.json"] \
-            or [r["epoch"] for r in epochs] != [0, 1] or "process 1/2" in log_txt \
-            or "process 0/2, backend gloo" not in log_txt or not gathered \
-            or " 0 gathered" in gathered[0] or (st.step, st.skipped) != (steps, 0) \
-            or diff > P16_R20_ATOL or any(x != want_c for x in launches):
-        fail("phase 16 (c): the 2-rank run_training did not train, gather, evaluate and "
-             f"checkpoint as expected (launches {launches}, expected {want_c} a rank)")
-    for x in launches:   # train forwards and evals apart
-        add({"fwd": 4 * steps, "bwd_dq": x["bwd_dq"], "bwd_dkv": x["bwd_dkv"]}, True)
-        add({"fwd": x["fwd"] - 4 * steps, "bwd_dq": 0, "bwd_dkv": 0}, False)
-    del st, ev
-    torch.cuda.empty_cache()
     log(f"parallel phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
     return counts
 
@@ -4540,12 +4538,15 @@ P17_RANKS = 2                    # the model axis of parts (a) - (c): mesh 1 x 2
 # activation) and the input gradients are summed over the ranks in float32:
 # phase 16 (b)'s tolerances, P16_LOSS_RTOL, P16_PARAM_ATOL and P16_BUF_REL.
 # (b) one DSG-DETR step the same way: parameters within 2.5 lr (one step).
-# (c) the 1x2 checkpoint in a 1x1 model: R@20 within P16_R20_ATOL. The run is
-# float32 (P17_RUN_DTYPE): the two evaluations batch the same videos, and
-# only the sliced GEMMs' rounding parts them; in bf16 that rounding ties and
-# unties the random weights' scores and moves R@20 by whole triplets.
-P17_RUN_DTYPE = "float32"
-P17_RUN_VIDEOS = B               # (c)'s --max_videos: one train step, one eval batch
+# (c) the checkpoint in a 1x1 model: R@20 within P16_R20_ATOL. The bf16 run
+# has a data axis only (phase 16 (c) of earlier slices): each data index
+# scores a whole batch of its shard, as the 1x1 evaluation does, with the
+# whole model. The model-axis run is float32: the two evaluations batch the
+# same videos, and only the sliced GEMMs' rounding parts them; in bf16 that
+# rounding ties and unties the random weights' scores and moves R@20 by
+# whole triplets. Each run: (mesh, dtype, --max_videos, epochs, batch_videos).
+P17_RUNS = (({"data": 2, "model": 1}, "bfloat16", 2 * B, 2, B),     # two steps an epoch
+            ({"data": 1, "model": P17_RANKS}, "float32", B // 4, 1, B // 4))   # one step
 # (d) remat against the dense step, same weights and generator: the forward
 # is the same launches on the same inputs, so the losses are equal; the
 # backward recomputes the wrapped layers' activations, equal if the kernels
@@ -4669,9 +4670,13 @@ def model_axis_phases(dev, card, entries, ag: str, root: str) -> dict:
     against the one-process steps over the same videos: each rank's resident
     parameter and AdamW bytes beside one process's, the bytes gathered and
     all-reduced a step, ms a step; (b) one DSG-DETR sgdet step on set (b) the
-    same way; (c) `run_training` with mesh {data 1, model 2}, float32, for 1
-    epoch on P17_RUN_VIDEOS of phase 13's videos (its own 2 ranks), its
-    checkpoint restored into a 1 x 1 model giving the run's R@20; (d) one
+    same way; (c) `run_training` on each mesh of P17_RUNS (its own ranks),
+    the device store on: {data 2, model 1} in bf16 for 2 epochs on 2 B of
+    phase 13's videos in batches of B, then {data 1, model 2} in float32
+    for 1 epoch on one batch of B / 4:
+    only the primary checkpoints and logs, the warm epoch gathers from each
+    data index's store, the merged R@20 of the sharded evals against the
+    checkpoint restored into a 1 x 1 model; (d) one
     train step with remat on and off, dropout on, from one generator seed:
     the same losses and generator state, the parameters within
     P17_REMAT_ATOL, the step's peak memory each way, and the relation
@@ -4910,64 +4915,333 @@ def model_axis_phases(dev, card, entries, ag: str, root: str) -> dict:
     counts["roi_align"] = counts.get("roi_align", 0) + a_launch
     del fmap, rois, got, aligned, batch
 
-    # ---- (c) run_training with the model axis, 1 epoch ----
-    out = os.path.join(root, "p17_run")
-    cfg = load_config(None, {
-        "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
-        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
-        "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": P17_RUN_DTYPE,
-        "batch_videos": B, "num_workers": 4, "remove_one_frame_video": False,
-        "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
-        "nepoch": 1, "save_path": out, "mesh": {"data": 1, "model": P17_RANKS},
-        "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
-    os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
-    peak_reset()
-    t0 = time.perf_counter()
-    ts.run_training(cfg, types.SimpleNamespace(
-        max_videos=P17_RUN_VIDEOS, device=None if cuda else "cpu"), p16_build_model)
-    p16_sync(dev)
-    run_s = time.perf_counter() - t0
-    ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        epochs = [r for r in map(json.loads, f) if "epoch" in r]
-    log_txt = open(os.path.join(out, "log.txt")).read()
-    launches = []
-    for r in range(P17_RANKS):
-        with open(os.path.join(out, f"launches{r}.json")) as f:
-            launches.append(json.load(f))
-    one = ts.build_model(cfg, schema.load_taxonomy(), dev)       # never sharded
-    st = restore_checkpoint(os.path.join(out, "ckpt"), create_train_state(one))
-    ds_test = AGTest(os.path.join(ag, "annotations"))
-    n_test = min(P17_RUN_VIDEOS, len(ds_test))
-    ev = evaluate_epoch(st.model, grounded_batches(
-        lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets), ds_test.gt_annotations,
-        range(n_test), B, 4, ordered=True), device=dev, zero_union=True)
-    diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
-    steps = min(P17_RUN_VIDEOS, AG_VIDEOS) // B
-    eval_batches = -(-n_test // B)      # every rank of the one model group scores them all
-    want_c = {"fwd": 4 * steps + 4 * eval_batches, "bwd_dq": 4 * steps, "bwd_dkv": 4 * steps}
-    log(f"phase 17 (c) run_training, mesh 1 x {P17_RANKS} (its own ranks on the card, gloo), "
-        f"{P17_RUN_DTYPE}, {min(P17_RUN_VIDEOS, AG_VIDEOS)} of the {AG_VIDEOS} videos x "
-        f"{N_FRAMES} frames and {n_test} test videos, 1 epoch: {run_s:.3f} s wall (spawn, "
-        f"datasets, models sliced, {steps} steps, the eval, a checkpoint gathered by the model group and "
-        f"written by the primary); checkpoints {ckpt}; mean R@20 {epochs[-1]['mean_r20']:.6f} "
-        f"against the checkpoint restored into a 1 x 1 model {ev.mean_score(20):.6f} "
-        f"(difference {diff:.2e}, tol {P16_R20_ATOL}); launches a rank {launches}; card {card}")
-    if ckpt != ["0", "0.meta.json", "configs.json"] or [r["epoch"] for r in epochs] != [0] \
-            or "model axis: 2 ranks a replica" not in log_txt or "process 1/2" in log_txt \
-            or diff > P16_R20_ATOL or any(x != want_c for x in launches):
-        fail("phase 17 (c): run_training with the model axis did not train, evaluate and "
-             f"checkpoint as expected (launches {launches}, expected {want_c} a rank)")
-    for x in launches:
-        add({"fwd": 4 * steps, "bwd_dq": x["bwd_dq"], "bwd_dkv": x["bwd_dkv"]}, True)
-        add({"fwd": x["fwd"] - 4 * steps, "bwd_dq": 0, "bwd_dkv": 0}, False)
-    del st, one, ev
-    shutil.rmtree(out, ignore_errors=True)
-    if cuda:
-        torch.cuda.empty_cache()
+    # ---- (c) run_training on a data axis (bf16), then on a model axis (float32) ----
+    for mesh_c, dtype_c, videos_c, nepoch_c, batch_c in P17_RUNS:
+        out = os.path.join(root, "p17_run")
+        n_ranks = mesh_c["data"] * mesh_c["model"]
+        cfg = load_config(None, {
+            "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
+            "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+            "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": dtype_c,
+            "batch_videos": batch_c, "num_workers": 4, "remove_one_frame_video": False,
+            "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
+            "device_entry_store_gb": STORE_GB, "nepoch": nepoch_c, "save_path": out,
+            "mesh": mesh_c,
+            "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
+        os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
+        peak_reset()
+        t0 = time.perf_counter()
+        st = ts.run_training(cfg, types.SimpleNamespace(
+            max_videos=videos_c, device=None if cuda else "cpu"), p16_build_model)
+        p16_sync(dev)
+        run_s = time.perf_counter() - t0
+        ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "epoch" in r]
+        log_txt = open(os.path.join(out, "log.txt")).read()
+        gathered = [ln for ln in log_txt.splitlines() if "gathered batches this epoch" in ln]
+        launches = []
+        for r in range(n_ranks):
+            with open(os.path.join(out, f"launches{r}.json")) as f:
+                launches.append(json.load(f))
+        one = ts.build_model(cfg, schema.load_taxonomy(), dev)       # never sharded
+        st = restore_checkpoint(os.path.join(out, "ckpt"), create_train_state(one))
+        ds_test = AGTest(os.path.join(ag, "annotations"))
+        n_run, n_test = min(videos_c, AG_VIDEOS), min(videos_c, len(ds_test))
+        ev = evaluate_epoch(st.model, grounded_batches(
+            lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets),
+            ds_test.gt_annotations, range(n_test), batch_c, 4, ordered=True), device=dev,
+            zero_union=True)
+        diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
+        steps = nepoch_c * (n_run // batch_c)
+        # each data index scores its shard of the test videos, every rank of its model group
+        eval_batches = nepoch_c * -(-(n_test // mesh_c["data"]) // batch_c)
+        want_c = {"fwd": 4 * steps + 4 * eval_batches, "bwd_dq": 4 * steps,
+                  "bwd_dkv": 4 * steps}
+        want_ckpt = sorted([str(e) for e in range(nepoch_c)]
+                           + [f"{e}.meta.json" for e in range(nepoch_c)] + ["configs.json"])
+        log(f"phase 17 (c) run_training, mesh {mesh_c} (its own {n_ranks} ranks on the "
+            f"card, gloo), {dtype_c}, {n_run} of the {AG_VIDEOS} videos x {N_FRAMES} frames "
+            f"in batches of {batch_c} and {n_test} test videos, {nepoch_c} epochs, the device "
+            f"store on: {run_s:.3f} s "
+            f"wall (spawn, datasets, models, {steps} steps, {nepoch_c} sharded evals, "
+            f"{nepoch_c} checkpoints gathered by a model group and written by the primary); "
+            f"checkpoints {ckpt}; metrics epochs {[r['epoch'] for r in epochs]}; log lines "
+            f"from other ranks: {'process 1/' in log_txt}; store: {gathered}; merged mean R@20 "
+            f"{epochs[-1]['mean_r20']:.6f} against the checkpoint restored into a 1 x 1 model "
+            f"{ev.mean_score(20):.6f} (difference {diff:.2e}, tol {P16_R20_ATOL}); launches a "
+            f"rank {launches}; card {card}")
+        if ckpt != want_ckpt or [r["epoch"] for r in epochs] != list(range(nepoch_c)) \
+                or "process 1/" in log_txt \
+                or f"process 0/{n_ranks}, backend gloo" not in log_txt \
+                or (mesh_c["model"] > 1
+                    and f"model axis: {mesh_c['model']} ranks a replica" not in log_txt) \
+                or (mesh_c["data"] > 1 and f"device entry store sharded over "
+                    f"{mesh_c['data']} ranks" not in log_txt) \
+                or (nepoch_c > 1 and (not gathered or " 0 gathered" in gathered[0])) \
+                or diff > P16_R20_ATOL or any(x != want_c for x in launches):
+            fail(f"phase 17 (c): run_training on mesh {mesh_c} ({dtype_c}) did not train, "
+                 f"gather, evaluate and checkpoint as expected (launches {launches}, expected "
+                 f"{want_c} a rank)")
+        for x in launches:
+            add({"fwd": 4 * steps, "bwd_dq": x["bwd_dq"], "bwd_dkv": x["bwd_dkv"]}, True)
+            add({"fwd": x["fwd"] - 4 * steps, "bwd_dq": 0, "bwd_dkv": 0}, False)
+        del st, one, ev
+        shutil.rmtree(out, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
     log(f"phase 17 launches by kernels row: {counts}")
     log(f"model axis phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
     return counts
+
+
+# ------------------------------------------------------- the acceptance runbook
+P18_EPOCHS = 3                   # --train_e2e: a cold epoch and two warm ones, each over
+#                                  the whole train split (--max_videos 0), so that every
+#                                  warm epoch (a new permutation of it) is in the store
+P18_ORACLE = 50                  # --oracle_videos
+P18_TEST_VIDEOS = 16             # the test split's videos (the eval with live union
+#                                  features, the oracle: --oracle_videos 50 scores all 16):
+#                                  a view of phase 13's dataset with the first 16 annotated
+P18_TAR_SEED = 18                # the reference-layout STTran .tar's generator
+P18_STAGES = ("validate_vinvl", "convert_vinvl", "validate_clip", "oracle_grounding",
+              "train_e2e", "convert_relation", "eval")
+P18_ROWS = ("masked_mha", "masked_mha_fwd_train", "masked_mha_bwd_dq", "masked_mha_bwd_dkv",
+            "masked_mha_clip_vision", "masked_mha_clip_text", "roi_align", "grouped_conv3x3",
+            "grouped_conv3x3_fp32")
+
+
+def test_split_view(ag: str, dst: str, n: int) -> str:
+    """A view of the synthetic Action Genome at `ag` whose test split holds
+    its first `n` videos: the train split's files linked, the test
+    annotations cut to those videos. Returns its directory."""
+    import pickle
+
+    os.makedirs(os.path.join(dst, "annotations"))
+    for name in os.listdir(ag):
+        if name != "annotations":
+            os.symlink(os.path.join(ag, name), os.path.join(dst, name))
+    keep = {f"vid{v:03d}.mp4" for v in range(n)}
+    for name in os.listdir(os.path.join(ag, "annotations")):
+        with open(os.path.join(ag, "annotations", name), "rb") as f:
+            table = pickle.load(f)
+        with open(os.path.join(dst, "annotations", name), "wb") as f:
+            pickle.dump({k: v for k, v in table.items() if k.split("/")[0] in keep}, f)
+    return dst
+
+
+def write_standins(work: str, dev, npz: bool = False) -> dict:
+    """The seeded checkpoints phases 18 and 15 share, written to `work`:
+    phase 8's detector weights (seed 5) as a VinVL .pth and the synthetic
+    DAC LLM_cp.pt (seed 15). With `npz`, also the .pth through
+    `tools.convert_vinvl` (phase 18 leaves that to the runbook's
+    convert_vinvl stage). Returns {"pth", "dac", "n_dac", "pth_s", and with
+    npz "npz", "npz_s", "npz_by"}: paths, the DAC's weights, seconds, the
+    writer's name."""
+    import torch
+
+    from nl_vsgg_tpu_torch.detector.convert import to_maskrcnn_state_dict
+    from nl_vsgg_tpu_torch.tools import convert_vinvl
+
+    os.makedirs(work, exist_ok=True)
+    made = {"pth": os.path.join(work, "vinvl.pth"), "dac": os.path.join(work, "LLM_cp.pt")}
+    t0 = time.perf_counter()
+    torch.save(to_maskrcnn_state_dict(detector_weights(5, dev)), made["pth"])
+    made["pth_s"] = time.perf_counter() - t0
+    made["n_dac"] = sum(v.numel() for v in dac_checkpoint(made["dac"], seed=15).values())
+    if npz:
+        made["npz"] = os.path.join(work, "vinvl.npz")
+        t0 = time.perf_counter()
+        convert_vinvl.main([made["pth"], made["npz"]])
+        made["npz_s"] = time.perf_counter() - t0
+        made["npz_by"] = "write_standins"
+    return made
+
+
+def acceptance_phases(dev, card, ag: str, work: str, standins: dict) -> tuple[dict, dict]:
+    """Phase 18: the acceptance runbook (`tools.acceptance.run`) at full
+    width on seeded stand-ins: `write_standins`' VinVL .pth and DAC
+    LLM_cp.pt, a reference-layout STTran sgdet .tar (wk, 1 + 3 layers, feat
+    2048, embed 1936, saved from the port's module) and phase 13's
+    synthetic Action Genome, its test split cut to P18_TEST_VIDEOS videos
+    (`test_split_view`), all in `work`. Run 1 (the convert_vinvl stage's
+    .npz written without zlib, np.savez): --vinvl --clip
+    --relation_ckpt --train_e2e P18_EPOCHS --oracle_videos P18_ORACLE over
+    the whole splits, bf16, batches of B, the eval with live union features
+    from the converted .npz (bf16 detector, frames from an injected
+    reader), its Entries kept in an Entry cache with float32 union
+    features; every stage must pass, the kernels' launch counts set to 0
+    just before and read just after. Its eval's rows against
+    `tools.test_sttran.main` run directly on the converted checkpoint with
+    the eval's own config (exact, sorted); each train_e2e epoch's frames
+    against the sum of its grounded videos'; the warm epochs wholly from
+    the device store. Run 2: an expected.json of run 1's numbers, rc 0; run
+    3: each moved 1 point, rc 1 and parity_gate the one failed stage. The
+    numbers come from the stages `run` returns. Returns (launch counts by
+    `kernels` row name, {"npz": the converted .npz, "npz_s": its stage's
+    wall, "npz_by"})."""
+    import torch
+
+    from nl_vsgg_tpu_torch.data.action_genome import AGTrain
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, masked_attention as ma, roi_align as ra
+    from nl_vsgg_tpu_torch.tools import acceptance, test_sttran
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    # ---- the stand-ins: the shared checkpoints, the .tar, the test split's view ----
+    t0 = time.perf_counter()
+    pth, dac, tar = standins["pth"], standins["dac"], os.path.join(work, "sttran.tar")
+    model = STTran(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=3, device=dev,
+                   generator=torch.Generator().manual_seed(P18_TAR_SEED))
+    torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+                "epoch": 1}, tar)
+    del model
+    ff = os.path.join(ag, "frame_features")
+    ag = test_split_view(ag, os.path.join(work, "AG"), P18_TEST_VIDEOS)
+    conf = {"mode": "sgdet", "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3,
+            "dtype": "bfloat16", "data_path": ag, "frame_features_path": ff,
+            "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+            "save_path": os.path.join(work, "out"), "batch_videos": B, "num_workers": 4,
+            "remove_one_frame_video": False, "union_box_feature": True,
+            "vinvl_dtype": "bfloat16", "union_feat_cache_dtype": "float32",
+            "entry_cache": os.path.join(work, "entries"),
+            "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES],
+                        "max_rels": [N_RELS]}}
+    cfg_path = os.path.join(work, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(conf, f)
+    log(f"phase 18 stand-ins: VinVL .pth {os.path.getsize(pth)} bytes (written in "
+        f"{standins['pth_s']:.3f} s), DAC LLM_cp.pt {standins['n_dac']} weights "
+        f"({os.path.getsize(dac)} bytes), STTran .tar {os.path.getsize(tar)} bytes and the "
+        f"test split's view written in {time.perf_counter() - t0:.3f} s")
+
+    def read_frames(ds, idx):
+        rng = np.random.default_rng(AG_SEED + 200 + idx)
+        return [rng.integers(0, 256, (*UNION_HW, 3), dtype=np.uint8) for _ in ds.video_list[idx]]
+
+    def run(argv):
+        """acceptance.run on `argv`: (rc, {stage: Stage}, failed stages, wall s)."""
+        t0 = time.perf_counter()
+        rc, stages = acceptance.run(argv, read_frames=read_frames)
+        torch.cuda.synchronize()
+        return (rc, {st.name: st for st in stages}, [st.name for st in stages if not st.ok],
+                time.perf_counter() - t0)
+
+    def walls(stages) -> dict:
+        return {n: round(st.wall_s, 3) for n, st in stages.items()}
+
+    # ---- run 1: every stage ----
+    out1 = os.path.join(work, "run1")
+    argv1 = ["--cfg", cfg_path, "--vinvl", pth, "--clip", dac, "--relation_ckpt", tar,
+             "--out_dir", out1, "--train_e2e", str(P18_EPOCHS), "--oracle_videos",
+             str(P18_ORACLE)]
+    ma.reset_launches()
+    ra.reset_launches()
+    gc.reset_launches()
+    box = {}
+    # the convert_vinvl stage writes its .npz uncompressed, as the CPU tests
+    # do: zlib over 146 M random weights took 28.8-39.1 s and is not under test
+    savez_compressed, np.savez_compressed = np.savez_compressed, np.savez
+    try:
+        by_route = launches_by_route(ma, lambda: box.update(zip(("rc", "stages", "failed", "s"),
+                                                                run(argv1))))
+    finally:
+        np.savez_compressed = savez_compressed
+    got_ma, got_ra, got_gc = dict(ma.LAUNCHES), ra.LAUNCHES["roi_align"], \
+        dict(gc.ROUTE_LAUNCHES)
+    rc1, stages1 = box["rc"], box["stages"]
+    verdicts = {n: "PASS" if st.ok else "FAIL" for n, st in stages1.items()}
+    log(f"phase 18 run 1 ({AG_VIDEOS} train and {P18_TEST_VIDEOS} test videos, "
+        f"{P18_EPOCHS} train_e2e epochs, {P18_ORACLE} oracle videos): rc {rc1} in "
+        f"{box['s']:.3f} s; stages {verdicts}; stage walls (s) {walls(stages1)}; card {card}")
+    if rc1 != 0 or verdicts != dict.fromkeys(P18_STAGES, "PASS"):
+        fail(f"phase 18 run 1: rc {rc1}, stages {verdicts}")
+
+    # the train_e2e epochs: each step's 4 training forwards are each followed by
+    # one dQ and one dK/dV launch, the warm-up step included
+    epochs = stages1["train_e2e"].data["epochs"]
+    steps = 1 + sum(e["stored"] + e["streamed"] for e in epochs)
+    staged = by_route.get(("staged", H), 0)
+    counts = {"masked_mha": staged - 4 * steps, "masked_mha_fwd_train": 4 * steps,
+              "masked_mha_bwd_dq": got_ma["bwd_dq"], "masked_mha_bwd_dkv": got_ma["bwd_dkv"],
+              "masked_mha_clip_vision": by_route.get(("resident", 12), 0),
+              "masked_mha_clip_text": by_route.get(("resident", 8), 0),
+              "roi_align": got_ra, "grouped_conv3x3": got_gc["tc"],
+              "grouped_conv3x3_fp32": got_gc["3xtf32"]}
+    routes = {f"{r} x{h}": n for (r, h), n in by_route.items()}
+    log(f"phase 18 run 1 launches by kernels row: {counts}; attention forwards by route and "
+        f"heads {routes}; grouped conv by route {got_gc}; {steps} train steps")
+    other = sum(by_route.values()) - staged - counts["masked_mha_clip_vision"] \
+        - counts["masked_mha_clip_text"]
+    if any(counts[n] < 1 for n in P18_ROWS) or other or got_gc["fma"] \
+            or got_ma["bwd_dq"] != 4 * steps or got_ma["bwd_dkv"] != 4 * steps:
+        fail(f"phase 18: a kernel row of the runbook's path launched no time, or off its "
+             f"route: {counts}, forwards by route {routes}, grouped conv {got_gc}")
+
+    # the oracle's ceiling, the train_e2e epochs against the grounded frames
+    oracle = stages1["oracle_grounding"].data
+    if oracle["r20"] < 0.3:
+        fail(f"phase 18: the oracle's ceiling R@20 {oracle['r20']} under --oracle_min 0.3")
+    cfg = load_config(cfg_path)
+    ds = AGTrain(ag, pseudo_label_path=cfg.pseudo_localized_SG_path,
+                 remove_one_frame_video=False)
+    n_vid = len(ds) - len(ds) % B
+    want = []
+    for e in range(P18_EPOCHS):   # each video's own grounded frames (Entry-cache hits)
+        order = np.random.default_rng(cfg.seed + e).permutation(len(ds))[:n_vid]
+        got = [ts.ground_video(ds, int(i), cfg, True, cfg.buckets) for i in order]
+        want.append(sum(int(x.num_frames) for x in got if x is not None))
+    log(f"phase 18 train_e2e: {epochs}; grounded frames an epoch {want}; oracle "
+        f"{oracle['videos']} videos, ceiling R@20 {oracle['r20']:.4f}")
+    if len(epochs) != P18_EPOCHS or [x["frames"] for x in epochs] != want \
+            or any(x["stored"] != n_vid // B or x["streamed"] for x in epochs[1:]) \
+            or any(x["skipped"] or not x["finite"] for x in epochs):
+        fail(f"phase 18 train_e2e: epochs {epochs}, grounded frames {want}, expected "
+             f"{n_vid // B} stored batches and none streamed in each warm epoch")
+    log(f"phase 18 train_e2e frames/s: cold {epochs[0]['frames_per_s']:.1f}, warm "
+        f"{[round(x['frames_per_s'], 1) for x in epochs[1:]]}; card {card}")
+
+    # the eval against test_sttran.main run directly on the same config
+    ev1 = stages1["eval"].data["evaluator"]
+    conv = os.path.join(out1, "relation_ckpt")
+    t0 = time.perf_counter()
+    direct = test_sttran.main(["--cfg", os.path.join(out1, "eval_config.json"),
+                               "--model_path", conv], read_frames=read_frames)
+    direct_s = time.perf_counter() - t0
+    a, b = sorted_rows(ev1), sorted_rows(direct)
+    if any(not np.array_equal(a[k], b[k]) for k in a) or not len(a["recall", 20]):
+        fail("phase 18: the runbook's eval rows differ from test_sttran.main's on the same "
+             "checkpoint and config")
+    log(f"phase 18 eval: " + recall_line(ev1) + f"; test_sttran.main directly "
+        f"({direct_s:.3f} s, its Entries from the cache run 1 filled): every R@K row equal")
+
+    # ---- runs 2 and 3: the parity gate ----
+    ks = (10, 20, 50)
+    exact = {"recall": {str(k): float(np.mean(ev1.recall[k])) for k in ks},
+             "recall_nogc": {str(k): float(np.mean(ev1.recall_nogc[k])) for k in ks},
+             "mean_recall": {str(k): float(v) for k, v in ev1.mean_recall.mean_recall.items()}}
+    npz = os.path.join(out1, "vinvl_converted.npz")
+    cfg2 = os.path.join(work, "cfg2.json")
+    with open(cfg2, "w") as f:
+        json.dump(dict(conf, vinvl_ckpt=npz, ckpt=npz), f)
+    for n, moved, want_rc in ((2, 0.0, 0), (3, 0.01, 1)):
+        exp = os.path.join(work, f"expected{n}.json")
+        with open(exp, "w") as f:
+            json.dump({g: {k: v + moved for k, v in d.items()} for g, d in exact.items()}, f)
+        rc, stages, failed, s = run(["--cfg", cfg2, "--relation_ckpt", conv, "--out_dir",
+                                     os.path.join(work, f"run{n}"), "--oracle_videos", "0",
+                                     "--expected_json", exp])
+        log(f"phase 18 run {n} (expected {'moved 1 point' if moved else 'from run 1'}): rc "
+            f"{rc}, failed stages {failed} in {s:.3f} s; stage walls (s) {walls(stages)}")
+        if rc != want_rc or list(stages) != ["eval", "parity_gate"] \
+                or failed != (["parity_gate"] if moved else []):
+            fail(f"phase 18 run {n}: rc {rc}, failed stages {failed}, expected rc {want_rc}")
+    log(f"phase 18 launches by kernels row: {counts}")
+    log(f"acceptance phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
+    return counts, {"npz": npz, "npz_s": stages1["convert_vinvl"].wall_s,
+                    "npz_by": "phase 18's convert_vinvl stage"}
 
 
 def main() -> None:
@@ -5007,6 +5281,15 @@ def main() -> None:
                          timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "not read"
     log(f"card: {card}")
+
+    walls = {"1 build": round(time.perf_counter() - t_start, 1)}
+    t_mark = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        """The wall since the last mark, under `name`."""
+        nonlocal t_mark
+        walls[name] = round(time.perf_counter() - t_mark, 1)
+        t_mark = time.perf_counter()
 
     # ---- 2. kernel vs plain version at the path's shapes ----
     g = torch.Generator(device=dev).manual_seed(0)
@@ -5086,6 +5369,7 @@ def main() -> None:
     dq_edge_checks(ma, g, dev)
     route_edge_checks(ma, g, dev)
 
+    phase_done("2 kernels")
     # ---- 3. the main path at full width ----
     t0 = time.perf_counter()
     rng = np.random.default_rng(1000)
@@ -5232,42 +5516,68 @@ def main() -> None:
             f"{r['bound_ms']:.4f} ms = {r['ms'] / train_ms[True] * 100:.2f}% of the step")
     profile_table(lambda: step(st, batch, gen)[0], train_ms[True], "bf16 train step")
 
+    phase_done("3-6 serving and training")
     # ---- 7-9. the detector path ----
     del models, batches, batch, steps, st, step, records, captured
     torch.cuda.empty_cache()
     det16, det_rows = detector_phases(dev, card)
 
+    phase_done("7-9 detector")
     # ---- 10. the probe path ----
     torch.cuda.empty_cache()
     probe_rows = probe_phases(dev, card)
+    phase_done("10 probes")
 
     # ---- 11. the evaluation path ----
     torch.cuda.empty_cache()
     eval_phases(dev, card, entries)
+    phase_done("11 evaluation")
 
     # ---- 12. DSG-DETR ----
     torch.cuda.empty_cache()
     dsg_rows = dsg_detr_phases(dev, card, entries)
+    phase_done("12 DSG-DETR")
 
     # ---- 13. the data path: Action Genome on disk -> grounding -> training, ----
     # ---- 14. then the entry points on the same dataset ----
-    torch.cuda.empty_cache()
-    p14, p16, p17 = {}, {}, {}
+    import shutil
+    import tempfile
 
-    def on_dataset(ag, root):   # phase 14, then phases 16 and 17 on the same dataset
+    torch.cuda.empty_cache()
+    p14, p16, p17, p18 = {}, {}, {}, {}
+    # phase 18's checkpoints outlive phase 13's dataset: phase 15 reads them too
+    shared = tempfile.mkdtemp(prefix="phase18_", dir=os.path.join(HERE, "build"))
+    artifacts = {}
+
+    def on_dataset(ag, root):   # phases 14, 16, 17 and 18 on the same dataset
+        phase_done("13 data path")
         p14.update(entry_point_phases(dev, card, ag, root))
+        phase_done("14 entry points")
         torch.cuda.empty_cache()
         p16.update(parallel_phases(dev, card, entries, ag, root))
+        phase_done("16 parallel")
         torch.cuda.empty_cache()
         p17.update(model_axis_phases(dev, card, entries, ag, root))
-    data_phases(dev, card, det16, then=on_dataset)
-    del det16
+        phase_done("17 model axis")
+        torch.cuda.empty_cache()
+        artifacts.update(write_standins(shared, dev))
+        counts, made = acceptance_phases(dev, card, ag, shared, artifacts)
+        p18.update(counts)
+        artifacts.update(made)
+        phase_done("18 acceptance")
+    try:
+        data_phases(dev, card, det16, then=on_dataset)
+        del det16
+        phase_done("13 data path, after its callbacks")
 
-    # ---- 15. the offline label pipeline ----
-    torch.cuda.empty_cache()
-    p15, clip_rows = offline_phases(dev, card)
+        # ---- 15. the offline label pipeline ----
+        torch.cuda.empty_cache()
+        p15, clip_rows = offline_phases(dev, card, artifacts)
+        phase_done("15 offline")
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
 
-    # ---- 18. result lines ----
+    # ---- 19. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),
@@ -5276,11 +5586,13 @@ def main() -> None:
                attention_row("masked_mha_bwd_dkv", 157, train_launches[True]["bwd_dkv"],
                              train_rows["bwd_dkv"])]
     kernels += det_rows + probe_rows + dsg_rows + clip_rows
-    for row in kernels:       # phases 14's to 17's launches, 0 off their paths
+    for row in kernels:       # phases 14's to 18's launches, 0 off their paths
         row["launches_entry_points"] = p14.get(row["name"], 0)
         row["launches_offline"] = p15.get(row["name"], 0)
         row["launches_parallel"] = p16.get(row["name"], 0)
         row["launches_model_axis"] = p17.get(row["name"], 0)
+        row["launches_acceptance"] = p18.get(row["name"], 0)
+    log(f"phase walls (s): {json.dumps(walls)}")
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("masked_attention", "roi_align", "grouped_conv", "probe_copy", "probe_matmul",
            "grouped_conv_ablate")
+# --split-compile=0: nvcc runs its optimizer and ptxas over the source's kernels on every
+# core; the attention source's many instances built in about 60 s without it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0")
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 

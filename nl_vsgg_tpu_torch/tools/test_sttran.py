@@ -185,7 +185,7 @@ def config_for(args):
 def main(argv=None, build_model_fn=build_model, read_frames=None) -> SceneGraphEvaluator:
     """`build_model_fn(cfg, tax, device)` lets tools/test_dsg_detr run the
     same loop with its builder; `read_frames` replaces the cv2 frame
-    reader of the predcls / sgcls builder."""
+    reader of the predcls / sgcls builder and of sgdet's union features."""
     args = parse_args(argv)
     cfg = config_for(args)
     device = resolve_device(args.device)
@@ -206,7 +206,8 @@ def main(argv=None, build_model_fn=build_model, read_frames=None) -> SceneGraphE
     else:
         # the union-feature wiring of training: zeroed union features against
         # a checkpoint trained on real ones would skew R@K
-        union_provider = make_union_provider(cfg, logger, device=device)
+        union_provider = make_union_provider(cfg, logger, read_frames=read_frames,
+                                             device=device)
         zero_union = union_provider is None
         get_entry = lambda i: ground_video(ds_test, i, cfg, False, cfg.buckets,  # noqa: E731
                                            union_provider=union_provider)

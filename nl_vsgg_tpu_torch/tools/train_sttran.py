@@ -109,14 +109,16 @@ from ..utils.profiling import PhaseTimer, trace
 
 
 def load_vinvl_state_dict(path: str) -> dict:
-    """The port's detector state_dict from a VinVL checkpoint (.pth: the
-    maskrcnn_benchmark layout, or a dict holding it under 'model')."""
+    """The port's detector state_dict from a VinVL checkpoint: a .pth (the
+    maskrcnn_benchmark layout, or a dict holding it under 'model') or the
+    .npz tools/convert_vinvl writes, read by `detector.convert.
+    load_checkpoint` as the JAX tool reads it."""
+    from ..detector import convert
+
     if path.endswith(".npz"):
-        raise ValueError(f"{path}: .npz VinVL checkpoints (tools/convert_vinvl.py) are not "
-                         "read by the port yet; pass the .pth checkpoint")
-    from ..detector.convert import from_maskrcnn_state_dict
+        return convert.load_checkpoint(path)
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    return from_maskrcnn_state_dict(sd.get("model", sd))
+    return convert.from_maskrcnn_state_dict(sd.get("model", sd))
 
 
 def on_card_runner(get_detector):

@@ -11,7 +11,10 @@ Each rank runs on the CPU over gloo, with collective timeouts of
 NL_VSGG_DIST_TIMEOUT_S (60 s in the tests), and writes its result to
 <out_dir>/rank<r>.pt. This module imports torch, numpy and the port only:
 the JAX references run in the test's own process. `run_job` starts the
-ranks and collects their results.
+ranks and collects their results. A rank reads its payload before the
+rendezvous, so no peer's clock runs meanwhile. Seeded models travel as
+recipes (`model_recipe`), which each rank rebuilds (`build_model`),
+instead of as pickled weights.
 """
 
 from __future__ import annotations
@@ -20,16 +23,41 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-JOIN_TIMEOUT_S = 120
+# a job's wall, all its ranks: the tp job at 1x2 takes about 30 s alone on 8 cores; beside
+# the rest of the suite under `-n 6` the slowest jobs took 142-188 s (train x2, tp x2, on
+# an overloaded 8-core machine), past the 120 s this limit once was. A rank hung in a
+# collective ends at DIST_TIMEOUT_S; any other hang ends here
+JOIN_TIMEOUT_S = 400
 DIST_TIMEOUT_S = 60
+
+
+def model_recipe(cls: str, seed: int, **kwargs) -> dict:
+    """A seeded model as the ranks rebuild it: `cls` "STTran" or "DSGDETR",
+    its constructor's keyword arguments, the weights drawn from a
+    torch.Generator seeded `seed` (on the CPU)."""
+    return dict(kwargs, cls=cls, seed=seed)
+
+
+def build_model(recipe: dict):
+    """The model of `model_recipe`, bit-identical in every process."""
+    import torch
+
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+
+    kw = dict(recipe)
+    cls = {"STTran": STTran, "DSGDETR": DSGDETR}[kw.pop("cls")]
+    return cls(device="cpu", generator=torch.Generator().manual_seed(kw.pop("seed")), **kw)
 
 
 def run_job(mode: str, tmp_path, world: int, payload: dict, threads: int = 1) -> list:
     """Start `world` ranks of `mode` on `payload`; returns their results in
-    rank order. A rank that fails or outlives JOIN_TIMEOUT_S fails the
-    test with every rank's output."""
+    rank order. A rank that fails, or a job that outlives JOIN_TIMEOUT_S
+    (one deadline for all its ranks), fails the test with each failed
+    rank's output. The job's wall is printed (`pytest -rP` shows it)."""
     import torch
 
     job = tmp_path / f"{mode}_{world}"
@@ -40,31 +68,56 @@ def run_job(mode: str, tmp_path, world: int, payload: dict, threads: int = 1) ->
                 "NL_VSGG_NUM_PROCESSES": str(world), "NL_VSGG_DIST_TIMEOUT_S": str(DIST_TIMEOUT_S),
                 "NL_VSGG_JOIN_TIMEOUT_S": str(JOIN_TIMEOUT_S), "OMP_NUM_THREADS": str(threads),
                 "NL_VSGG_TEST_THREADS": str(threads), "PYTHONPATH": REPO})
-    procs = []
+    procs, logs = [], []
+    t0 = time.monotonic()
     for r in range(world):
         env["NL_VSGG_PROCESS_ID"] = str(r)
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "tests._torch_dist_worker", mode, str(job / "payload.pt"),
              str(job)], cwd=REPO, env=dict(env), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT))
-    logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0].decode("utf-8", "replace"))
+            left = max(t0 + JOIN_TIMEOUT_S - time.monotonic(), 0.1)
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        pass   # the ranks still running are killed and reported below
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+        logs += [p.communicate()[0] for p in procs[len(logs):]]
+    print(f"run_job {mode} x{world}: {time.monotonic() - t0:.1f} s (limit {JOIN_TIMEOUT_S} s)")
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    assert not bad, "\n".join(f"rank {r} rc={procs[r].returncode}\n{logs[r][-3000:]}"
-                              for r in bad)
+    assert not bad, "\n".join(
+        f"rank {r} rc={procs[r].returncode}\n{logs[r].decode('utf-8', 'replace')[-3000:]}"
+        for r in bad)
     out = [torch.load(job / f"rank{r}.pt", weights_only=False) for r in range(world)]
     shutil.rmtree(job, ignore_errors=True)  # payloads hold models of a few hundred MB
     return out
 
 
 # ---------------------------------------------------------------- the ranks
+class Models:
+    """A rank's models, each recipe built once: `get(recipe)` returns a
+    fresh copy of it; `digests()` the built weights' digests, by recipe,
+    for the test to hold against its own model's."""
+
+    def __init__(self):
+        self.built: dict = {}
+
+    def get(self, recipe: dict):
+        import copy
+
+        key = tuple(sorted(recipe.items()))
+        if key not in self.built:
+            self.built[key] = build_model(recipe)
+        return copy.deepcopy(self.built[key])
+
+    def digests(self) -> list:
+        return [(dict(key), digest(m.state_dict())) for key, m in self.built.items()]
+
+
 def digest(sd: dict) -> dict:
     """A CRC-32 of each tensor's bytes: equal digests on every rank."""
     import zlib
@@ -162,8 +215,6 @@ def _comm_checks(r: int, n: int) -> dict:
 
 
 def mode_ddp(payload: dict) -> dict:
-    import copy
-
     import torch
 
     from nl_vsgg_tpu_torch.data.entry import stack_entries
@@ -174,9 +225,10 @@ def mode_ddp(payload: dict) -> dict:
 
     r, n = D.rank(), D.world_size()
     refs = torch.load(payload["refs"], mmap=True, weights_only=False)
+    models = Models()
     out = {}
     for name, case in payload["cases"].items():
-        model = copy.deepcopy(payload["model"])
+        model = models.get(payload["model"])
         opt = (torch.optim.SGD(model.parameters(), lr=case["lr"]) if case["opt"] == "sgd"
                else make_optimizer(model.parameters(), case["lr"], 1e-2, 5.0))
         st = create_train_state(model, optimizer=opt)
@@ -197,6 +249,7 @@ def mode_ddp(payload: dict) -> dict:
         if case["opt"] != "sgd":
             res["adam_steps"] = sorted({int(s["step"]) for s in opt.adamw.state.values()})
         out[name] = res
+    out["models"] = models.digests()
     return out
 
 
@@ -230,8 +283,6 @@ def mode_tp(payload: dict) -> dict:
     gathered one-rank state after each step, digested on every rank and
     held against the references on rank 0. A case's `nan_slice` steps put
     a NaN in the last model index's gradient slice of `nan_param` alone."""
-    import copy
-
     import torch
 
     from nl_vsgg_tpu_torch.data.entry import stack_entries
@@ -244,13 +295,14 @@ def mode_tp(payload: dict) -> dict:
     from nl_vsgg_tpu_torch.utils.checkpoint import restore_checkpoint, state_payload
 
     mesh = make_mesh(payload["data"], payload["model"], device="cpu")
+    models = Models()
     out = {"mesh": (mesh.data_index, mesh.model_index, D.data_size(), D.data_index(),
                     D.model_index())}
     if "linear" in payload:
         out["linear"] = _tp_linear(mesh, payload["linear"])
     refs = torch.load(payload["refs"], mmap=True, weights_only=False)
     for name, case in payload["cases"].items():
-        model = T.shard_module(copy.deepcopy(case["model"]), mesh)
+        model = T.shard_module(models.get(case["model"]), mesh)
         st = (create_train_state(model, optimizer=torch.optim.SGD(model.parameters(),
                                                                   lr=case["lr"]))
               if case["opt"] == "sgd" else create_train_state(model, lr=case["lr"]))
@@ -281,7 +333,7 @@ def mode_tp(payload: dict) -> dict:
         out[name] = res
     if "clip" in payload:   # the clip's global norm over whole arrays
         c = payload["clip"]
-        model = T.shard_module(copy.deepcopy(c["model"]), mesh)
+        model = T.shard_module(models.get(c["model"]), mesh)
         st = create_train_state(model, lr=1e-5)
         batch = stack_entries(c["batch"])
         g = torch.Generator().manual_seed(0)
@@ -289,12 +341,13 @@ def mode_tp(payload: dict) -> dict:
         out["clip_norm"] = float(st.optimizer.clip_())
     if "ckpt" in payload:   # a one-rank checkpoint restored into the rank's slices
         c = payload["ckpt"]
-        model = T.shard_module(copy.deepcopy(c["model"]), mesh)
+        model = T.shard_module(models.get(c["model"]), mesh)
         st = restore_checkpoint(c["dir"], create_train_state(model, lr=1e-5))
         back = state_payload(st)
         out["ckpt"] = (digest(back["model"]),
                        {i: digest({k: v for k, v in s.items() if k != "step"})
                         for i, s in back["optimizer"]["state"].items()}, st.step)
+    out["models"] = models.digests()
     return out
 
 
@@ -343,8 +396,10 @@ def main() -> None:
 
     mode, payload_path, out_dir = sys.argv[1:4]
     torch.set_num_threads(int(os.environ.get("NL_VSGG_TEST_THREADS", "1")))
-    D.init_distributed(None, device="cpu", timeout_s=DIST_TIMEOUT_S)
+    # the payload before the rendezvous: no peer's collective clock runs
+    # while this rank reads it
     payload = torch.load(payload_path, weights_only=False)
+    D.init_distributed(None, device="cpu", timeout_s=DIST_TIMEOUT_S)
     out = {"mode_gather": mode_gather, "mode_ddp": mode_ddp, "mode_sp": mode_sp,
            "mode_train": mode_train, "mode_tp": mode_tp}["mode_" + mode](payload)
     out["backend"] = D.backend()

@@ -48,7 +48,7 @@ from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
 from nl_vsgg_tpu_torch.models.sttran import STTran
 from nl_vsgg_tpu_torch.train.state import create_train_state, make_optimizer
 from nl_vsgg_tpu_torch.train.step import make_train_step
-from tests._torch_dist_worker import run_job, worst_ratio
+from tests._torch_dist_worker import build_model, digest, model_recipe, run_job, worst_ratio
 from tests.test_torch_sttran import to_jax_entry
 
 FEAT, NB, NR = 64, 24, 16
@@ -58,6 +58,8 @@ ADAM_TOL = (1e-3, 2 * LR_ADAM)
 LOSS_RTOL = 4e-4
 KEYS = ("object_loss", "attention_relation_loss", "spatial_relation_loss",
         "contact_relation_loss", "total")
+# the seeded model, as the ranks rebuild it (tests/_torch_dist_worker.py)
+MODEL = model_recipe("STTran", 21, mode="sgdet", feat_dim=FEAT, dec_layer_num=1, dropout=0.0)
 
 
 def _videos():
@@ -93,8 +95,7 @@ def setup(tmp_path_factory):
     G_nan = list(G)
     G_nan[3] = dataclasses.replace(G[3], features=G[3].features.clone())
     G_nan[3].features[0, 0] = float("nan")
-    model = STTran(mode="sgdet", feat_dim=FEAT, dec_layer_num=1, dropout=0.0, device="cpu",
-                   generator=torch.Generator().manual_seed(21))
+    model = build_model(MODEL)
     refs, losses = {}, {}
     (refs["sgd"], losses["sgd"]), (refs["fill"], losses["fill"]) = _one_process(
         model, [G, G_fill], "sgd", LR_SGD)
@@ -129,7 +130,7 @@ def setup(tmp_path_factory):
                 "refs": [{"sgd": SGD_TOL}, {"fill": SGD_TOL}]},
         "adamw": {"opt": "adamw", "lr": LR_ADAM, "batches": [G, G_nan, G],
                   "refs": [{"adamw": ADAM_TOL, "jax": ADAM_TOL}, {}, {}]}}
-    yield {"payload": {"model": model, "refs": str(ref_path), "cases": cases},
+    yield {"payload": {"model": MODEL, "refs": str(ref_path), "cases": cases},
            "losses": losses, "refs": refs, "model": model}
     ref_path.unlink()
 
@@ -145,6 +146,15 @@ def _same_on_every_rank(res, case):
     for r in res[1:]:
         assert r[case]["hashes"] == res[0][case]["hashes"], case
         np.testing.assert_equal(r[case]["losses"], res[0][case]["losses"], err_msg=case)
+
+
+def test_ranks_rebuild_the_seeded_model(job, setup):
+    """Each rank builds the recipe it was sent to the weights this process
+    built from it, bit for bit."""
+    world, res = job
+    want = digest(setup["model"].state_dict())
+    for r in res:
+        assert r["models"] == [(MODEL, want)]
 
 
 @pytest.mark.parametrize("case,i", [("sgd", 0), ("fill", 1)])

@@ -49,13 +49,11 @@ from nl_vsgg_tpu.train import stack_entries as j_stack
 from nl_vsgg_tpu_torch.data.entry import stack_entries
 from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
 from nl_vsgg_tpu_torch.models.convert import sttran_from_jax
-from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
 from nl_vsgg_tpu_torch.models.losses import sttran_losses
-from nl_vsgg_tpu_torch.models.sttran import STTran
 from nl_vsgg_tpu_torch.train.state import create_train_state
 from nl_vsgg_tpu_torch.train.step import make_train_step
 from nl_vsgg_tpu_torch.utils.checkpoint import save_checkpoint, state_payload
-from tests._torch_dist_worker import digest, run_job
+from tests._torch_dist_worker import build_model, digest, model_recipe, run_job
 from tests.test_torch_sttran import to_jax_entry
 
 FEAT, NB, NR = 64, 24, 16
@@ -68,6 +66,12 @@ CLIP_RTOL = 5e-4
 KEYS = ("object_loss", "attention_relation_loss", "spatial_relation_loss",
         "contact_relation_loss", "total")
 NAN_PARAM = "glocal_transformer.local_attention.layers.0.linear1.weight"
+# the seeded models, as the ranks rebuild them (tests/_torch_dist_worker.py)
+MODEL = model_recipe("STTran", 21, mode="sgdet", feat_dim=FEAT, dec_layer_num=1, dropout=0.0)
+# dropout on: every rank of a model group draws the one process's masks
+DROPPED = dict(MODEL, dropout=0.1)
+DSG = model_recipe("DSGDETR", 22, mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=1,
+                   dropout=0.0)
 
 
 def _videos(n=4, seed=5):
@@ -143,13 +147,9 @@ def setup(tmp_path_factory):
     G_nan = list(G)
     G_nan[3] = dataclasses.replace(G[3], features=G[3].features.clone())
     G_nan[3].features[0, 0] = float("nan")
-    model = STTran(mode="sgdet", feat_dim=FEAT, dec_layer_num=1, dropout=0.0, device="cpu",
-                   generator=torch.Generator().manual_seed(21))
-    # dropout on: every rank of a model group draws the one process's masks
-    dropped = STTran(mode="sgdet", feat_dim=FEAT, dec_layer_num=1, dropout=0.1, device="cpu",
-                     generator=torch.Generator().manual_seed(21))
-    dsg = DSGDETR(mode="sgdet", feat_dim=FEAT, enc_layer_num=1, dec_layer_num=1, dropout=0.0,
-                  device="cpu", generator=torch.Generator().manual_seed(22))
+    model, dropped, dsg = (build_model(r) for r in (MODEL, DROPPED, DSG))
+    digests = [(r, digest(m.state_dict())) for r, m in ((MODEL, model), (DROPPED, dropped),
+                                                        (DSG, dsg))]
     refs, losses = {}, {}
     ((refs["s1"], losses["s1"]), (refs["s2"], losses["s2"])) = _one_process(model, [G, G])
     ((refs["sgd1"], losses["sgd1"]), (refs["sgd2"], losses["sgd2"])) = _one_process(
@@ -176,9 +176,9 @@ def setup(tmp_path_factory):
     ckpt = (digest(saved["model"]), {i: digest({k: v for k, v in s.items() if k != "step"})
                                      for i, s in saved["optimizer"]["state"].items()})
 
-    adamw = {"model": model, "opt": "adamw", "lr": LR}
+    adamw = {"model": MODEL, "opt": "adamw", "lr": LR}
     cases = {
-        "sgd": {"model": model, "opt": "sgd", "lr": LR_SGD, "batches": [G, G],
+        "sgd": {"model": MODEL, "opt": "sgd", "lr": LR_SGD, "batches": [G, G],
                 "refs": [{"sgd1": SGD_TOL}, {"sgd2": SGD_TOL}]},
         "adamw": dict(adamw, batches=[G, G], refs=[{"s1": ADAM_TOL[0]}, {"s2": ADAM_TOL[1]}]),
         # a NaN in the last data block, then one in a rank's gradient slice alone
@@ -186,18 +186,18 @@ def setup(tmp_path_factory):
                     refs=[{}, {}, {"s1": ADAM_TOL[0]}])}
     payloads = {
         (1, 2): {"data": 1, "model": 2, "refs": str(work / "refs.pt"), "linear": _linear_cases(),
-                 "cases": dict(cases, dsg={"model": dsg, "opt": "sgd", "lr": LR_SGD,
+                 "cases": dict(cases, dsg={"model": DSG, "opt": "sgd", "lr": LR_SGD,
                                            "batches": [G], "refs": [{"dsg": SGD_TOL}]},
-                               drop={"model": dropped, "opt": "sgd", "lr": LR_SGD,
+                               drop={"model": DROPPED, "opt": "sgd", "lr": LR_SGD,
                                      "batches": [G], "refs": [{"drop": SGD_TOL}]}),
-                 "clip": {"model": model, "batch": G},
-                 "ckpt": {"model": model, "dir": str(work / "ckpt")}},
+                 "clip": {"model": MODEL, "batch": G},
+                 "ckpt": {"model": MODEL, "dir": str(work / "ckpt")}},
         (2, 2): {"data": 2, "model": 2, "refs": str(work / "refs.pt"),
                  "cases": dict(cases, adamw=dict(cases["adamw"],
                                                  refs=[{"s1": ADAM_TOL[0], "jax": JAX_TOL},
                                                        {"s2": ADAM_TOL[1]}]))}}
     yield {"payloads": payloads, "losses": losses, "model": model, "clip_norm": clip_norm,
-           "ckpt": ckpt}
+           "ckpt": ckpt, "digests": digests}
     shutil.rmtree(work, ignore_errors=True)   # the references and the checkpoint, about 2 GB
 
 
@@ -235,6 +235,17 @@ def test_mesh_indices(job):
     for r, x in enumerate(res):
         assert x["backend"] == "gloo"
         assert x["mesh"] == (r // model, r % model, data, r // model, r % model)
+
+
+def test_ranks_rebuild_the_seeded_models(job, setup):
+    """Each rank builds the recipes it was sent to the weights this process
+    built from them, bit for bit."""
+    (data, model), res = job
+    want = {tuple(sorted(r.items())): d for r, d in setup["digests"]}
+    for x in res:
+        assert x["models"]
+        for recipe, d in x["models"]:
+            assert d == want[tuple(sorted(recipe.items()))], recipe
 
 
 def test_collectives_against_a_dense_linear(job12):

@@ -222,7 +222,7 @@ class _FakeDetector:
         return fn
 
 
-def test_union_provider_matches_jax_tool(micro, jtool, tmp_path, caplog):
+def test_union_provider_matches_jax_tool(micro, jtool, tmp_path, caplog, monkeypatch):
     ov = _overrides(micro, union_feat_cache=str(tmp_path / "uc"))
     cfg, jcfg = load_config(None, ov), j_load_config(None, ov)
     frames = {i: [np.full((24, 32, 3), 10 * i + j, np.uint8) for j in range(4)]
@@ -256,5 +256,10 @@ def test_union_provider_matches_jax_tool(micro, jtool, tmp_path, caplog):
     with caplog.at_level(logging.WARNING):
         assert ts.make_union_provider(cfg, log) is None
     assert "ZEROS" in caplog.text
-    with pytest.raises(ValueError, match="npz"):
-        ts.load_vinvl_state_dict(str(tmp_path / "vinvl.npz"))
+    # an .npz (tools/convert_vinvl's) is read by detector.convert.load_checkpoint, as
+    # the JAX tool reads it (the layouts: tests/test_torch_preprocess.py)
+    from nl_vsgg_tpu_torch.detector import convert as dconvert
+    read = []
+    monkeypatch.setattr(dconvert, "load_checkpoint", lambda p: read.append(p) or {"w": 1})
+    npz = str(tmp_path / "vinvl.npz")
+    assert ts.load_vinvl_state_dict(npz) == {"w": 1} and read == [npz]
