@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (nl_vsgg_tpu_torch) on one NVIDIA GPU.
+"""Drive the PyTorch port (nl_vsgg_tpu_torch) on NVIDIA GPUs.
 
-    python3 chip_smoke.py        # from the repository root; needs one CUDA card
+    python3 chip_smoke.py            # from the repository root; needs one CUDA card
+    python3 chip_smoke.py --cards 4  # phases 1 and 19 alone: needs 4 cards
 
 Phases, in order; any failure exits non-zero before the result line:
   1. build every CUDA kernel from csrc/ with nvcc (timed), print the card's
@@ -271,12 +272,46 @@ Phases, in order; any failure exits non-zero before the result line:
      the numbers read from the stages `run` returns (walls, oracle, epoch
      counts, the evaluator); phase 15 then reads the same DAC checkpoint and
      .pth, and the .npz of the runbook's convert_vinvl stage;
- 19. the `kernels` JSON line (each row with `launches_entry_points`, phase
+ 19. only with `--cards N` (after phase 1, in place of phases 2-18; fewer
+     than N cards visible fails before the build): the parallel layer with
+     one rank a card over NCCL (`multicard_phases`), at full width (STTran
+     sgdet bf16, 1 + 3 layers, 8 heads, embed 1936, feat 2048, seeded,
+     dropout off; phase 3's 64 videos x 32 frames, 64 / N a card), printing
+     `nvidia-smi topo -m` and every card's name and power limit: (e) every
+     kernel on every card cuda:0 .. N-1 from this process, the current
+     device left at cuda:0 (phase 2's attention forward, dQ and dK/dV,
+     RoIAlign at phase 9's 32-frame pass shape, the grouped conv at its
+     four classes on the "tc" and "3xtf32" routes; routes printed); the
+     one-process references on cuda:0 (3 STTran steps over all 64 videos,
+     one DSG-DETR step on set (b)); then N spawned ranks (`p19_rank`,
+     `p19_body`) held by `p19_verdicts`: each rank on NCCL on its own card,
+     (a) mesh N x 1: 3 DDP steps against the references (P19_* tolerances,
+     phase 16's and 17's), parameters and BatchNorm buffers equal on every
+     rank, a NaN in rank 0's block skipped everywhere, one DSG-DETR DDP
+     step on set (b), the bytes DDP all-reduces a step, the gradient's
+     bytes all-reduced over NCCL (CUDA events) and over the gloo host group
+     (median of P19_AR_REPS after a warm-up, bus bandwidth), NCCL's own log
+     of its transports and tuning; (b) STTran's frame-sharded transformer
+     (bf16, float32) and DSG-DETR's token-sharded one over the N ranks
+     against the dense modules, no byte staged through the host; (c) 3
+     sliced AdamW steps on each mesh of `p19_meshes` (N / 2 x 2, and 1 x N
+     where `tensor.check_widths` admits it), the gathered state in the one
+     process's layout, resident bytes a rank; (d) `run_training` on phase
+     13's synthetic Action Genome with mesh.data -1 (it spawns a rank a
+     card): bf16 for 2 epochs on 128 videos with the device store, then a
+     store-off run and its resume from a copy of its epoch-0 checkpoint
+     (`p19_resume`), then float32 on {data 2, model 2}, each rank's
+     `distributed:` line on NCCL on its own card, merged R@20 = one
+     evaluation of the checkpoint; the `kernels_multicard` line (each
+     row's launches on the ranks' runs and its error on each card);
+ 20. the `kernels` JSON line (each row with `launches_entry_points`, phase
      14's launches, `launches_offline`, phase 15's, `launches_parallel`,
-     phase 16's, `launches_model_axis`, phase 17's, and
-     `launches_acceptance`, phase 18's; the grouped conv has a bf16 row and
-     a float32 row), then the device JSON line, last; the lines before them
-     print each phase's wall, the card and the script's total wall time.
+     phase 16's, `launches_model_axis`, phase 17's, `launches_acceptance`,
+     phase 18's, and `launches_multicard`, 0: phase 19 runs only with
+     `--cards`; the grouped conv has a bf16 row and a float32 row), then
+     the device JSON line, last (with `--cards`, its `count` the cards
+     visible); the lines before them print each phase's wall, the card and
+     the script's total wall time.
 
 float32 checks run with TF32 off (torch.backends.cudnn.allow_tf32 and
 torch.backends.cuda.matmul.allow_tf32 set False at start): cuDNN would
@@ -486,6 +521,113 @@ def device_busy(fn, label: str) -> dict | None:
     except Exception as ex:  # the trace is a diagnostic: report, never fail
         log(f"trace {label}: unavailable ({ex!r})")
         return None
+
+
+def eval_kernel_checks(ma, g, dev, timed: bool = True, label: str = "") -> float:
+    """Phase 2's eval forward against its plain version at the path's shapes
+    (B videos, H heads of HEAD_DIM; 96x96, 192x192, 96x192; float32 and
+    bfloat16; fully masked rows exactly 0), each call timed when `timed`;
+    `label` prefixes each line (phase 19 (e): the card). Returns the largest
+    error."""
+    import torch
+    scale = HEAD_DIM ** -0.5
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk in ((96, 96), (192, 192), (96, 192)):
+            q = torch.randn(B, lq, H, HEAD_DIM, device=dev, generator=g).to(dtype)
+            kv = torch.randn(B, lk, 2 * H * HEAD_DIM, device=dev, generator=g).to(dtype)
+            k = kv[..., :H * HEAD_DIM].unflatten(-1, (H, HEAD_DIM))  # strided, as on the path
+            v = kv[..., H * HEAD_DIM:].unflatten(-1, (H, HEAD_DIM))
+            allow = torch.rand(B, lq, lk, device=dev, generator=g) < 0.3
+            allow[:, ::7] = False                    # fully masked rows
+            out = ma.masked_mha(q, k, v, allow, scale)
+            torch.cuda.synchronize(dev)
+            err, ok = kernel_err(out, ma.masked_mha_reference(q, k, v, allow, scale))
+            worst = max(worst, err)
+            zero_rows = float(out[:, ::7].float().abs().max())
+            if timed:
+                kms = cuda_ms(lambda: ma.masked_mha(q, k, v, allow, scale))
+                what = f"{kms:.4f} ms on dense random masks (every key tile live)"
+            else:
+                what = f"route {ma.fwd_route(q, k, v)}"
+            log(f"{label}masked_mha {str(dtype)[6:]} {lq}x{lk}: max_abs_err {err:.3e} "
+                f"(tol {KERNEL_TOL[str(dtype)]}), masked rows max |out| {zero_rows}, {what}")
+            if not ok or zero_rows != 0.0:
+                fail(f"{label}masked_mha disagrees with its plain version at {dtype} {lq}x{lk}")
+    return worst
+
+
+def train_kernel_checks(ma, g, dev, label: str = "") -> dict:
+    """Phase 2's train forward (dropout rate 0 and RATE, with the
+    log-sum-exp) and both backward kernels against their plain versions at
+    the path's shapes, rows and key columns with no allowed pair exactly 0,
+    and the autograd path against the wrappers; `label` prefixes each line
+    and adds the routes. Returns the largest error by `kernels` row."""
+    import torch
+    # with dropout on, one pair whose keep bit differed from the plain
+    # version's would move the output by about p |v|, far above the tolerance
+    scale = HEAD_DIM ** -0.5
+    rows = {"masked_mha_fwd_train": 0.0, "masked_mha_bwd_dq": 0.0, "masked_mha_bwd_dkv": 0.0}
+    row_of = {"out": "masked_mha_fwd_train", "lse": "masked_mha_fwd_train",
+              "dq": "masked_mha_bwd_dq", "r": "masked_mha_bwd_dq", "dk": "masked_mha_bwd_dkv",
+              "dv": "masked_mha_bwd_dkv"}
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lq, lk in ((96, 96), (192, 192), (96, 192)):
+            q = torch.randn(B, lq, H, HEAD_DIM, device=dev, generator=g).to(dtype)
+            kv = torch.randn(B, lk, 2 * H * HEAD_DIM, device=dev, generator=g).to(dtype)
+            k = kv[..., :H * HEAD_DIM].unflatten(-1, (H, HEAD_DIM))
+            v = kv[..., H * HEAD_DIM:].unflatten(-1, (H, HEAD_DIM))
+            gout = torch.randn(B, lq, H, HEAD_DIM, device=dev, generator=g).to(dtype)
+            allow = torch.rand(B, lq, lk, device=dev, generator=g) < 0.3
+            allow[:, ::7] = False                    # rows with no allowed key
+            allow[:, :, 5::11] = False               # keys no query may see
+            allow_t = allow.transpose(1, 2).contiguous()
+            for rate in (0.0, RATE):
+                sd = seeds if rate else None
+                out, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, sd)
+                dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, sd)
+                dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow_t, scale, gout, lse, r, rate, sd)
+                torch.cuda.synchronize(dev)
+                what = f"{str(dtype)[6:]} {lq}x{lk} rate {rate}"
+                errs = {}
+                for name, got, ref, tol in (
+                        ("out", out, ma.masked_mha_reference(q, k, v, allow, scale, rate, sd),
+                         KERNEL_TOL),
+                        ("lse", lse, ma.masked_mha_lse_reference(q, k, allow, scale), GRAD_TOL),
+                        *zip(("dq", "r"), (dq, r),
+                             ma.masked_mha_bwd_dq_reference(q, k, v, allow, scale, gout, rate,
+                                                            sd), (GRAD_TOL, GRAD_TOL)),
+                        *zip(("dk", "dv"), (dk, dv),
+                             ma.masked_mha_bwd_dkv_reference(q, k, v, allow, scale, gout, r,
+                                                             rate, sd), (GRAD_TOL, GRAD_TOL))):
+                    errs[name], ok = kernel_err(got, ref, tol)
+                    rows[row_of[name]] = max(rows[row_of[name]], errs[name])
+                    if not ok:
+                        fail(f"{label}train kernels: {name} disagrees with its plain version at "
+                             f"{what} (max_abs_err {errs[name]:.3e})")
+                empty = [float(t.float().abs().max()) for t in
+                         (out[:, ::7], dq[:, ::7], dk[:, 5::11], dv[:, 5::11])]
+                if any(empty) or not bool((lse.transpose(1, 2)[:, ::7] == ma.LSE_EMPTY).all()):
+                    fail(f"{label}train kernels: rows or keys with no allowed pair are not 0 at "
+                         f"{what}")
+                # the autograd path launches the same kernels on the same inputs
+                q2, kv2 = q.detach().requires_grad_(), kv.detach().requires_grad_()
+                k2 = kv2[..., :H * HEAD_DIM].unflatten(-1, (H, HEAD_DIM))
+                v2 = kv2[..., H * HEAD_DIM:].unflatten(-1, (H, HEAD_DIM))
+                ma.masked_mha(q2, k2, v2, allow, scale, rate, sd).backward(gout)
+                same = (torch.equal(q2.grad, dq)
+                        and torch.equal(kv2.grad, torch.cat([dk, dv], -2).flatten(-2)))
+                if not same:
+                    fail(f"{label}train kernels: the autograd path differs from the wrappers at "
+                         f"{what}")
+                routes = (f"; routes fwd {ma.fwd_route(q, k, v)}, dq "
+                          f"{ma.dq_route(q, k, v, gout)}, dkv {ma.dkv_route(q, k, v, gout)}"
+                          if label else "")
+                log(f"{label}train kernels {what}: max_abs_err " + ", ".join(
+                    f"{n} {e:.3e}" for n, e in errs.items()) + "; empty rows/keys exactly 0"
+                    + routes)
+    return rows
 
 
 def dq_edge_checks(ma, g, dev) -> None:
@@ -779,6 +921,77 @@ def roi_align_edge_checks(ra, g, dev) -> None:
             fail(f"roi_align edge case disagrees with its plain version: {dtype} C={C} S={S}")
 
 
+# the grouped conv's four geometry classes on the detector path (c = 8, 16,
+# 32 and 64 channels a group), then the edges of the bf16 kernel's tiles: a
+# crop count not a multiple of its 5 crops, a width not a multiple of its 64
+# columns
+CONV_CLASSES = ((DET_CHECK_FRAMES, 152, 256, 256), (DET_CHECK_FRAMES, 76, 128, 512),
+                (DET_CHECK_FRAMES, 38, 64, 1024), (DET_CHECK_FRAMES * 300, 7, 7, 2048))
+CONV_EDGES = ((1201, 7, 7, 2048), (DET_CHECK_FRAMES, 38, 50, 1024))
+
+
+def roi_align_checks(ra, g, dev, frames: int, label: str = "") -> float:
+    """RoIAlign against its plain version on a (frames, 38, 64, 1024) C4
+    map with 300 rois a frame (`path_rois`), float32 and bfloat16, the fully
+    outside roi exactly 0; `label` prefixes each line. Returns the largest
+    error."""
+    import torch
+    fmap = torch.randn(frames, 38, 64, 1024, generator=g, device=dev)
+    rois, fidx = path_rois(g, frames, 300, 38, 64, dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        fm = fmap.to(dtype)
+        out = ra.roi_align(fm, rois, fidx, (14, 14), 1 / 16)
+        torch.cuda.synchronize(dev)
+        err, ok = det_kernel_err(out, ra.roi_align_reference(fm, rois, fidx, (14, 14), 1 / 16))
+        worst = max(worst, err)
+        outside = float(out[1].float().abs().max())
+        route = ra.kernel_plan(1024, (14, 14), 2, fm.data_ptr() % 16 == 0)["route"]
+        log(f"{label}roi_align {str(dtype)[6:]} ({frames}, 38, 64, 1024) x "
+            f"{rois.shape[0]} rois 14x14: max_abs_err {err:.3e}, fully outside roi max |out| "
+            f"{outside}" + (f", route {route}" if label else ""))
+        if not ok or outside != 0.0:
+            fail(f"{label}roi_align disagrees with its plain version at {dtype}")
+    return worst
+
+
+def grouped_conv_checks(gc, g, dev, shapes, label: str = "") -> tuple:
+    """The grouped 3x3 conv against its plain version at each (N, H, W, C)
+    of `shapes` (32 groups), float32 on the 3xtf32 route, bfloat16 on the tc
+    route and bfloat16 in with a float32 output, with and without the bias
+    + ReLU epilogue, each call's route printed (another route fails);
+    `label` prefixes each line. Returns the last (x, w) and the largest
+    error by `kernels` row (bf16 in: grouped_conv3x3, float32:
+    grouped_conv3x3_fp32)."""
+    import torch
+    worst = {"grouped_conv3x3": 0.0, "grouped_conv3x3_fp32": 0.0}
+    for N, Hc, Wc, C in shapes:
+        c = C // 32
+        x32 = torch.randn(N, Hc, Wc, C, generator=g, device=dev)
+        w32 = torch.randn(3, 3, c, C, generator=g, device=dev) * (9 * c) ** -0.5
+        bias = torch.randn(C, generator=g, device=dev)
+        for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
+                                 (torch.bfloat16, torch.float32)):
+            x, w = x32.to(dtype), w32.to(dtype)
+            route = gc.conv_route(x, w)
+            if route != ("tc" if dtype == torch.bfloat16 else "3xtf32"):
+                fail(f"{label}grouped_conv3x3 {dtype} ({N}, {Hc}, {Wc}, {C}) takes route {route}")
+            row = "grouped_conv3x3" if dtype == torch.bfloat16 else "grouped_conv3x3_fp32"
+            for b, relu in ((None, False), (bias, True)):
+                out = gc.grouped_conv3x3(x, w, 32, b, relu, out_dtype)
+                torch.cuda.synchronize(dev)
+                err, ok = det_kernel_err(out, gc.grouped_conv3x3_reference(x, w, 32, b, relu,
+                                                                           out_dtype))
+                worst[row] = max(worst[row], err)
+                log(f"{label}grouped_conv3x3 {str(dtype)[6:]} -> {str(out.dtype)[6:]} ({N}, "
+                    f"{Hc}, {Wc}, {C}) c={c} bias+relu={relu}: route {route}, max_abs_err "
+                    f"{err:.3e}")
+                if not ok:
+                    fail(f"{label}grouped_conv3x3 disagrees with its plain version at {dtype} -> "
+                         f"{out.dtype} ({N}, {Hc}, {Wc}, {C}) relu={relu}")
+    return x, w, worst
+
+
 # TF32 on the tensor cores of one H100 SXM: the card's fastest rate for
 # float32 inputs, where the 3xtf32 route forms each product as three
 PEAK_TF32 = 495e12
@@ -968,53 +1181,16 @@ def detector_phases(dev, card) -> list[dict]:
 
     # ---- 7. detector kernels vs plain versions at the path's shapes ----
     g = torch.Generator(device=dev).manual_seed(3)
-    fmap = torch.randn(DET_CHECK_FRAMES, 38, 64, 1024, generator=g, device=dev)
-    rois, fidx = path_rois(g, DET_CHECK_FRAMES, 300, 38, 64, dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        fm = fmap.to(dtype)
-        out = ra.roi_align(fm, rois, fidx, (14, 14), 1 / 16)
-        torch.cuda.synchronize()
-        err, ok = det_kernel_err(out, ra.roi_align_reference(fm, rois, fidx, (14, 14), 1 / 16))
-        outside = float(out[1].float().abs().max())
-        log(f"roi_align {str(dtype)[6:]} ({DET_CHECK_FRAMES}, 38, 64, 1024) x "
-            f"{rois.shape[0]} rois 14x14: max_abs_err {err:.3e}, fully outside roi max |out| "
-            f"{outside}")
-        if not ok or outside != 0.0:
-            fail(f"roi_align disagrees with its plain version at {dtype}")
+    roi_align_checks(ra, g, dev, DET_CHECK_FRAMES)
     roi_align_edge_checks(ra, g, dev)
-    # the four classes, then the edges of the bf16 kernel's tiles: a crop
-    # count not a multiple of its 5 crops, a width not a multiple of its 64
-    # columns
-    for N, Hc, Wc, C in ((DET_CHECK_FRAMES, 152, 256, 256), (DET_CHECK_FRAMES, 76, 128, 512),
-                         (DET_CHECK_FRAMES, 38, 64, 1024), (DET_CHECK_FRAMES * 300, 7, 7, 2048),
-                         (1201, 7, 7, 2048), (DET_CHECK_FRAMES, 38, 50, 1024)):
-        c = C // 32
-        x32 = torch.randn(N, Hc, Wc, C, generator=g, device=dev)
-        w32 = torch.randn(3, 3, c, C, generator=g, device=dev) * (9 * c) ** -0.5
-        bias = torch.randn(C, generator=g, device=dev)
-        for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
-                                 (torch.bfloat16, torch.float32)):
-            x, w = x32.to(dtype), w32.to(dtype)
-            route = gc.conv_route(x, w)
-            if route != ("tc" if dtype == torch.bfloat16 else "3xtf32"):
-                fail(f"grouped_conv3x3 {dtype} ({N}, {Hc}, {Wc}, {C}) takes route {route}")
-            for b, relu in ((None, False), (bias, True)):
-                out = gc.grouped_conv3x3(x, w, 32, b, relu, out_dtype)
-                torch.cuda.synchronize()
-                err, ok = det_kernel_err(out, gc.grouped_conv3x3_reference(x, w, 32, b, relu,
-                                                                           out_dtype))
-                log(f"grouped_conv3x3 {str(dtype)[6:]} -> {str(out.dtype)[6:]} ({N}, {Hc}, "
-                    f"{Wc}, {C}) c={c} bias+relu={relu}: route {route}, max_abs_err {err:.3e}")
-                if not ok:
-                    fail(f"grouped_conv3x3 disagrees with its plain version at {dtype} -> "
-                         f"{out.dtype} ({N}, {Hc}, {Wc}, {C}) relu={relu}")
+    x, w, _ = grouped_conv_checks(gc, g, dev, CONV_CLASSES + CONV_EDGES)
     flat = torch.zeros(1 + x.numel(), device=dev, dtype=torch.bfloat16)
     try:
         gc.grouped_conv3x3(flat[1:].view(x.shape), w, 32)
         fail("grouped_conv3x3 took bf16 storage that is not 16-byte aligned")
     except ValueError:
         log("grouped_conv3x3 bf16: storage 2 bytes off 16-byte alignment refused")
-    del fmap, x32, w32, x, w, out, flat
+    del x, w, flat
 
     # ---- 8. the detector path at full width ----
     t0 = time.perf_counter()
@@ -4327,13 +4503,16 @@ def p16_gloo_answers(work: str, ctxs: dict) -> dict:
 
 def p16_build_model(cfg, tax, device=None):
     """`tools.train_sttran.build_model`, and on a rank of run_training's
-    group a report of the rank's attention launches when the group shuts
-    down (<save_path>/launches<rank>.json): phase 17 (c)'s counts."""
+    group its `distributed:` line (<save_path>/describe<rank>.txt) and a
+    report of the rank's attention launches when the group shuts down
+    (<save_path>/launches<rank>.json): `run_training_check`'s counts."""
     from nl_vsgg_tpu_torch.ops import masked_attention as ma
     from nl_vsgg_tpu_torch.parallel import distributed as pd
     from nl_vsgg_tpu_torch.tools import train_sttran as ts
 
     if pd.initialized() and not getattr(pd.shutdown, "reports", False):
+        with open(os.path.join(cfg.save_path, f"describe{pd.rank()}.txt"), "w") as f:
+            f.write(pd.describe())
         real, path = pd.shutdown, os.path.join(cfg.save_path, f"launches{pd.rank()}.json")
 
         def shutdown():
@@ -4685,24 +4864,17 @@ def model_axis_phases(dev, card, entries, ag: str, root: str) -> dict:
     on the card against the CPU at the detector's C4 shape (one 38 x 64 x
     1024 map, 300 rois), RoIAlign on the same rois beside it. Returns the phase's launch counts by `kernels` row name."""
     import shutil
-    import types
 
     import torch
     import torch.multiprocessing as mp
 
-    from nl_vsgg_tpu_torch.data import schema
-    from nl_vsgg_tpu_torch.data.action_genome import AGTest
-    from nl_vsgg_tpu_torch.eval.epoch import evaluate_epoch, grounded_batches
     from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
     from nl_vsgg_tpu_torch.models.sttran import STTran, relation_features
     from nl_vsgg_tpu_torch.ops import masked_attention as ma
     from nl_vsgg_tpu_torch.ops import roi_align as ra
     from nl_vsgg_tpu_torch.parallel import distributed as pd
-    from nl_vsgg_tpu_torch.tools import train_sttran as ts
     from nl_vsgg_tpu_torch.train.state import create_train_state
     from nl_vsgg_tpu_torch.train.step import make_train_step, place_entries
-    from nl_vsgg_tpu_torch.utils.checkpoint import restore_checkpoint
-    from nl_vsgg_tpu_torch.utils.config import load_config
 
     t_phase = time.perf_counter()
     cuda = dev.type == "cuda"
@@ -4917,82 +5089,135 @@ def model_axis_phases(dev, card, entries, ag: str, root: str) -> dict:
 
     # ---- (c) run_training on a data axis (bf16), then on a model axis (float32) ----
     for mesh_c, dtype_c, videos_c, nepoch_c, batch_c in P17_RUNS:
-        out = os.path.join(root, "p17_run")
-        n_ranks = mesh_c["data"] * mesh_c["model"]
-        cfg = load_config(None, {
-            "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
-            "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
-            "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": dtype_c,
-            "batch_videos": batch_c, "num_workers": 4, "remove_one_frame_video": False,
-            "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
-            "device_entry_store_gb": STORE_GB, "nepoch": nepoch_c, "save_path": out,
-            "mesh": mesh_c,
-            "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
-        os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
-        peak_reset()
-        t0 = time.perf_counter()
-        st = ts.run_training(cfg, types.SimpleNamespace(
-            max_videos=videos_c, device=None if cuda else "cpu"), p16_build_model)
-        p16_sync(dev)
-        run_s = time.perf_counter() - t0
-        ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
-        with open(os.path.join(out, "metrics.jsonl")) as f:
-            epochs = [r for r in map(json.loads, f) if "epoch" in r]
-        log_txt = open(os.path.join(out, "log.txt")).read()
-        gathered = [ln for ln in log_txt.splitlines() if "gathered batches this epoch" in ln]
-        launches = []
-        for r in range(n_ranks):
-            with open(os.path.join(out, f"launches{r}.json")) as f:
-                launches.append(json.load(f))
-        one = ts.build_model(cfg, schema.load_taxonomy(), dev)       # never sharded
-        st = restore_checkpoint(os.path.join(out, "ckpt"), create_train_state(one))
-        ds_test = AGTest(os.path.join(ag, "annotations"))
-        n_run, n_test = min(videos_c, AG_VIDEOS), min(videos_c, len(ds_test))
-        ev = evaluate_epoch(st.model, grounded_batches(
-            lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets),
-            ds_test.gt_annotations, range(n_test), batch_c, 4, ordered=True), device=dev,
-            zero_union=True)
-        diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
-        steps = nepoch_c * (n_run // batch_c)
-        # each data index scores its shard of the test videos, every rank of its model group
-        eval_batches = nepoch_c * -(-(n_test // mesh_c["data"]) // batch_c)
-        want_c = {"fwd": 4 * steps + 4 * eval_batches, "bwd_dq": 4 * steps,
-                  "bwd_dkv": 4 * steps}
-        want_ckpt = sorted([str(e) for e in range(nepoch_c)]
-                           + [f"{e}.meta.json" for e in range(nepoch_c)] + ["configs.json"])
-        log(f"phase 17 (c) run_training, mesh {mesh_c} (its own {n_ranks} ranks on the "
-            f"card, gloo), {dtype_c}, {n_run} of the {AG_VIDEOS} videos x {N_FRAMES} frames "
-            f"in batches of {batch_c} and {n_test} test videos, {nepoch_c} epochs, the device "
-            f"store on: {run_s:.3f} s "
-            f"wall (spawn, datasets, models, {steps} steps, {nepoch_c} sharded evals, "
-            f"{nepoch_c} checkpoints gathered by a model group and written by the primary); "
-            f"checkpoints {ckpt}; metrics epochs {[r['epoch'] for r in epochs]}; log lines "
-            f"from other ranks: {'process 1/' in log_txt}; store: {gathered}; merged mean R@20 "
-            f"{epochs[-1]['mean_r20']:.6f} against the checkpoint restored into a 1 x 1 model "
-            f"{ev.mean_score(20):.6f} (difference {diff:.2e}, tol {P16_R20_ATOL}); launches a "
-            f"rank {launches}; card {card}")
-        if ckpt != want_ckpt or [r["epoch"] for r in epochs] != list(range(nepoch_c)) \
-                or "process 1/" in log_txt \
-                or f"process 0/{n_ranks}, backend gloo" not in log_txt \
-                or (mesh_c["model"] > 1
-                    and f"model axis: {mesh_c['model']} ranks a replica" not in log_txt) \
-                or (mesh_c["data"] > 1 and f"device entry store sharded over "
-                    f"{mesh_c['data']} ranks" not in log_txt) \
-                or (nepoch_c > 1 and (not gathered or " 0 gathered" in gathered[0])) \
-                or diff > P16_R20_ATOL or any(x != want_c for x in launches):
-            fail(f"phase 17 (c): run_training on mesh {mesh_c} ({dtype_c}) did not train, "
-                 f"gather, evaluate and checkpoint as expected (launches {launches}, expected "
-                 f"{want_c} a rank)")
+        launches, steps, _ = run_training_check(dev, card, ag, root, os.path.join(root, "p17_run"),
+                                                mesh_c, dtype_c, videos_c, nepoch_c, batch_c,
+                                                "phase 17 (c)")
         for x in launches:
             add({"fwd": 4 * steps, "bwd_dq": x["bwd_dq"], "bwd_dkv": x["bwd_dkv"]}, True)
             add({"fwd": x["fwd"] - 4 * steps, "bwd_dq": 0, "bwd_dkv": 0}, False)
-        del st, one, ev
-        shutil.rmtree(out, ignore_errors=True)
-        if cuda:
-            torch.cuda.empty_cache()
     log(f"phase 17 launches by kernels row: {counts}")
     log(f"model axis phase wall {time.perf_counter() - t_phase:.3f} s; card {card}")
     return counts
+
+
+def run_training_cfg(ag: str, root: str, out: str, mesh_c: dict, dtype_c: str, nepoch_c: int,
+                     batch_c: int, store: bool = True):
+    """The config of `run_training_check` (phase 13's dataset, full width,
+    the device store on unless `store` is False, the Entry cache under
+    `root`)."""
+    from nl_vsgg_tpu_torch.utils.config import load_config
+
+    return load_config(None, {
+        "data_path": ag, "frame_features_path": os.path.join(ag, "frame_features"),
+        "pseudo_localized_SG_path": os.path.join(ag, "final_ag_data_w_neg.pkl"),
+        "feat_dim": FEAT, "enc_layer": 1, "dec_layer": 3, "dtype": dtype_c,
+        "batch_videos": batch_c, "num_workers": 4, "remove_one_frame_video": False,
+        "union_box_feature": False, "entry_cache": os.path.join(root, "p14_entry_cache"),
+        "device_entry_store_gb": STORE_GB if store else 0.0, "nepoch": nepoch_c,
+        "save_path": out,
+        "mesh": mesh_c,
+        "buckets": {"max_frames": [N_FRAMES], "max_boxes": [N_BOXES], "max_rels": [N_RELS]}})
+
+
+def run_training_check(dev, card, ag: str, root: str, out: str, mesh_c: dict, dtype_c: str,
+                       videos_c: int, nepoch_c: int, batch_c: int, what: str,
+                       backend: str = "gloo", keep: bool = False,
+                       store: bool = True) -> tuple[list, int, str]:
+    """`run_training` on phase 13's dataset `ag` into `out` with the mesh
+    `mesh_c` (its own ranks; data -1 takes a rank a card), `dtype_c`,
+    `videos_c` videos in batches of `batch_c`, `nepoch_c` epochs, the device
+    store on unless `store` is False, held to: only the primary checkpoints
+    and logs, every rank's `distributed:` line naming `backend` and the
+    rank's card (rank r on cuda:(r % cards)), the model axis logged, the
+    store sharded over the data axis and the warm epoch gathering from it,
+    the merged R@20 of the sharded evals against the checkpoint restored
+    into a 1 x 1 model (P16_R20_ATOL), each rank's launches. Returns (each
+    rank's launches, the train steps, `out`), `out` removed unless
+    `keep`."""
+    import shutil
+    import types
+
+    import torch
+
+    from nl_vsgg_tpu_torch.data import schema
+    from nl_vsgg_tpu_torch.data.action_genome import AGTest
+    from nl_vsgg_tpu_torch.eval.epoch import evaluate_epoch, grounded_batches
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    cuda = dev.type == "cuda"
+    cfg = run_training_cfg(ag, root, out, mesh_c, dtype_c, nepoch_c, batch_c, store)
+    n_ranks = ts.local_ranks(cfg, dev)
+    n_data = n_ranks // mesh_c["model"]
+    os.environ["NL_VSGG_DIST_TIMEOUT_S"] = str(P16_TIMEOUT_S)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    st = ts.run_training(cfg, types.SimpleNamespace(
+        max_videos=videos_c, device=None if cuda else "cpu"), p16_build_model)
+    p16_sync(dev)
+    run_s = time.perf_counter() - t0
+    ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "epoch" in r]
+    log_txt = open(os.path.join(out, "log.txt")).read()
+    gathered = [ln for ln in log_txt.splitlines() if "gathered batches this epoch" in ln]
+    launches, lines = [], []
+    for r in range(n_ranks):
+        with open(os.path.join(out, f"launches{r}.json")) as f:
+            launches.append(json.load(f))
+        with open(os.path.join(out, f"describe{r}.txt")) as f:
+            lines.append(f.read())
+    cards = torch.cuda.device_count() if cuda else 0
+    own = all(f"process {r}/{n_ranks}, backend {backend}, device "
+              f"{f'cuda:{r % cards}' if cuda else 'cpu'}," in ln for r, ln in enumerate(lines))
+    one = ts.build_model(cfg, schema.load_taxonomy(), dev)       # never sharded
+    st = restore_checkpoint(os.path.join(out, "ckpt"), create_train_state(one))
+    ds_test = AGTest(os.path.join(ag, "annotations"))
+    n_run, n_test = min(videos_c, AG_VIDEOS), min(videos_c, len(ds_test))
+    ev = evaluate_epoch(st.model, grounded_batches(
+        lambda i: ts.ground_video(ds_test, i, cfg, False, cfg.buckets),
+        ds_test.gt_annotations, range(n_test), batch_c, 4, ordered=True), device=dev,
+        zero_union=True)
+    diff = abs(ev.mean_score(20) - epochs[-1]["mean_r20"])
+    steps = nepoch_c * (n_run // batch_c)
+    # each data index scores its shard of the test videos, every rank of its model group
+    eval_batches = nepoch_c * -(-(n_test // n_data) // batch_c)
+    want_c = {"fwd": 4 * steps + 4 * eval_batches, "bwd_dq": 4 * steps,
+              "bwd_dkv": 4 * steps}
+    want_ckpt = sorted([str(e) for e in range(nepoch_c)]
+                       + [f"{e}.meta.json" for e in range(nepoch_c)] + ["configs.json"])
+    log(f"{what} run_training, mesh {mesh_c} (its own {n_ranks} ranks, {backend}), "
+        f"{dtype_c}, {n_run} of the {AG_VIDEOS} videos x {N_FRAMES} frames "
+        f"in batches of {batch_c} and {n_test} test videos, {nepoch_c} epochs, the device "
+        f"store {'on' if store else 'off'}: {run_s:.3f} s "
+        f"wall (spawn, datasets, models, {steps} steps, {nepoch_c} sharded evals, "
+        f"{nepoch_c} checkpoints gathered by a model group and written by the primary); "
+        f"checkpoints {ckpt}; metrics epochs {[r['epoch'] for r in epochs]}; log lines "
+        f"from other ranks: {'process 1/' in log_txt}; store: {gathered}; merged mean R@20 "
+        f"{epochs[-1]['mean_r20']:.6f} against the checkpoint restored into a 1 x 1 model "
+        f"{ev.mean_score(20):.6f} (difference {diff:.2e}, tol {P16_R20_ATOL}); launches a "
+        f"rank {launches}; each rank's line {[ln.strip() for ln in lines]}; card {card}")
+    if ckpt != want_ckpt or [r["epoch"] for r in epochs] != list(range(nepoch_c)) \
+            or "process 1/" in log_txt \
+            or f"process 0/{n_ranks}, backend {backend}" not in log_txt or not own \
+            or (mesh_c["model"] > 1
+                and f"model axis: {mesh_c['model']} ranks a replica" not in log_txt) \
+            or (store and n_data > 1 and f"device entry store sharded over "
+                f"{n_data} ranks" not in log_txt) \
+            or (store and nepoch_c > 1 and (not gathered or " 0 gathered" in gathered[0])) \
+            or diff > P16_R20_ATOL or any(x != want_c for x in launches):
+        fail(f"{what}: run_training on mesh {mesh_c} ({dtype_c}) did not train, "
+             f"gather, evaluate and checkpoint as expected (launches {launches}, expected "
+             f"{want_c} a rank)")
+    del st, one, ev
+    if not keep:
+        shutil.rmtree(out, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches, steps, out
 
 
 # ------------------------------------------------------- the acceptance runbook
@@ -5244,12 +5469,828 @@ def acceptance_phases(dev, card, ag: str, work: str, standins: dict) -> tuple[di
                     "npz_by": "phase 18's convert_vinvl stage"}
 
 
+# ------------------------------------------------- the parallel layer across cards
+# Phase 19 runs with `--cards N`: one rank a card over NCCL. Its tolerances
+# are phase 16's and 17's, restated here. N ranks x B / N videos against one
+# process x B: each rank's bf16 GEMMs run at a quarter of the rows and NCCL
+# sums the ranks' gradients in its own order (ring or tree), where phase 16
+# (b)'s gloo summed two halves; rounding noise either way.
+P19_LOSS_RTOL = P16_LOSS_RTOL    # (a), (c): losses, relative
+# (a), (c): parameters, 2.5 lr for each AdamW step taken (P16_PARAM_ATOL at
+# its P16_STEPS steps; DSG-DETR's one step, 2.5 lr)
+P19_PARAM_ATOL_STEP = P16_PARAM_ATOL / P16_STEPS
+P19_BUF_REL = P16_BUF_REL        # (a), (c): BatchNorm buffers, of their largest magnitude
+P19_SP_REL = P16_SP_REL          # (b): sharded against dense forwards, of the largest output
+P19_AR_REPS = 5                  # (a): timed all-reduces of the gradient's bytes, after one
+#                                  warm-up; the median is reported
+# (d), each run (mesh, dtype, --max_videos, epochs, batch_videos, the device
+# store), held by `run_training_check` as phase 17 (c) (R@20 to
+# P16_R20_ATOL): run_training with mesh.data -1 (a rank a card), bf16, 2 epochs on
+# phase 13's 128 videos in batches of B, the store on; the straight run of
+# the resume, one batch an epoch, the store off (`p19_resume` says why);
+# the model axis {data 2, model 2}, float32, 1 epoch on one batch of B / 4
+# (phase 17 (c)'s run)
+P19_RUNS = (({"data": -1, "model": 1}, "bfloat16", AG_VIDEOS, 2, B, True),
+            ({"data": -1, "model": 1}, "bfloat16", B, 2, B, False),
+            ({"data": 2, "model": 2}, "float32", B // 4, 1, B // 4, True))
+
+
+def p19_conf(device: str) -> dict:
+    """Phase 19's widths and constants for its ranks (a spawned rank imports
+    this file anew): full width, as phase 16."""
+    return {"device": device, "feat": FEAT, "frames": N_FRAMES, "enc": 1, "dec": 3,
+            "steps": P16_STEPS, "lr": P16_LR, "timeout": P16_TIMEOUT_S, "ar_reps": P19_AR_REPS}
+
+
+def p19_model(conf: dict, dev, cls: str = "STTran", float32: bool = False):
+    """The seeded model of phase 19 at `conf`'s widths on `dev`: STTran or
+    DSG-DETR sgdet, dropout off, computing in bf16 (float32 if asked)."""
+    import torch
+
+    from nl_vsgg_tpu_torch.models.dsg_detr import DSGDETR
+    from nl_vsgg_tpu_torch.models.sttran import STTran
+    return {"STTran": STTran, "DSGDETR": DSGDETR}[cls](
+        mode="sgdet", feat_dim=conf["feat"], enc_layer_num=conf["enc"],
+        dec_layer_num=conf["dec"], dtype=None if float32 else torch.bfloat16, dropout=0.0,
+        device=dev, generator=torch.Generator().manual_seed(0))
+
+
+def p19_payload(entries) -> dict:
+    """The ranks' inputs, one file for all: the global batch of `entries`
+    on the host (a rank takes its data index's block), set (b)'s labels and
+    distributions (`tracklet_entries`), the first video alone for the
+    sharded forwards."""
+    import torch
+
+    from nl_vsgg_tpu_torch.data.entry import stack_entries
+    from nl_vsgg_tpu_torch.train.step import place_entries
+
+    sets_b = tracklet_entries(entries, np.random.default_rng(4000))   # phase 12's set (b)
+    batch = place_entries(entries, rel_bf16=True, device="cpu")
+    v0 = stack_entries([entries[0]])
+    return {"batch": dict(vars(batch)),
+            "labels_b": torch.stack([e.labels for e in sets_b]),
+            "dist_b": torch.stack([e.distribution for e in sets_b]),
+            "video": {k: v[0] for k, v in vars(v0).items()},
+            "video_labels_b": sets_b[0].labels, "video_dist_b": sets_b[0].distribution}
+
+
+def p19_references(dev, conf: dict, payload: dict) -> dict:
+    """The one-process references, in this process on `dev` before any rank
+    starts: conf["steps"] AdamW steps of STTran over the whole global
+    batch (phase 16's seeds) and one DSG-DETR step on set (b) over it; the
+    losses, the final states on the host, the layout of the state, the
+    resident bytes and ms a step."""
+    import torch
+
+    from nl_vsgg_tpu_torch.data.entry import Entry
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step
+
+    batch = Entry(**{k: v.to(dev) for k, v in payload["batch"].items()})
+    model = p19_model(conf, dev)
+    st = create_train_state(model, lr=conf["lr"])
+    step = make_train_step(model, st.optimizer)
+    losses, ms = [], []
+    for i in range(conf["steps"]):
+        p16_sync(dev)
+        t0 = time.perf_counter()
+        st, met = step(st, batch, torch.Generator(device=dev).manual_seed(100 + i))
+        p16_sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in met.items()})
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    sd = model.state_dict()
+    out = {"losses": losses, "ms": ms, "skipped": st.skipped,
+           "state": {k: v.detach().cpu().clone() for k, v in sd.items()},
+           "layout": {k: (tuple(v.shape), str(v.dtype)) for k, v in sd.items()},
+           "resident": {"params": params, "grads": params, "adamw": sum(
+               t.numel() * t.element_size() for s in st.optimizer.adamw.state.values()
+               for k, t in s.items() if k != "step")}}
+    del model, st, step, sd
+    dsg = p19_model(conf, dev, "DSGDETR")
+    batch_b = Entry(**dict(vars(batch), labels=payload["labels_b"].to(dev),
+                           distribution=payload["dist_b"].to(dev)))
+    dst = create_train_state(dsg, lr=conf["lr"])
+    dst, met = make_train_step(dsg, dst.optimizer)(
+        dst, batch_b, torch.Generator(device=dev).manual_seed(300))
+    out["dsg"] = {k: float(v) for k, v in met.items()}
+    out["dsg_state"] = {k: v.detach().cpu().clone() for k, v in dsg.state_dict().items()}
+    return out
+
+
+def p19_meshes(n: int) -> list[tuple[int, int]]:
+    """Part (c)'s meshes over n ranks: n / 2 x 2, and 1 x n past 2 ranks."""
+    meshes = [(n // 2, 2)] if n >= 2 and n % 2 == 0 else []
+    return meshes + ([(1, n)] if n > 2 else [])
+
+
+def p19_body(payload: dict, conf: dict) -> dict:
+    """Phase 19's parts (a)-(c) on one rank of a started process group; the
+    device is the rank's (`rank_device`), the widths `conf`'s. (a) mesh n x
+    1: conf["steps"] DDP steps on the rank's block of the global batch, a
+    NaN in rank 0's block, one DSG-DETR step on set (b), the gradient's
+    bytes all-reduced and timed on the group and on the host group; (b) the
+    frame- and token-sharded forwards over the n ranks against the dense
+    modules; (c) each mesh of `p19_meshes`: conf["steps"] sliced AdamW steps
+    on the data index's block, the resident bytes, `full_state_dict`.
+    Every rank returns its numbers and digests, rank 0 also the final
+    states on the host (`p19_verdicts` holds them against the one-process
+    references)."""
+    import copy
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from nl_vsgg_tpu_torch.data.entry import Entry
+    from nl_vsgg_tpu_torch.models.sttran import relation_features
+    from nl_vsgg_tpu_torch.ops import masked_attention as ma
+    from nl_vsgg_tpu_torch.parallel import comm, distributed as pd
+    from nl_vsgg_tpu_torch.parallel import tensor as tpar
+    from nl_vsgg_tpu_torch.parallel.dsg_detr_sp import dsg_detr_transformer_sharded
+    from nl_vsgg_tpu_torch.parallel.mesh import ALLREDUCE, data_parallel, make_mesh
+    from nl_vsgg_tpu_torch.parallel.sttran_sp import sttran_transformer_sharded
+    from nl_vsgg_tpu_torch.train.state import create_train_state
+    from nl_vsgg_tpu_torch.train.step import make_train_step
+
+    t_mark = time.perf_counter()
+    walls: dict = {}
+
+    def part_done(name: str) -> None:
+        nonlocal t_mark
+        walls[name] = round(time.perf_counter() - t_mark, 3)
+        t_mark = time.perf_counter()
+
+    r, n = pd.rank(), pd.world_size()
+    dev = pd.rank_device()
+    cuda = dev.type == "cuda"
+    out = {"rank": r, "backend": pd.backend(), "device": str(dev), "describe": pd.describe(),
+           "current": torch.cuda.current_device() if cuda else None}
+    glob = payload["batch"]
+    n_videos = glob["box_mask"].shape[0]
+
+    def block(d: int, nd: int, **over) -> Entry:
+        per = n_videos // nd
+        fields = dict(glob, **over)
+        return Entry(**{k: v[d * per:(d + 1) * per].to(dev) for k, v in fields.items()})
+
+    def steps(st, step, blk) -> tuple:
+        losses, ms, comms = [], [], []
+        for i in range(conf["steps"]):
+            pd.barrier()
+            p16_sync(dev)
+            tpar.reset_comm()
+            t0 = time.perf_counter()
+            st, met = step(st, blk, torch.Generator(device=dev).manual_seed(100 + i))
+            p16_sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            comms.append(dict(tpar.COMM))
+            losses.append({k: float(v) for k, v in met.items()})
+        return st, losses, ms, comms
+
+    def buffers(sd: dict) -> str:
+        return p17_digest({k: v for k, v in sd.items() if "running_" in k})
+
+    # the bf16 STTran, built once; each part steps a copy of its seeded weights
+    base = p19_model(conf, dev)
+    part_done("payload and model")
+
+    # ---- (a) the data axis, mesh n x 1 ----
+    mesh = make_mesh(-1, 1)
+    blk = block(r, n)
+    model = copy.deepcopy(base)
+    st = create_train_state(model, lr=conf["lr"])
+    step = make_train_step(data_parallel(model, mesh), st.optimizer)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ma.reset_launches()
+    ALLREDUCE["bytes"] = ALLREDUCE["calls"] = 0
+    comm.reset_staged()
+    st, losses, ms, _ = steps(st, step, blk)
+    a = {"losses": losses, "ms": ms, "launches": dict(ma.LAUNCHES), "skipped": st.skipped,
+         "allreduce": (ALLREDUCE["bytes"] / conf["steps"], ALLREDUCE["calls"] / conf["steps"]),
+         "staged": comm.STAGED["bytes"], "digest": p17_digest(model.state_dict()),
+         "buffers": buffers(model.state_dict()),
+         "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+         "grad_bytes": sum(p.numel() * p.element_size() for p in model.parameters()
+                           if p.requires_grad)}
+    if r == 0:
+        a["state"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    # a NaN in rank 0's block: every rank skips
+    features = glob["features"].clone()
+    if r == 0:
+        features[0, 0, 0] = float("nan")
+    ma.reset_launches()
+    st, met = step(st, block(r, n, features=features), torch.Generator(device=dev).manual_seed(200))
+    a["nan_launches"] = dict(ma.LAUNCHES)
+    a["nan"] = (float(met["valid"]), st.skipped, p17_digest(model.state_dict()) == a["digest"])
+    del step, st, model, features
+    part_done("(a) steps")
+
+    # the gradient's bytes all-reduced: on the group (NCCL on the cards),
+    # CUDA events; on the host group (gloo), the host clock; median of the
+    # timed calls after one warm-up
+    buf = torch.empty(a["grad_bytes"] // 4, device=dev)
+    host = np.empty(a["grad_bytes"] // 4, np.float32)
+    times = {"group": [], "host": []}
+    ok = True
+    for i in range(conf["ar_reps"] + 1):
+        buf.fill_(1.0)
+        pd.barrier()
+        p16_sync(dev)
+        if cuda:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dist.all_reduce(buf)
+            e1.record()
+            e1.synchronize()
+            times["group"].append(e0.elapsed_time(e1))
+        else:
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            times["group"].append((time.perf_counter() - t0) * 1e3)
+        ok = ok and float(buf[0]) == n and float(buf[-1]) == n
+        host.fill(1.0)
+        pd.barrier()
+        t0 = time.perf_counter()
+        got = pd.all_reduce_host(host)
+        times["host"].append((time.perf_counter() - t0) * 1e3)
+        ok = ok and got[0] == n and got[-1] == n
+    a["ar"] = {"group_ms": statistics.median(times["group"][1:]),
+               "host_ms": statistics.median(times["host"][1:]), "times": times, "ok": ok}
+    del buf, host, got
+    part_done("(a) all-reduces")
+
+    # one DSG-DETR sgdet DDP step on set (b)
+    dsg = p19_model(conf, dev, "DSGDETR")
+    dst = create_train_state(dsg, lr=conf["lr"])
+    ma.reset_launches()
+    dst, met = make_train_step(data_parallel(dsg, mesh), dst.optimizer)(
+        dst, block(r, n, labels=payload["labels_b"], distribution=payload["dist_b"]),
+        torch.Generator(device=dev).manual_seed(300))
+    a["dsg_launches"] = dict(ma.LAUNCHES)
+    a["dsg"] = ({k: float(v) for k, v in met.items()}, dst.skipped,
+                p17_digest(dsg.state_dict()))
+    if r == 0:
+        a["dsg_state"] = {k: v.detach().cpu().clone() for k, v in dsg.state_dict().items()}
+    del dst
+    out["a"] = a
+    part_done("(a) DSG-DETR")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- (b) the sharded forwards over the n ranks ----
+    video = Entry(**{k: v.to(dev)[None] for k, v in payload["video"].items()})
+    video_b = Entry(**dict(vars(video), labels=payload["video_labels_b"].to(dev)[None],
+                           distribution=payload["video_dist_b"].to(dev)[None]))
+    comm.reset_staged()
+    sp = {}
+    for dname in ("bfloat16", "float32"):
+        m = copy.deepcopy(base) if dname == "bfloat16" else p19_model(conf, dev, float32=True)
+        with torch.no_grad():
+            rel = relation_features(m, video, video.labels, False)
+        dist.broadcast(rel, 0)           # one input on every rank, bit for bit
+        im, rm = video.im_idx[0], video.rel_mask[0]
+        counts = torch.bincount(im[rm].long(), minlength=conf["frames"])
+        ma.reset_launches()
+        got = sttran_transformer_sharded(m.glocal_transformer, rel[0], im, rm, conf["frames"],
+                                         int(counts.max()))
+        launches = dict(ma.LAUNCHES)
+        with torch.no_grad():
+            dense = m.glocal_transformer(rel, video.im_idx, video.rel_mask)[0]
+        sp[f"sttran {dname}"] = (float((got.float() - dense.float()).abs().max()),
+                                 float(dense.float().abs().max()), launches,
+                                 bool(got.isfinite().all()))
+        del m
+    dsg.eval()
+    with torch.no_grad():
+        h, fo, oc, rk = dsg.segment_inputs(video_b)
+        dense = dsg(video_b)["global_output"][0]
+    ma.reset_launches()
+    got = dsg_detr_transformer_sharded(dsg, h[0], fo[0], oc[0], rk[0], video_b.rel_mask[0])
+    sp["dsg-detr bfloat16"] = (float((got - dense.float()).abs().max()),
+                               float(dense.float().abs().max()), dict(ma.LAUNCHES),
+                               bool(got.isfinite().all()))
+    out["b"] = {"sp": sp, "staged": comm.STAGED["bytes"]}
+    del dsg, got, dense, video, video_b
+    part_done("(b)")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- (c) the model axis over model groups ----
+    out["c"] = {}
+    for d, m_ in p19_meshes(n):
+        name = f"{d}x{m_}"
+        model = copy.deepcopy(base)
+        try:
+            tpar.check_widths(model, m_)
+        except ValueError as e:       # the same answer on every rank: no group is made
+            out["c"][name] = {"refused": str(e)}
+            continue
+        mesh = make_mesh(d, m_)
+        model = tpar.shard_module(model, mesh)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        st = create_train_state(model, lr=conf["lr"])
+        step = make_train_step(data_parallel(model, mesh), st.optimizer)
+        ma.reset_launches()
+        ALLREDUCE["bytes"] = 0
+        st, losses, ms, comms = steps(st, step, block(mesh.data_index, d))
+        params = sum(p.numel() * p.element_size() for p in model.parameters())
+        c = {"mesh": (mesh.data_index, mesh.model_index, pd.data_size(), pd.model_size()),
+             "losses": losses, "ms": ms, "comm": comms[-1], "skipped": st.skipped,
+             "launches": dict(ma.LAUNCHES), "ddp_bytes": ALLREDUCE["bytes"] / conf["steps"],
+             "resident": {"params": params, "grads": params, "adamw": sum(
+                 t.numel() * t.element_size() for s in st.optimizer.adamw.state.values()
+                 for k, t in s.items() if k != "step")},
+             "peak": torch.cuda.max_memory_allocated(dev) if cuda else 0}
+        full = tpar.full_state_dict(model)           # a collective over each model group
+        c["digest"] = p17_digest(full)
+        if r == 0:
+            c["state"] = {k: v.detach().cpu().clone() for k, v in full.items()}
+        out["c"][name] = c
+        del full, step, st, model
+        if cuda:
+            torch.cuda.empty_cache()
+        part_done(f"(c) {name}")
+    out["walls"] = walls
+    return out
+
+
+def p19_rank(r: int, n: int, url: str, work: str, conf: dict) -> None:
+    """One rank of phase 19 (spawned by `multicard_phases`): the process
+    group over the rank's card (NCCL when each rank has its own), then
+    `p19_body` on <work>/in.pt; writes <work>/rank<r>.pt."""
+    import types
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    from nl_vsgg_tpu_torch.parallel import distributed as pd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    payload = torch.load(os.path.join(work, "in.pt"), weights_only=False)
+    pd.init_distributed(types.SimpleNamespace(coordinator_address=url, num_processes=n,
+                                              process_id=r), device=conf["device"],
+                        timeout_s=conf["timeout"])
+    out = p19_body(payload, conf)
+    torch.save(out, os.path.join(work, f"rank{r}.pt"))
+    pd.shutdown()
+
+
+def p19_verdicts(res: list, refs: dict, conf: dict) -> list[str]:
+    """Phase 19 (a)-(c) from every rank's `p19_body` result against the
+    one-process references: each part logged, and the failures returned
+    (empty when all passed). On the cards each rank must run NCCL on its own
+    card and launch 4 + 4 + 4 attention kernels a train step; on the CPU
+    gloo and none."""
+    n = len(res)
+    cuda = conf["device"] == "cuda"
+    bad: list[str] = []
+    k = 4 if cuda else 0
+    per_step = {"fwd": k, "bwd_dq": k, "bwd_dkv": k}
+    want = {key: v * conf["steps"] for key, v in per_step.items()}
+    patol = P19_PARAM_ATOL_STEP * conf["steps"]
+    ref_losses = refs["losses"]
+
+    def failing(checks: dict) -> str:
+        """The names of the checks that failed, comma-separated."""
+        return ", ".join(k for k, failed in checks.items() if failed)
+
+    def loss_rel(losses) -> float:
+        return max(abs(a["total"] - b["total"]) / abs(b["total"])
+                   for a, b in zip(losses, ref_losses))
+
+    # ---- the ranks: backend and card ----
+    where = [(x["backend"], x["device"], x["current"]) for x in res]
+    own = [("nccl", f"cuda:{r}", r) if cuda else ("gloo", "cpu", None) for r in range(n)]
+    log(f"phase 19 ranks (backend, device, current device): {where}; lines "
+        f"{[x['describe'] for x in res]}; walls (s) of rank 0's parts {res[0]['walls']}")
+    if where != own:
+        bad.append(f"(ranks): on {where}, expected {own}")
+
+    # ---- (a) ----
+    a = [x["a"] for x in res]
+    worst, name, buf = p16_params_apart(a[0]["state"], refs["state"], conf["steps"])
+    rel = loss_rel(a[0]["losses"])
+    same = len({x["digest"] for x in a}) == 1 and len({x["buffers"] for x in a}) == 1
+    nan_ok = all(x["nan"] == (0.0, 1, True) for x in a)
+    dsg_loss = abs(a[0]["dsg"][0]["total"] - refs["dsg"]["total"]) / abs(refs["dsg"]["total"])
+    dworst, dname, dbuf = p16_params_apart(a[0]["dsg_state"], refs["dsg_state"], 1)
+    step_ms = [max(x["ms"][i] for x in a) for i in range(conf["steps"])]
+    log(f"phase 19 (a) mesh {n} x 1, {conf['steps']} DDP steps, "
+        f"{res[0]['a']['grad_bytes']} gradient bytes: losses "
+        f"{[round(x['total'], 5) for x in a[0]['losses']]} against one process's "
+        f"{[round(x['total'], 5) for x in ref_losses]} (largest relative difference {rel:.2e}, "
+        f"tol {P19_LOSS_RTOL}); parameters apart by at most {worst:.3e} at {name} (tol "
+        f"{patol:.1e}); BatchNorm buffers {buf:.2e} of their magnitude (tol "
+        f"{P19_BUF_REL}), parameters and buffers equal on all {n} ranks: {same}; NaN in rank "
+        f"0's block (valid, skipped, unchanged) {[x['nan'] for x in a]}; launches a rank "
+        f"{a[0]['launches']}, NaN step {a[0]['nan_launches']}")
+    log(f"phase 19 (a) ms a step of the global batch (slowest rank) "
+        f"{[round(x, 3) for x in step_ms]} beside one process's "
+        f"{[round(x, 3) for x in refs['ms']]}; all-reduced a step a rank "
+        f"{a[0]['allreduce'][0]:.0f} bytes in {a[0]['allreduce'][1]:.0f} DDP buckets; "
+        f"host-staged {[x['staged'] for x in a]}; peak device memory a rank "
+        f"{[round(x['peak'] / 2 ** 30, 3) for x in a]} GiB")
+    log(f"phase 19 (a) DSG-DETR sgdet DDP step on set (b): loss {a[0]['dsg'][0]['total']:.5f} "
+        f"against one process's {refs['dsg']['total']:.5f} (relative {dsg_loss:.2e}, tol "
+        f"{P19_LOSS_RTOL}); parameters apart by at most {dworst:.3e} at {dname} (tol "
+        f"{P19_PARAM_ATOL_STEP:.1e}), buffers {dbuf:.2e}; equal on all ranks "
+        f"{len({x['dsg'][2] for x in a}) == 1}; launches a rank {a[0]['dsg_launches']}")
+    gb = a[0]["grad_bytes"]
+    g_ms, h_ms = (max(x["ar"]["group_ms"] for x in a), max(x["ar"]["host_ms"] for x in a))
+    busbw = 2 * (n - 1) / n
+    log(f"phase 19 (a) all-reduce of the gradient's {gb} bytes (float32) over {n} ranks, "
+        f"median of {conf['ar_reps']} after a warm-up, slowest rank: "
+        f"{res[0]['backend']} {g_ms:.3f} ms ({'CUDA events' if cuda else 'host clock'}; "
+        f"algorithm bandwidth {gb / g_ms / 1e6:.2f} GB/s, bus bandwidth "
+        f"{gb / g_ms / 1e6 * busbw:.2f} GB/s as nccl-tests count it, x 2(n-1)/n), gloo on the "
+        f"host group {h_ms:.3f} ms ({gb / h_ms / 1e6:.2f} GB/s algorithm, "
+        f"{gb / h_ms / 1e6 * busbw:.2f} GB/s bus; host memory, ring); sums right "
+        f"{all(x['ar']['ok'] for x in a)}; every call (ms) "
+        f"{[{k2: [round(t, 3) for t in v] for k2, v in x['ar']['times'].items()} for x in a]}")
+    failed = failing({"losses": rel > P19_LOSS_RTOL, "parameters": worst > patol,
+                      "buffers": buf > P19_BUF_REL, "ranks equal": not same,
+                      "NaN skip": not nan_ok, "skips": any(x["skipped"] for x in a),
+                      "launches": any(x["launches"] != want or x["nan_launches"] != per_step
+                                      for x in a)})
+    if failed:
+        bad.append(f"(a): the DDP steps differ from the one-process steps, or the ranks "
+                   f"disagree ({failed})")
+    if dsg_loss > P19_LOSS_RTOL or dworst > P19_PARAM_ATOL_STEP \
+            or dbuf > P19_BUF_REL or len({x["dsg"][2] for x in a}) != 1 \
+            or any(x["dsg"][1] for x in a) or any(x["dsg_launches"] != per_step for x in a):
+        bad.append("(a): the DSG-DETR DDP step differs from the one-process step")
+    if not all(x["ar"]["ok"] for x in a) or not all(x["allreduce"][0] > 0 for x in a) \
+            or any(x["staged"] for x in a):
+        bad.append("(a): an all-reduce summed wrong, DDP all-reduced nothing, or bytes went "
+                   "through the host")
+
+    # ---- (b) ----
+    for what in res[0]["b"]["sp"]:
+        tol = P19_SP_REL["float32" if "float32" in what else "bfloat16"]
+        errs = [x["b"]["sp"][what] for x in res]
+        log(f"phase 19 (b) {what} sharded over {n} ranks against the dense module: "
+            f"max_abs_diff by rank {[f'{e[0]:.3e}' for e in errs]} (tol {tol:.2e} of the "
+            f"largest output, {errs[0][1]:.3f}); launches a rank {errs[0][2]}; finite "
+            f"{all(e[3] for e in errs)}")
+        if not all(e[0] <= tol * e[1] and e[3] and (e[2]["fwd"] > 0) == cuda for e in errs):
+            bad.append(f"(b): the sharded {what} forward differs from the dense module")
+    staged = [x["b"]["staged"] for x in res]
+    log(f"phase 19 (b) bytes staged through host memory a rank: {staged}")
+    if any(staged):
+        bad.append(f"(b): {staged} bytes went through host memory")
+
+    # ---- (c) ----
+    for name in [f"{d}x{m}" for d, m in p19_meshes(n)]:
+        cs = [x["c"][name] for x in res]
+        if "refused" in cs[0]:
+            log(f"phase 19 (c) mesh {name}: tensor.check_widths refuses it: {cs[0]['refused']}")
+            if not name.startswith("1x"):
+                bad.append(f"(c): mesh {name} refused")
+            continue
+        worst, wname, buf = p16_params_apart(cs[0]["state"], refs["state"], conf["steps"])
+        layout = {k: (tuple(v.shape), str(v.dtype)) for k, v in cs[0]["state"].items()} \
+            == refs["layout"]
+        rel = loss_rel(cs[0]["losses"])
+        same = len({x["digest"] for x in cs}) == 1
+        total = sum(cs[0]["resident"].values())
+        one = sum(refs["resident"].values())
+        log(f"phase 19 (c) mesh {name} ((data index, model index, data size, model size) "
+            f"{[x['mesh'] for x in cs]}): {conf['steps']} sliced AdamW steps, losses "
+            f"{[round(x['total'], 5) for x in cs[0]['losses']]} (largest relative difference "
+            f"{rel:.2e}, tol {P19_LOSS_RTOL}); gathered parameters apart by at most "
+            f"{worst:.3e} at {wname} (tol {patol:.1e}), buffers {buf:.2e} (tol "
+            f"{P19_BUF_REL}); every rank's gathered state equal {same}; its layout the one "
+            f"process's {layout}; resident bytes a rank {cs[0]['resident']} = "
+            f"{total / one:.4f} of one process's {refs['resident']}; collectives a step a "
+            f"rank {cs[0]['comm']}, DDP {cs[0]['ddp_bytes']:.0f} bytes; ms a step "
+            f"{[round(max(x['ms'][i] for x in cs), 3) for i in range(conf['steps'])]}; peak "
+            f"device memory a rank {[round(x['peak'] / 2 ** 30, 3) for x in cs]} GiB; "
+            f"launches a rank {cs[0]['launches']}")
+        failed = failing({"losses": rel > P19_LOSS_RTOL, "parameters": worst > patol,
+                          "buffers": buf > P19_BUF_REL, "ranks equal": not same,
+                          "layout": not layout, "skips": any(x["skipped"] for x in cs),
+                          "launches": any(x["launches"] != want for x in cs),
+                          "resident bytes": not total < one})
+        if failed:
+            bad.append(f"(c): the {name} steps differ from the one-process steps, or the ranks "
+                       f"disagree ({failed})")
+    return bad
+
+
+def card_kernel_checks(n: int) -> dict:
+    """Phase 19 (e): every kernel of the path on each card cuda:0 .. n-1, in
+    this process, the current device left at cuda:0 (each wrapper's device
+    guard and its per-device shared-memory attribute must reach the card):
+    the attention forward, dQ and dK/dV at phase 2's shapes, RoIAlign at
+    phase 9's pass shape (DET_FRAMES frames x 300 rois), the grouped conv at
+    its four classes, bf16 ("tc") and float32 ("3xtf32"), each against its
+    plain version with phase 2's and phase 7's tolerances, the routes
+    printed. Returns each `kernels` row's largest error by card."""
+    import torch
+
+    from nl_vsgg_tpu_torch.ops import grouped_conv as gc, masked_attention as ma, roi_align as ra
+
+    errs: dict = {}
+    for r in range(n):
+        dev = torch.device("cuda", r)
+        label = f"card {r}: "
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(0)
+        rows = {"masked_mha": eval_kernel_checks(ma, g, dev, timed=False, label=label)}
+        rows.update(train_kernel_checks(ma, g, dev, label))
+        g = torch.Generator(device=dev).manual_seed(3)
+        rows["roi_align"] = roi_align_checks(ra, g, dev, DET_FRAMES, label)
+        rows.update(grouped_conv_checks(gc, g, dev, CONV_CLASSES, label)[2])
+        for name, err in rows.items():
+            errs.setdefault(name, []).append(err)
+        with torch.cuda.device(dev):
+            torch.cuda.empty_cache()
+        log(f"phase 19 (e) card {r} ({torch.cuda.get_device_name(dev)}): every kernel held "
+            f"against its plain version in {time.perf_counter() - t0:.3f} s; current device "
+            f"{torch.cuda.current_device()}")
+    return errs
+
+
+def nccl_log_lines(work: str, limit: int = 40) -> list[str]:
+    """The lines of NCCL's own log (NCCL_DEBUG_FILE, one file a rank) that
+    name its version, its transports, rings and trees and its tuning, without
+    the host:pid prefixes, each once."""
+    keys = ("NCCL version", " via ", "Channel 00", "Connected all", "NVLS", "CollNet",
+            "Algorithm", "Max NThreads", "Trees", "Rings", "Pattern", "comm 0x")
+    seen: list[str] = []
+    for fn in sorted(os.listdir(work)):
+        if not fn.startswith("nccl."):
+            continue
+        with open(os.path.join(work, fn), errors="replace") as f:
+            for ln in f:
+                body = ln.split("NCCL INFO", 1)[-1].strip()[:200]
+                if any(k in body for k in keys) and body not in seen:
+                    seen.append(body)
+        break                         # one rank's file: the others say the same
+    return seen[:limit]
+
+
+def p19_resume(dev, card, ag: str, root: str, straight: str, mesh_c: dict, dtype_c: str,
+               videos_c: int, nepoch_c: int, batch_c: int) -> list:
+    """Part (d)'s resume: a copy of the straight run's epoch-0 checkpoint in
+    a new directory, then `run_training` to `nepoch_c` epochs there (its own
+    ranks), held as phase 14 holds its resume: it logs the resume, runs the
+    later epochs only, its scheduler and its final parameters and AdamW
+    moments equal the straight run's (RESUME_REL). Both runs keep the
+    device store off: a sharded store gathers each rank's own rows, so a
+    straight run's warm epoch batches its videos otherwise than the cold
+    epoch of a run resumed with an empty store. Returns each rank's
+    launches."""
+    import shutil
+    import types
+
+    from nl_vsgg_tpu_torch.tools import train_sttran as ts
+    from nl_vsgg_tpu_torch.utils.checkpoint import load_meta, load_state
+
+    out = os.path.join(root, "p19_resumed")
+    os.makedirs(os.path.join(out, "ckpt"))
+    for fn in ("0", "0.meta.json", "configs.json"):
+        src = os.path.join(straight, "ckpt", fn)
+        (shutil.copytree if os.path.isdir(src) else shutil.copy)(src, os.path.join(out, "ckpt",
+                                                                                   fn))
+    cfg = run_training_cfg(ag, root, out, mesh_c, dtype_c, nepoch_c, batch_c, store=False)
+    n_ranks = ts.local_ranks(cfg, dev)
+    t0 = time.perf_counter()
+    st = ts.run_training(cfg, types.SimpleNamespace(
+        max_videos=videos_c, device=None if dev.type == "cuda" else "cpu"), p16_build_model)
+    p16_sync(dev)
+    wall = time.perf_counter() - t0
+    log_txt = open(os.path.join(out, "log.txt")).read()
+    epoch_steps = min(videos_c, AG_VIDEOS) // batch_c
+    resumed = [ln for ln in log_txt.splitlines() if "resumed from checkpoint" in ln]
+    ckpt = sorted(os.listdir(os.path.join(out, "ckpt")))
+    sched_a = load_meta(os.path.join(out, "ckpt"))["scheduler"]
+    sched_b = load_meta(os.path.join(straight, "ckpt"))["scheduler"]
+    a, b = load_state(os.path.join(out, "ckpt")), load_state(os.path.join(straight, "ckpt"))
+    params = tensors_apart(a["model"], b["model"], "phase 19 (d) resume: parameters")
+    moments = tensors_apart(
+        {f"{i}.{k}": s[k] for i, s in a["optimizer"]["state"].items()
+         for k in ("exp_avg", "exp_avg_sq")},
+        {f"{i}.{k}": s[k] for i, s in b["optimizer"]["state"].items()
+         for k in ("exp_avg", "exp_avg_sq")}, "phase 19 (d) resume: AdamW moments")
+    launches = []
+    for r in range(n_ranks):
+        with open(os.path.join(out, f"launches{r}.json")) as f:
+            launches.append(json.load(f))
+    log(f"phase 19 (d) resume ({n_ranks} ranks): from a copy of the straight run's epoch-0 "
+        f"checkpoint, {wall:.3f} s; logged {[ln.split('INFO', 1)[-1].strip() for ln in resumed]}"
+        f"; checkpoints {ckpt}; step {st.step}; scheduler {sched_a} against the straight "
+        f"run's {sched_b}; final parameters {params}, AdamW moments {moments} (tol "
+        f"{RESUME_REL} of each tensor's largest magnitude); launches a rank {launches}; "
+        f"card {card}")
+    if not any(f"resumed from checkpoint epoch 0 (step {epoch_steps})" in ln for ln in resumed) \
+            or "Inference in Epoch (0)" in log_txt \
+            or ckpt != sorted(["0", "0.meta.json", "configs.json"]
+                              + [x for e in range(1, nepoch_c) for x in (str(e),
+                                                                          f"{e}.meta.json")]) \
+            or st.step != nepoch_c * epoch_steps \
+            or (sched_a["lr"], sched_a["num_bad"]) != (sched_b["lr"], sched_b["num_bad"]) \
+            or abs(sched_a["best"] - sched_b["best"]) > ROWS_ATOL \
+            or any(x["bwd_dq"] != 4 * (nepoch_c - 1) * epoch_steps for x in launches):
+        fail("phase 19 (d): the resumed run differs from the straight run")
+    del a, b, st
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+def p19_runs(n: int, card: str, work: str, walls: dict, dev) -> dict:
+    """Phase 19 (d): each run of P19_RUNS that n cards hold, a rank a card,
+    on phase 13's synthetic Action Genome written under `work`
+    (`run_training_check`: backend NCCL on the cards, each rank on its own,
+    the merged R@20 against one evaluation of the checkpoint on `dev`), the
+    store-off run followed by its resume (`p19_resume`). Adds each part's
+    wall to `walls`; returns the ranks' launches by `kernels` row."""
+    import shutil
+
+    counts: dict = {}
+
+    def add(launches: list, steps: int) -> None:
+        """Each rank's launches: 4 train forwards a step, the rest the evals'."""
+        for x in launches:
+            for name, k in (("masked_mha_fwd_train", 4 * steps),
+                            ("masked_mha", x["fwd"] - 4 * steps),
+                            ("masked_mha_bwd_dq", x["bwd_dq"]),
+                            ("masked_mha_bwd_dkv", x["bwd_dkv"])):
+                counts[name] = counts.get(name, 0) + k
+
+    def ranks(mesh_c: dict) -> int:
+        return n if mesh_c["data"] == -1 else mesh_c["data"] * mesh_c["model"]
+
+    runs = [run for run in P19_RUNS if 1 < ranks(run[0]) <= n]
+    if not runs:
+        log(f"phase 19 (d): every run needs 2 or more cards, {n} asked for")
+        return counts
+    t0 = time.perf_counter()
+    ag = write_synthetic_ag(work, AG_VIDEOS, N_FRAMES, FEAT, AG_OBJS, AG_DETS, AG_SEED)
+    walls["19 (d) dataset"] = round(time.perf_counter() - t0, 1)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    for mesh_c, dtype_c, videos_c, nepoch_c, batch_c, store in runs:
+        what = f"{mesh_c} {dtype_c} store {'on' if store else 'off'}"
+        t0 = time.perf_counter()
+        launches, steps, out = run_training_check(
+            dev, card, ag, work, os.path.join(work, "p19_run"), mesh_c, dtype_c, videos_c,
+            nepoch_c, batch_c, "phase 19 (d)", backend=backend, keep=not store, store=store)
+        add(launches, steps)
+        walls[f"19 (d) run {what}"] = round(time.perf_counter() - t0, 1)
+        if not store:        # the straight run of the resume
+            t0 = time.perf_counter()
+            add(p19_resume(dev, card, ag, work, out, mesh_c, dtype_c, videos_c, nepoch_c,
+                           batch_c), (nepoch_c - 1) * (min(videos_c, AG_VIDEOS) // batch_c))
+            shutil.rmtree(out, ignore_errors=True)
+            walls["19 (d) resume"] = round(time.perf_counter() - t0, 1)
+    return counts
+
+
+def multicard_phases(n: int, card: str) -> tuple[dict, dict, dict]:
+    """Phase 19, the parallel layer with one rank a card over NCCL
+    (`--cards n`): (e) every kernel on every card; the one-process
+    references on cuda:0; (a)-(c) in n spawned ranks (`p19_rank`); (d)
+    `run_training` on phase 13's synthetic Action Genome with mesh.data -1
+    (it spawns a rank a card), its merged R@20 against one evaluation of its
+    checkpoint, a resume from its epoch-0 checkpoint, then the float32 {data
+    2, model 2} run. Returns the launches by `kernels` row, (e)'s errors by
+    row and card, and the parts' walls."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from nl_vsgg_tpu_torch.data.synthetic import make_synthetic_entry
+    from nl_vsgg_tpu_torch.parallel import distributed as pd
+
+    counts: dict = {}
+    walls: dict = {}
+
+    def add(launches: dict, train: bool, model: str = "") -> None:
+        fwd = "masked_mha_fwd_train" if train else "masked_mha"
+        for name, k in ((fwd, launches["fwd"]), ("masked_mha_bwd_dq", launches["bwd_dq"]),
+                        ("masked_mha_bwd_dkv", launches["bwd_dkv"])):
+            counts[name + model] = counts.get(name + model, 0) + k
+
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60).stdout.rstrip()
+    log("nvidia-smi topo -m:\n" + topo)
+    peer = [[int(i == j or torch.cuda.can_device_access_peer(i, j)) for j in range(n)]
+            for i in range(n)]
+    log(f"peer access (torch.cuda.can_device_access_peer, row to column): {peer}")
+
+    # ---- (e) every kernel on every card ----
+    t0 = time.perf_counter()
+    errs = card_kernel_checks(n)
+    walls["19 (e) kernels on every card"] = round(time.perf_counter() - t0, 1)
+
+    work = tempfile.mkdtemp(prefix="phase19_", dir=os.path.join(HERE, "build"))
+    nccl_env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,GRAPH,TUNING",
+                "NCCL_DEBUG_FILE": os.path.join(work, "nccl.%h.%p")}
+    try:
+        # ---- the one-process references on cuda:0 ----
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(1000)                # phase 3's videos
+        entries = [make_synthetic_entry(rng, n_frames=N_FRAMES, objs_per_frame=OBJS,
+                                        bucket_boxes=N_BOXES, bucket_rels=N_RELS,
+                                        feat_dim=FEAT) for _ in range(B)]
+        payload = p19_payload(entries)
+        conf = p19_conf("cuda")
+        refs = p19_references(torch.device("cuda", 0), conf, payload)
+        torch.save(payload, os.path.join(work, "in.pt"))
+        del entries
+        torch.cuda.empty_cache()
+        walls["19 references"] = round(time.perf_counter() - t0, 1)
+        log(f"phase 19 references in this process on cuda:0: {conf['steps']} bf16 STTran steps "
+            f"over all {B} videos, losses {[round(x['total'], 5) for x in refs['losses']]}, ms "
+            f"{[round(x, 3) for x in refs['ms']]}; one DSG-DETR step on set (b), loss "
+            f"{refs['dsg']['total']:.5f}")
+
+        # ---- (a)-(c) in n ranks, one a card ----
+        t0 = time.perf_counter()
+        os.environ.update(nccl_env)
+        try:
+            pd.join_processes(mp.start_processes(
+                p19_rank, args=(n, f"file://{os.path.join(work, 'store')}", work, conf),
+                nprocs=n, join=False, start_method="spawn"), timeout_s=P16_TIMEOUT_S * 2)
+        finally:
+            for key in nccl_env:
+                os.environ.pop(key, None)
+        res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+               for r in range(n)]
+        walls["19 (a)-(c) ranks"] = round(time.perf_counter() - t0, 1)
+        log(f"phase 19 (a)-(c): {n} spawned ranks in {walls['19 (a)-(c) ranks']} s; NCCL's "
+            f"log (NCCL_DEBUG=INFO, INIT,GRAPH,TUNING):\n  "
+            + "\n  ".join(nccl_log_lines(work) or ["(no line read)"]))
+        bad = p19_verdicts(res, refs, conf)
+        if bad:
+            fail("phase 19: " + "; ".join(bad))
+        for x in res:
+            add(x["a"]["launches"], True)
+            add(x["a"]["nan_launches"], True)
+            add(x["a"]["dsg_launches"], True, "_dsg_detr")
+            for what, (_, _, launches, _) in x["b"]["sp"].items():
+                add(launches, False, "_dsg_detr" if what.startswith("dsg") else "")
+            for c in x["c"].values():
+                if "launches" in c:
+                    add(c["launches"], True)
+        del res, refs, payload
+
+        # ---- (d) the entry point: run_training, a rank a card ----
+        for name, k in p19_runs(n, card, work, walls, torch.device("cuda", 0)).items():
+            counts[name] = counts.get(name, 0) + k
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 19 launches by kernels row (the ranks' main-path runs, summed over ranks): "
+        f"{counts}")
+    return counts, errs, walls
+
+
+# the multi-card `kernels` rows: each kernel's source and the TPU call it replaces
+P19_ROWS = {"masked_mha": ("masked_attention.cu", "pallas_attention.py:143"),
+            "masked_mha_fwd_train": ("masked_attention.cu", "pallas_attention.py:143"),
+            "masked_mha_bwd_dq": ("masked_attention.cu", "pallas_attention.py:157"),
+            "masked_mha_bwd_dkv": ("masked_attention.cu", "pallas_attention.py:157"),
+            "masked_mha_dsg_detr": ("masked_attention.cu", "pallas_attention.py:143"),
+            "masked_mha_fwd_train_dsg_detr": ("masked_attention.cu", "pallas_attention.py:143"),
+            "masked_mha_bwd_dq_dsg_detr": ("masked_attention.cu", "pallas_attention.py:157"),
+            "masked_mha_bwd_dkv_dsg_detr": ("masked_attention.cu", "pallas_attention.py:157"),
+            "roi_align": ("roi_align.cu", "pallas_roi_align.py:163"),
+            "grouped_conv3x3": ("grouped_conv.cu", "pallas_grouped_conv.py:148"),
+            "grouped_conv3x3_fp32": ("grouped_conv.cu", "pallas_grouped_conv.py:148")}
+
+
+def multicard_rows(counts: dict, errs: dict) -> list[dict]:
+    """Phase 19's `kernels_multicard` rows: each kernel's launches on the
+    ranks' main-path runs and its largest error against its plain version
+    on each card (part (e))."""
+    return [{"name": name, "route": "cuda", "source": f"nl_vsgg_tpu_torch/csrc/{src}",
+             "replaces": f"nl_vsgg_tpu/ops/{tpu}", "launches_multicard": counts.get(name, 0),
+             "max_abs_err_by_card": errs.get(name)} for name, (src, tpu) in P19_ROWS.items()]
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the PyTorch port on the GPU.")
+    parser.add_argument("--cards", type=int, default=0,
+                        help="run phase 19 alone (after the build): the parallel layer with "
+                             "one rank on each of this many cards, over NCCL")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
         fail("torch is not installed")
+    if args.cards and torch.cuda.device_count() < args.cards:
+        fail(f"--cards {args.cards}: {torch.cuda.device_count()} CUDA card(s) visible")
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's kernels run on the GPU")
     sys.path.insert(0, HERE)
@@ -5283,6 +6324,17 @@ def main() -> None:
     log(f"card: {card}")
 
     walls = {"1 build": round(time.perf_counter() - t_start, 1)}
+    if args.cards:
+        log(f"cards: {smi}")
+        counts, errs, p19_walls = multicard_phases(args.cards, "; ".join(smi) or "not read")
+        walls.update(p19_walls)
+        log(f"phase walls (s): {json.dumps(walls)}")
+        log(f"cards: {smi}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+        log(json.dumps({"kernels_multicard": multicard_rows(counts, errs)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     t_mark = time.perf_counter()
 
     def phase_done(name: str) -> None:
@@ -5293,78 +6345,8 @@ def main() -> None:
 
     # ---- 2. kernel vs plain version at the path's shapes ----
     g = torch.Generator(device=dev).manual_seed(0)
-    scale = HEAD_DIM ** -0.5
-    for dtype in (torch.float32, torch.bfloat16):
-        for lq, lk in ((96, 96), (192, 192), (96, 192)):
-            q = torch.randn(B, lq, H, HEAD_DIM, device=dev, generator=g).to(dtype)
-            kv = torch.randn(B, lk, 2 * H * HEAD_DIM, device=dev, generator=g).to(dtype)
-            k = kv[..., :H * HEAD_DIM].unflatten(-1, (H, HEAD_DIM))  # strided, as on the path
-            v = kv[..., H * HEAD_DIM:].unflatten(-1, (H, HEAD_DIM))
-            allow = torch.rand(B, lq, lk, device=dev, generator=g) < 0.3
-            allow[:, ::7] = False                    # fully masked rows
-            out = ma.masked_mha(q, k, v, allow, scale)
-            torch.cuda.synchronize()
-            err, ok = kernel_err(out, ma.masked_mha_reference(q, k, v, allow, scale))
-            zero_rows = float(out[:, ::7].float().abs().max())
-            kms = cuda_ms(lambda: ma.masked_mha(q, k, v, allow, scale))
-            log(f"masked_mha {str(dtype)[6:]} {lq}x{lk}: max_abs_err {err:.3e} "
-                f"(tol {KERNEL_TOL[str(dtype)]}), masked rows max |out| {zero_rows}, "
-                f"{kms:.4f} ms on dense random masks (every key tile live)")
-            if not ok or zero_rows != 0.0:
-                fail(f"masked_mha disagrees with its plain version at {dtype} {lq}x{lk}")
-
-    # the train forward (dropout, lse) and both backward kernels; with
-    # dropout on, one pair whose keep bit differed from the plain version's
-    # would move the output by about p |v|, far above the tolerance
-    seeds = torch.randint(-2 ** 31, 2 ** 31, (B,), generator=g, device=dev, dtype=torch.int32)
-    for dtype in (torch.float32, torch.bfloat16):
-        for lq, lk in ((96, 96), (192, 192), (96, 192)):
-            q = torch.randn(B, lq, H, HEAD_DIM, device=dev, generator=g).to(dtype)
-            kv = torch.randn(B, lk, 2 * H * HEAD_DIM, device=dev, generator=g).to(dtype)
-            k = kv[..., :H * HEAD_DIM].unflatten(-1, (H, HEAD_DIM))
-            v = kv[..., H * HEAD_DIM:].unflatten(-1, (H, HEAD_DIM))
-            gout = torch.randn(B, lq, H, HEAD_DIM, device=dev, generator=g).to(dtype)
-            allow = torch.rand(B, lq, lk, device=dev, generator=g) < 0.3
-            allow[:, ::7] = False                    # rows with no allowed key
-            allow[:, :, 5::11] = False               # keys no query may see
-            allow_t = allow.transpose(1, 2).contiguous()
-            for rate in (0.0, RATE):
-                sd = seeds if rate else None
-                out, lse = ma.masked_mha_forward(q, k, v, allow, scale, rate, sd)
-                dq, r = ma.masked_mha_bwd_dq(q, k, v, allow, scale, gout, lse, rate, sd)
-                dk, dv = ma.masked_mha_bwd_dkv(q, k, v, allow_t, scale, gout, lse, r, rate, sd)
-                torch.cuda.synchronize()
-                what = f"{str(dtype)[6:]} {lq}x{lk} rate {rate}"
-                errs = {}
-                for name, got, ref, tol in (
-                        ("out", out, ma.masked_mha_reference(q, k, v, allow, scale, rate, sd),
-                         KERNEL_TOL),
-                        ("lse", lse, ma.masked_mha_lse_reference(q, k, allow, scale), GRAD_TOL),
-                        *zip(("dq", "r"), (dq, r),
-                             ma.masked_mha_bwd_dq_reference(q, k, v, allow, scale, gout, rate,
-                                                            sd), (GRAD_TOL, GRAD_TOL)),
-                        *zip(("dk", "dv"), (dk, dv),
-                             ma.masked_mha_bwd_dkv_reference(q, k, v, allow, scale, gout, r,
-                                                             rate, sd), (GRAD_TOL, GRAD_TOL))):
-                    errs[name], ok = kernel_err(got, ref, tol)
-                    if not ok:
-                        fail(f"train kernels: {name} disagrees with its plain version at "
-                             f"{what} (max_abs_err {errs[name]:.3e})")
-                empty = [float(t.float().abs().max()) for t in
-                         (out[:, ::7], dq[:, ::7], dk[:, 5::11], dv[:, 5::11])]
-                if any(empty) or not bool((lse.transpose(1, 2)[:, ::7] == ma.LSE_EMPTY).all()):
-                    fail(f"train kernels: rows or keys with no allowed pair are not 0 at {what}")
-                # the autograd path launches the same kernels on the same inputs
-                q2, kv2 = q.detach().requires_grad_(), kv.detach().requires_grad_()
-                k2 = kv2[..., :H * HEAD_DIM].unflatten(-1, (H, HEAD_DIM))
-                v2 = kv2[..., H * HEAD_DIM:].unflatten(-1, (H, HEAD_DIM))
-                ma.masked_mha(q2, k2, v2, allow, scale, rate, sd).backward(gout)
-                same = (torch.equal(q2.grad, dq)
-                        and torch.equal(kv2.grad, torch.cat([dk, dv], -2).flatten(-2)))
-                if not same:
-                    fail(f"train kernels: the autograd path differs from the wrappers at {what}")
-                log(f"train kernels {what}: max_abs_err " + ", ".join(
-                    f"{n} {e:.3e}" for n, e in errs.items()) + "; empty rows/keys exactly 0")
+    eval_kernel_checks(ma, g, dev)
+    train_kernel_checks(ma, g, dev)
 
     dq_edge_checks(ma, g, dev)
     route_edge_checks(ma, g, dev)
@@ -5577,7 +6559,7 @@ def main() -> None:
     finally:
         shutil.rmtree(shared, ignore_errors=True)
 
-    # ---- 19. result lines ----
+    # ---- 20. result lines ----
     kernels = [attention_row("masked_mha", 143, launches["fwd"], totals),
                attention_row("masked_mha_fwd_train", 143, train_launches[True]["fwd"],
                              train_rows["fwd"]),
@@ -5592,6 +6574,7 @@ def main() -> None:
         row["launches_parallel"] = p16.get(row["name"], 0)
         row["launches_model_axis"] = p17.get(row["name"], 0)
         row["launches_acceptance"] = p18.get(row["name"], 0)
+        row["launches_multicard"] = 0        # phase 19 runs only with --cards
     log(f"phase walls (s): {json.dumps(walls)}")
     log(f"card: {card}; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

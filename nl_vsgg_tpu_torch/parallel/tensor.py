@@ -25,12 +25,16 @@ A sharded layer computes y = gather_out(F.linear(copy_in(x), W_r, b_r)):
     gradients by the model-axis size.)
 
 Everything downstream of a gather is replicated: every rank of a model
-group computes it from the same bits, so the ranks stay bit-identical as
-long as they draw the same dropout masks (one generator seed for the whole
-model group). Under gloo the gathers move raw bytes (every dtype crosses)
-and a bfloat16 gradient is all-reduced in float32, cast back after (the
-cast up is exact; the sum is rounded once). `COMM` counts the bytes of the
-gathered outputs and of the all-reduced gradients.
+group computes it from the same bits, with the same dropout masks (one
+generator seed for the whole model group). A kernel that sums in no fixed
+order (the card's atomics, threaded CPU kernels under load) can still
+round a replicated gradient apart on one rank, and the replicas would then
+drift: the train step broadcasts the replicated parameters' gradients from
+the group's first rank after each backward (`broadcast_grads`).
+Under gloo the gathers move raw bytes (every dtype crosses) and a bfloat16
+gradient is all-reduced in float32, cast back after (the cast up is exact;
+the sum is rounded once). `COMM` counts the bytes of the gathered outputs,
+of the all-reduced gradients and of the broadcast ones.
 
 `shard_module(model, mesh)` slices a built (full) model in place for the
 rank; `full_state_dict` / `load_full_state_dict` gather and slice the
@@ -50,7 +54,8 @@ from . import distributed as D
 
 MIN_DIM = 1024   # nl_vsgg_tpu/parallel/mesh.py _MODEL_SHARD_MIN_DIM
 
-COMM = {"gather_bytes": 0, "gathers": 0, "allreduce_bytes": 0, "allreduces": 0}
+COMM = {"gather_bytes": 0, "gathers": 0, "allreduce_bytes": 0, "allreduces": 0,
+        "broadcast_bytes": 0, "broadcasts": 0}
 
 
 def reset_comm() -> None:
@@ -234,6 +239,30 @@ def sharded_parameters(model: nn.Module) -> tuple[object, list[nn.Parameter]]:
     params = dict(model.named_parameters())
     tp = model_axis(model)
     return (tp.group if tp is not None else None), [params[k] for k in specs if k in params]
+
+
+def replicated_parameters(model: nn.Module) -> list[nn.Parameter]:
+    """The parameters the model axis does not shard: every rank of a model
+    group holds them whole."""
+    sharded = {id(p) for p in sharded_parameters(model)[1]}
+    return [p for p in model.parameters() if id(p) not in sharded]
+
+
+def broadcast_grads(params: list[nn.Parameter], tp: TP) -> None:
+    """The gradients of `params` (the replicated parameters) as the model
+    group's first rank holds them, on every rank of the group (a collective
+    over it): one copy of the replicated state, whatever order a kernel
+    summed in on each rank."""
+    grads = [p.grad for p in params if p.grad is not None]
+    src = dist.get_global_rank(tp.group, 0)
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        same = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.broadcast(flat, src=src, group=tp.group)
+        for g, new in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(new.view_as(g))
+        COMM["broadcast_bytes"] += flat.numel() * flat.element_size()
+        COMM["broadcasts"] += 1
 
 
 def full_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:

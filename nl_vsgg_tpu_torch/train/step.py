@@ -31,7 +31,10 @@ group, whose size is `world`, and those reductions run over it too; the
 ranks of one model group hold one replica between them and compute the
 same losses. The guard must still be one decision on every rank: each
 rank's gradient slices may hold a NaN the others lack, so the gradients'
-finiteness is also reduced over the model group.
+finiteness is also reduced over the model group. After the backward the
+replicated parameters' gradients are broadcast from the model group's
+first rank, so a kernel that rounds them apart on one rank cannot let the
+replicas drift.
 
 Device rule: the step runs where the model is. The model is built on CUDA
 unless its caller asked for the CPU (`STTran(device="cpu")`); the batch and
@@ -51,7 +54,7 @@ from ..data.entry import Entry, stack_entries
 from ..device import resolve_device
 from ..models.layers import MaskedBatchNorm
 from ..models.losses import sttran_losses
-from ..parallel.tensor import model_axis
+from ..parallel.tensor import broadcast_grads, model_axis, replicated_parameters
 from .state import ClippedAdamW, TrainState
 
 __all__ = ["eval_step", "make_train_step", "place_entries", "stack_entries"]
@@ -125,6 +128,8 @@ def make_train_step(model: torch.nn.Module, optimizer, bce: bool = True) -> Call
         raise ValueError("the model is sharded over a model axis: build its optimizer with "
                          "train.state.create_train_state, which sums the sharded gradients' "
                          "norms over the model group")
+    replicated = (replicated_parameters(core) if tp is not None and tp.group is not None
+                  else None)
 
     def train_step(state: TrainState, batch: Entry, generator: torch.Generator):
         if not (_same_device(batch.box_mask.device, device)
@@ -146,6 +151,8 @@ def make_train_step(model: torch.nn.Module, optimizer, bce: bool = True) -> Call
         sums = torch.stack([torch.where(vid_w > 0, per_video[k] * vid_w, 0.0).sum(0)
                             for k in LOSS_KEYS])
         (sums[-1] / denom if world == 1 else sums[-1] * world / denom).backward()
+        if replicated is not None:   # one copy of the model group's replicated gradients
+            broadcast_grads(replicated, tp)
 
         with torch.no_grad():
             sums = sums.detach()

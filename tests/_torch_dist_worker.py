@@ -1,6 +1,6 @@
 """One rank of a multi-process job for the port's parallel-layer tests
 (tests/test_torch_distributed.py, test_torch_ddp.py, test_torch_sp.py,
-test_torch_tp.py, test_torch_tp_train.py).
+test_torch_tp.py, test_torch_tp_train.py, test_torch_multicard.py).
 
     python -m tests._torch_dist_worker <mode> <payload.pt> <out_dir>
 
@@ -282,7 +282,9 @@ def mode_tp(payload: dict) -> dict:
     the rank's data block with the model sharded over its model group; the
     gathered one-rank state after each step, digested on every rank and
     held against the references on rank 0. A case's `nan_slice` steps put
-    a NaN in the last model index's gradient slice of `nan_param` alone."""
+    a NaN in the last model index's gradient slice of `nan_param` alone;
+    its `nudge_param` moves that parameter's gradient by 1e-6 on the last
+    model index alone."""
     import torch
 
     from nl_vsgg_tpu_torch.data.entry import stack_entries
@@ -312,13 +314,17 @@ def mode_tp(payload: dict) -> dict:
         for i, (entries, step_refs) in enumerate(zip(case["batches"], case["refs"])):
             per = len(entries) // mesh.data
             block = stack_entries(entries[mesh.data_index * per:(mesh.data_index + 1) * per])
-            hook = None
-            if i in case.get("nan_slice", ()) and mesh.model_index == mesh.model - 1:
-                hook = dict(model.named_parameters())[case["nan_param"]].register_hook(
-                    lambda g: g * float("nan"))
+            hooks = []
+            last = mesh.model_index == mesh.model - 1
+            if i in case.get("nan_slice", ()) and last:
+                hooks.append(dict(model.named_parameters())[case["nan_param"]].register_hook(
+                    lambda g: g * float("nan")))
+            if case.get("nudge_param") and last:   # a gradient rounded apart on one rank
+                hooks.append(dict(model.named_parameters())[case["nudge_param"]].register_hook(
+                    lambda g: g + 1e-6))
             T.reset_comm()
             st, met = step(st, block, torch.Generator().manual_seed(0))
-            if hook is not None:
+            for hook in hooks:
                 hook.remove()
             res["comm"] = dict(T.COMM)
             res["losses"].append({k: float(v) for k, v in met.items()})
@@ -389,6 +395,14 @@ def mode_train(payload: dict) -> dict:
     return {"steps": steps}
 
 
+def mode_multicard(payload: dict) -> dict:
+    """chip_smoke.py phase 19's rank body (`p19_body`: parts (a)-(c)) on
+    this rank, its widths from payload["conf"]."""
+    import chip_smoke
+
+    return chip_smoke.p19_body(payload, payload["conf"])
+
+
 def main() -> None:
     import torch
 
@@ -401,7 +415,8 @@ def main() -> None:
     payload = torch.load(payload_path, weights_only=False)
     D.init_distributed(None, device="cpu", timeout_s=DIST_TIMEOUT_S)
     out = {"mode_gather": mode_gather, "mode_ddp": mode_ddp, "mode_sp": mode_sp,
-           "mode_train": mode_train, "mode_tp": mode_tp}["mode_" + mode](payload)
+           "mode_train": mode_train, "mode_tp": mode_tp,
+           "mode_multicard": mode_multicard}["mode_" + mode](payload)
     out["backend"] = D.backend()
     torch.save(out, os.path.join(out_dir, f"rank{D.rank()}.pt"))
     D.shutdown()
